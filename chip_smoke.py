@@ -1,30 +1,54 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (gtos_tpu_torch) on one NVIDIA GPU, end to end.
+"""Drive the PyTorch port (gtos_tpu_torch) on one NVIDIA GPU, end to end:
+serving and training of the configs/c2_amr2.json model at full width.
 
     python3 chip_smoke.py            # from the repo root, on a machine with a card
-    python3 chip_smoke.py --profile  # and where the serving time goes
+    python3 chip_smoke.py --profile  # and where the serving and training time goes
 
 Phases, each of which exits non-zero on failure:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — builds the CUDA kernel of the serving path from
-               gtos_tpu_torch/ops/csrc (nvcc, sm_90a) and prints the build
-               time;
+  2. build   — builds every CUDA kernel of the serving and training paths
+               from gtos_tpu_torch/ops/csrc (one nvcc per source, all
+               started together; sm_90a) and prints the build times;
   3. kernels — holds each kernel against its plain torch version on real
                batchify index arrays (N=32 and N=128 buckets, bf16 and
                f32), and times both (CUDA events, L2 flushed before every
-               launch) beside the bound;
-  4. serve   — builds the configs/c2_amr2.json model at full width with
-               seeded random weights and serves the fullest batch of each
-               of three node buckets with decode_batch (beam 8), counting
-               the kernel launches of that run; then holds the whole
-               encoder (card, bf16, kernel) against the same weights on
-               the CPU in f32 (plain version), in bf16 and in f32 on the
-               card, and shows that two planted wrong versions of the
-               kernel fail both checks;
-  5. shapes  — each kernel again, on the very inputs the serving run gave
-               it, against its plain version and timed: the table row;
-  6. profile — with --profile only: torch.profiler over each served
-               batch, its device busy time, idle share and top kernels.
+               launch) beside the bound: B1 (forward), B1p (forward with
+               the f32 probabilities: out and probs) and B2 (backward:
+               gq, gk, gv, g_a_loc, g_b_loc against autograd of the plain
+               forward);
+  4. serve   — builds the model with seeded random weights and serves the
+               fullest batch of each of three node buckets with
+               decode_batch (beam 8), counting the kernel launches of that
+               run (B1 = enc_layers per batch, B1p = B2 = 0); then holds
+               the whole encoder (card, bf16, kernel) against the same
+               weights on the CPU in f32 (plain version), in bf16 and in
+               f32 on the card, and shows that two planted wrong versions
+               of B1 fail both checks;
+  5. train   — Trainer.fit of the same model on for_train=True DataLoader
+               batches of the synthetic AMR 2.0-scale corpus for
+               TRAIN_STEPS steps: step time, tokens/s and the loss every
+               few steps, and the launches of that run (B1p = B2 =
+               enc_layers per step, B1 = 0); then an overfit of one fixed
+               batch (dropout and label smoothing off, short warm-up),
+               whose loss must fall below OVERFIT_RATIO of its first;
+  6. grads   — the loss and every parameter gradient of one batch on the
+               card with the kernels (f32 model, then bf16) against the
+               same weights on the CPU in f32 with the plain versions; two
+               planted wrong B2s must fail the check;
+  7. resume  — a run cut at step RESUME_AT, saved, restored into a fresh
+               model and trainer and continued, against the unbroken run:
+               the same losses, bit for bit;
+  8. localize — the localize gather's backward at the train batches'
+               shapes: autograd of the plain gather against the port's
+               (and the JAX package's) sorted prefix sum over
+               loc_perm/loc_bnd, both timed;
+  9. shapes  — each kernel again, on the very inputs the serving run (B1)
+               and the training run (B1p, B2) gave it, against its plain
+               version and timed: the table rows;
+  10. profile — with --profile only: torch.profiler over each served batch
+               and over one train step, the device busy time, idle share
+               and top kernels.
 The last three lines are the kernel table (JSON), the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -33,10 +57,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +72,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
 BEAM, MAX_STEPS, SERVE_BATCHES = 8, 64, 3
+TRAIN_STEPS, LOG_EVERY = 30, 5
+OVERFIT_STEPS, OVERFIT_RATIO = 100, 0.5  # last loss < 0.5 x the first
+RESUME_AT, RESUME_MORE = 4, 4
+CAPTURE_BATCHES = 3                      # train batches behind the B1p/B2 rows
 SPIN_CYCLES = 200_000                # ~0.1 ms at the H100's 1.98 GHz
 # stated tolerances (reasons in PERF.md): kernel vs plain version on the
 # same inputs; whole encoder on the card vs f32 on the CPU, each set
@@ -53,6 +84,12 @@ KERNEL_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
               "bfloat16": dict(atol=3e-2, rtol=2e-2)}
 ENCODER_TOL = {"bfloat16": dict(max_abs=0.058, mean_abs=0.0076),
                "float32": dict(max_abs=2e-5, mean_abs=3e-6)}
+# B1p's probabilities are f32 from the same f32 scores in both versions
+PROBS_TOL = dict(atol=1e-5, rtol=1e-4)
+# whole-model gradients on the card vs f32 on the CPU: the largest
+# relative L2 gap over the parameters with a gradient, and the loss gap
+GRAD_TOL = {"float32": dict(rel=1e-2, loss=1e-4),
+            "bfloat16": dict(rel=0.4, loss=1e-2)}
 
 
 def fail(msg: str):
@@ -102,22 +139,56 @@ def kernel_inputs(batch, H, Dh, dtype, seed=0):
             torch.from_numpy(batch.concept_mask).cuda())
 
 
-def local_attention_bound(rel_index_loc, H, Dh, dtype_name):
-    """(bound_ms, bound_by): the least time for B1's work on these inputs
-    on an H100 SXM — bytes over 3.35 TB/s against operations over the
-    peak. Bytes: q, k, v read and out written once, idx and mask read once,
-    and of a_loc/b_loc only the rows these inputs reference (per graph, the
-    distinct slots of rel_index_loc [B, N, N]). Operations: per pair and
-    head, Dh multiply-adds for the score and Dh for the output."""
-    B, N, _ = rel_index_loc.shape
-    elt = 2 if dtype_name == "bfloat16" else 4
-    rows = sum(len(np.unique(rel_index_loc[b])) for b in range(B))
-    nbytes = (4 * B * H * N * Dh * elt + B * N * N * 4 + B * N
-              + 2 * rows * H * Dh * elt)
-    ops = B * H * N * N * 4 * Dh
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def _bound(nbytes, ops, dtype_name):
+    """(bound_ms, bound_by): bytes over 3.35 TB/s against operations over
+    the card's peak for the type, whichever is larger."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bank_rows(rel_index_loc):
+    """Bank rows these inputs reference: per graph, the distinct slots of
+    rel_index_loc [B, N, N]."""
+    return sum(len(np.unique(rel_index_loc[b]))
+               for b in range(rel_index_loc.shape[0]))
+
+
+def local_attention_bound(rel_index_loc, H, Dh, dtype_name,
+                          with_probs=False):
+    """(bound_ms, bound_by): the least time for B1's work (B1p's with
+    with_probs) on these inputs on an H100 SXM. Bytes: q, k, v read and
+    out written once, idx and mask read once, of a_loc/b_loc only the rows
+    these inputs reference, and B1p's f32 probs [B, H, N, N] written once.
+    Operations: per pair and head, Dh multiply-adds for the score and Dh
+    for the output."""
+    B, N, _ = rel_index_loc.shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (4 * B * H * N * Dh * elt + B * N * N * 4 + B * N
+              + 2 * _bank_rows(rel_index_loc) * H * Dh * elt)
+    if with_probs:
+        nbytes += B * H * N * N * 4
+    return _bound(nbytes, B * H * N * N * 4 * Dh, dtype_name)
+
+
+def local_attention_bwd_bound(rel_index_loc, H, Dh, P_loc, dtype_name):
+    """(bound_ms, bound_by) of B2 on these inputs on an H100 SXM. Bytes:
+    q, k, v read once, the f32 cotangent and probs read once, idx and the
+    walk arrays (pair order, slot starts) read once, of a_loc/b_loc the
+    referenced rows, gq/gk/gv written once and the dense bank gradients
+    g_a_loc/g_b_loc [B, P_loc, H, Dh] written in full. Operations: per
+    pair and head, Dh multiply-adds each for g.v, gq, gk, gv, g_a, g_b."""
+    B, N, _ = rel_index_loc.shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (3 * B * H * N * Dh * elt + B * H * N * Dh * 4
+              + B * H * N * N * 4 + 2 * B * N * N * 4 + B * (P_loc + 1) * 4
+              + 2 * _bank_rows(rel_index_loc) * H * Dh * elt
+              + 3 * B * H * N * Dh * elt + 2 * B * P_loc * H * Dh * elt)
+    return _bound(nbytes, B * H * N * N * 12 * Dh, dtype_name)
 
 
 def time_ms(fn, iters=30, warmup=3):
@@ -152,16 +223,28 @@ def time_ms(fn, iters=30, warmup=3):
 
 
 def phase_build():
+    """Every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from gtos_tpu_torch.ops import build
-    from gtos_tpu_torch.ops.local_relation_attention import SOURCE
+    from gtos_tpu_torch.ops.local_relation_attention import SOURCES
+
+    def one(source):
+        t0 = time.perf_counter()
+        log = build.build(source)
+        return source, time.perf_counter() - t0, log
 
     t0 = time.perf_counter()
-    log = build.build(SOURCE)
-    print(f"[build] {SOURCE}: {time.perf_counter() - t0:.2f} s"
-          + ("" if log else " (library already built)"))
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        results = list(pool.map(one, SOURCES))
+    for source, seconds, log in results:
+        print(f"[build] {source}: {seconds:.2f} s"
+              + ("" if log else " (library already built)"))
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+    print(f"[build] all sources: {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
 
 def check_b1(label, args):
@@ -174,7 +257,7 @@ def check_b1(label, args):
 
     q, rel_index_loc = args[0], args[5]
     B, H, N, Dh = q.shape
-    dtype_name = str(q.dtype).replace("torch.", "")
+    dtype_name = _dtype_name(q)
     out = lra(*args)
     ref = local_relation_attention_reference(*args)
     torch.cuda.synchronize()
@@ -199,10 +282,115 @@ def check_b1(label, args):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_b1p(label, args):
+    """B1p's wrapper against its plain version on the same inputs (out and
+    the f32 probabilities), then both timed; returns its numbers."""
+    import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import (
+        local_relation_attention_with_probs as lrap,
+        local_relation_attention_with_probs_reference as plain)
+
+    q, rel_index_loc = args[0], args[5]
+    B, H, N, Dh = q.shape
+    dtype_name = _dtype_name(q)
+    out, probs = lrap(*args)
+    ref_out, ref_probs = plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out.float()).all() and torch.isfinite(probs).all()):
+        fail(f"B1p {label} {dtype_name}: non-finite output")
+    err = max((out.float() - ref_out.float()).abs().max().item(),
+              (probs - ref_probs).abs().max().item())
+    try:
+        torch.testing.assert_close(out.float(), ref_out.float(),
+                                   **KERNEL_TOL[dtype_name])
+        torch.testing.assert_close(probs, ref_probs, **PROBS_TOL)
+    except AssertionError as e:
+        fail(f"B1p {label} {dtype_name} disagrees with its plain version: "
+             f"{e}")
+    bound_ms, bound_by = local_attention_bound(
+        rel_index_loc.cpu().numpy(), H, Dh, dtype_name, with_probs=True)
+    ms = time_ms(lambda: lrap(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    print(f"[kernel] B1p {label} B={B} H={H} N={N} Dh={Dh} "
+          f"P_loc={args[3].shape[1]} {dtype_name}: max_abs_err={err:.3e} "
+          f"(tol {KERNEL_TOL[dtype_name]}, probs {PROBS_TOL}) "
+          f"bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
+          f"plain={plain_ms:.6f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def b2_args(args, seed=1):
+    """B2's arguments for B1's inputs: the f32 probabilities from B1p, a
+    seeded cotangent (values of the input type, held in f32, as a training
+    step hands B2 the output's cotangent), and the walk order."""
+    import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import (
+        local_relation_attention_with_probs_reference, slot_order)
+
+    q, k, v, a_loc, b_loc, idx, mask = args
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(
+        q.dtype).float()
+    _, probs = local_relation_attention_with_probs_reference(*args)
+    order, start = slot_order(idx, a_loc.shape[1])
+    return (q, k, v, g, probs, a_loc, b_loc, idx, order, start)
+
+
+def check_b2(label, bargs, mask):
+    """B2's wrapper against autograd of B1's plain version on the same
+    inputs, taken in f32 (the cotangent g into its output): gq, gk, gv,
+    g_a_loc, g_b_loc; then B2 and its plain version timed; returns its
+    numbers. In f32 because autograd of the bf16 forward would sum each
+    bank slot's pairs in bf16, where B2 sums in f32 and rounds once."""
+    import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import (
+        local_relation_attention_bwd as lrab,
+        local_relation_attention_bwd_reference as plain,
+        local_relation_attention_reference as plain_fwd)
+
+    q, k, v, g, probs, a_loc, b_loc, idx, order, start = bargs
+    B, H, N, Dh = q.shape
+    P_loc = a_loc.shape[1]
+    dtype_name = _dtype_name(q)
+    grads = lrab(*bargs)
+    leaves = [x.detach().float().requires_grad_()
+              for x in (q, k, v, a_loc, b_loc)]
+    out = plain_fwd(*leaves, idx, mask)
+    refs = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, x, ref in zip(("gq", "gk", "gv", "g_a_loc", "g_b_loc"),
+                            grads, refs):
+        if x.dtype != q.dtype or not torch.isfinite(x.float()).all():
+            fail(f"B2 {label} {dtype_name}: {name} non-finite or of "
+                 f"type {x.dtype}")
+        err = max(err, (x.float() - ref.float()).abs().max().item())
+        try:
+            torch.testing.assert_close(x.float(), ref.float(),
+                                       **KERNEL_TOL[dtype_name])
+        except AssertionError as e:
+            fail(f"B2 {label} {dtype_name}: {name} disagrees with autograd "
+                 f"of the plain forward: {e}")
+    bound_ms, bound_by = local_attention_bwd_bound(
+        idx.cpu().numpy(), H, Dh, P_loc, dtype_name)
+    ms = time_ms(lambda: lrab(*bargs))
+    plain_ms = time_ms(lambda: plain(*bargs[:8]))
+    print(f"[kernel] B2 {label} B={B} H={H} N={N} Dh={Dh} P_loc={P_loc} "
+          f"{dtype_name}: max_abs_err={err:.3e} (tol "
+          f"{KERNEL_TOL[dtype_name]}) bound={bound_ms:.6f} ms ({bound_by}) "
+          f"kernel={ms:.6f} ms plain={plain_ms:.6f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernels():
-    """B1 against its plain version on real batchify index arrays: the
-    dominant N=32 bucket (B=32) and an N=128 bucket with the corpus's
-    largest local bank, H=8, Dh=64, in f32 and bf16."""
+    """B1, B1p and B2 against their plain versions on real batchify index
+    arrays: the dominant N=32 bucket (B=32) and an N=128 bucket with the
+    corpus's largest local bank, H=8, Dh=64, in f32 and bf16."""
     import torch
 
     H, Dh = 8, 64
@@ -210,23 +398,51 @@ def phase_kernels():
              "N128": honest_batch(8, 1, 64, 80)}
     for name, batch in cases.items():
         for dtype in (torch.float32, torch.bfloat16):
-            check_b1(name, kernel_inputs(batch, H, Dh, dtype))
+            args = kernel_inputs(batch, H, Dh, dtype)
+            check_b1(name, args)
+            check_b1p(name, args)
+            check_b2(name, b2_args(args), args[6])
     print("[kernel] library_ms: none — no single PyTorch call computes "
-          "localized relation attention (its score gathers a bank row per "
-          "pair), so there is no library yardstick")
+          "localized relation attention or its backward (the score gathers "
+          "a bank row per pair), so there is no library yardstick")
 
 
-def phase_main_shapes(captured, launches):
-    """B1 on the inputs the main path gave it (layer 0 of each served
-    batch, bf16): held against its plain version and timed. The table row
-    carries the mean over those batches of each number."""
-    rows = [check_b1(f"serve{i}", args)
-            for i, args in enumerate(captured)]
-    row = dict(name="local_relation_attention_fwd", route="cuda",
-               source="gtos_tpu_torch/ops/csrc/local_relation_attention_fwd.cu",
-               replaces="gtos_tpu/ops/pallas/local_relation_attention.py:145",
-               launches=launches["local_relation_attention_fwd"],
-               library_ms=None)
+KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
+    "local_relation_attention_fwd": (
+        "local_relation_attention",
+        "gtos_tpu_torch/ops/csrc/local_relation_attention_fwd.cu",
+        "gtos_tpu/ops/pallas/local_relation_attention.py:145"),
+    "local_relation_attention_fwd_probs": (
+        "local_relation_attention_with_probs",
+        "gtos_tpu_torch/ops/csrc/local_relation_attention_fwd.cu",
+        "gtos_tpu/ops/pallas/local_relation_attention.py:254"),
+    "local_relation_attention_bwd": (
+        "local_relation_attention_bwd",
+        "gtos_tpu_torch/ops/csrc/local_relation_attention_bwd.cu",
+        "gtos_tpu/ops/pallas/local_relation_attention.py:326"),
+}
+
+
+def _wrapper(name):
+    from gtos_tpu_torch.ops import local_relation_attention as mod
+    return getattr(mod, KERNELS[name][0])
+
+
+def zero_counts():
+    for name in KERNELS:
+        _wrapper(name).launches = 0
+
+
+def read_counts():
+    return {name: _wrapper(name).launches for name in KERNELS}
+
+
+def table_row(name, rows, launches):
+    """The JSON line's row of one kernel: the mean over the main path's
+    inputs of each number, the largest error."""
+    _, source, replaces = KERNELS[name]
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=launches[name], library_ms=None)
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     for key in ("ms", "plain_ms", "bound_ms"):
         row[key] = sum(r[key] for r in rows) / len(rows)
@@ -235,27 +451,66 @@ def phase_main_shapes(captured, launches):
     return row
 
 
+def phase_main_shapes(b1_inputs, serve_launches, train_inputs,
+                      train_launches):
+    """Each kernel on the inputs its main path gave it, held against its
+    plain version and timed: B1 on layer 0 of each served batch (bf16),
+    B1p and B2 on layer 0 of CAPTURE_BATCHES train batches (bf16). The
+    launches are those of the serving run (B1) and of the training run
+    (B1p, B2)."""
+    b1 = [check_b1(f"serve{i}", args) for i, args in enumerate(b1_inputs)]
+    b1p, b2 = [], []
+    for i, (fwd, bwd) in enumerate(train_inputs):
+        b1p.append(check_b1p(f"train{i}", fwd))
+        b2.append(check_b2(f"train{i}", bwd, fwd[6]))
+    return [table_row("local_relation_attention_fwd", b1, serve_launches),
+            table_row("local_relation_attention_fwd_probs", b1p,
+                      train_launches),
+            table_row("local_relation_attention_bwd", b2, train_launches)]
+
+
+@functools.lru_cache(maxsize=None)
+def corpus():
+    """The port's synthetic AMR 2.0-scale corpus (2000 instances, seed 0),
+    preprocessed, with its vocabularies: the training data and the
+    vocabularies of every model here."""
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr2_corpus
+
+    graphs, targets = synthetic_amr2_corpus(2000, seed=0)
+    return preprocess(graphs, targets), build_vocabs(graphs, targets)
+
+
+def c2_configs():
+    """The ModelConfig and TrainConfig of configs/c2_amr2.json with the
+    corpus's vocabulary sizes."""
+    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    with open(os.path.join(ROOT, "configs", "c2_amr2.json")) as f:
+        conf = json.load(f)
+    tv, cv, rv, chv, _ = corpus()[1]
+    pick = lambda cls: {f.name: conf[f.name]  # noqa: E731
+                        for f in dataclasses.fields(cls) if f.name in conf}
+    cfg = ModelConfig(**pick(ModelConfig), token_vocab=len(tv),
+                      concept_vocab=len(cv), relation_vocab=len(rv),
+                      char_vocab=len(chv))
+    return cfg, TrainConfig(**pick(TrainConfig))
+
+
 def serving_setup():
     """The c2_amr2 model at full width (random weights from seed 0) with
-    vocabs from the port's synthetic AMR 2.0-scale corpus, and a DataLoader
-    of held-out requests (another seed of the same corpus)."""
+    the corpus's vocabularies, and a DataLoader of held-out requests
+    (another seed of the same corpus)."""
     import torch
 
     from gtos_tpu_torch.data import DataLoader
     from gtos_tpu_torch.data.dataloader import preprocess
-    from gtos_tpu_torch.data.extract import build_vocabs
     from gtos_tpu_torch.data.synthetic import synthetic_amr2_corpus
     from gtos_tpu_torch.models import Generator
-    from gtos_tpu_torch.utils.config import ModelConfig
 
-    with open(os.path.join(ROOT, "configs", "c2_amr2.json")) as f:
-        conf = json.load(f)
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    graphs, targets = synthetic_amr2_corpus(2000, seed=0)
-    tv, cv, rv, chv, lm = build_vocabs(graphs, targets)
-    cfg = ModelConfig(**{k: v for k, v in conf.items() if k in fields},
-                      token_vocab=len(tv), concept_vocab=len(cv),
-                      relation_vocab=len(rv), char_vocab=len(chv))
+    cfg, _ = c2_configs()
+    tv, cv, rv, chv, lm = corpus()[1]
     model = Generator(cfg, device="cuda",
                       rng=torch.Generator().manual_seed(0))
     req_g, req_t = synthetic_amr2_corpus(1024, seed=1)
@@ -273,8 +528,6 @@ def phase_serve():
     import torch
 
     from gtos_tpu_torch.infer.decode import decode_batch
-    from gtos_tpu_torch.ops.local_relation_attention import (
-        local_relation_attention as lra)
 
     cfg, model, loader, tv = serving_setup()
     print(f"[serve] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
@@ -282,14 +535,15 @@ def phase_serve():
           f"{cfg.attention_impl}; vocab token={cfg.token_vocab} "
           f"concept={cfg.concept_vocab} relation={cfg.relation_vocab}")
     steps = 0
-    decode_step = model.decode_step
+    served = model.serving_copy()   # what decode_batch runs: kept until
+    decode_step = served.decode_step  # the parameters change
 
     def counted_step(*a, **kw):  # counts the search's batched steps
         nonlocal steps
         steps += 1
         return decode_step(*a, **kw)
 
-    model.decode_step = counted_step
+    served.decode_step = counted_step
     fullest, counts = {}, {}  # per node bucket: its fullest batch; sizes
     for batch, insts in loader.iter_with_instances():
         N = batch.concept_mask.shape[1]
@@ -306,7 +560,7 @@ def phase_serve():
     print(f"[serve] warm-up decode of batch 0 (cold): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
     batches, seconds = [], []
-    lra.launches = 0
+    zero_counts()
     for batch, insts in plan:
         steps = 0
         t0 = time.perf_counter()
@@ -329,14 +583,15 @@ def phase_serve():
               f"{' '.join(hyps[0][:8])!r}", flush=True)
         batches.append(batch)
         seconds.append(dt)
-    launches = {"local_relation_attention_fwd": lra.launches}
-    del model.decode_step
+    launches = read_counts()
+    del served.decode_step
     if len(batches) < 2:
         fail(f"only {len(batches)} batch(es) served")
-    expect = cfg.enc_layers * len(batches)
-    if launches["local_relation_attention_fwd"] != expect:
-        fail(f"B1 launched {launches} times in the serving run, expected "
-             f"enc_layers x batches = {expect}")
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["local_relation_attention_fwd"] = cfg.enc_layers * len(batches)
+    if launches != expect:
+        fail(f"launches in the serving run: {launches}, expected {expect} "
+             "(B1 enc_layers x batches, B1p and B2 none)")
     print(f"[serve] B1 launches in the serving run: "
           f"{launches['local_relation_attention_fwd']} = {cfg.enc_layers} "
           f"layers x {len(batches)} batches")
@@ -488,6 +743,423 @@ def phase_profile(model, tv, batches, seconds):
                   f"{e.count:6d}x {e.key[:90]}")
 
 
+# ---------------------------------------------------------------- training
+
+
+class StepLog:
+    """The Trainer's metrics writer: keeps every record, with the
+    host-clock ms per step since the record before, and prints the loss,
+    accuracy, ms per step and the loop's tokens/s of step 1 and of every
+    `every`-th step."""
+
+    def __init__(self, tag, every=LOG_EVERY):
+        self.tag, self.every, self.records = tag, every, []
+        self.t, self.step = time.perf_counter(), 0
+
+    def write(self, rec):
+        now = time.perf_counter()
+        if rec.get("kind") == "train":
+            ms = (now - self.t) * 1e3 / max(rec["step"] - self.step, 1)
+            rec = dict(rec, ms_per_step=ms)
+            self.t, self.step = now, rec["step"]
+            if rec["step"] == 1 or rec["step"] % self.every == 0:
+                self._print(rec, ms)
+        self.records.append(rec)
+
+    def _print(self, rec, ms):
+        print(f"[{self.tag}] step {rec['step']}: loss={rec['loss']:.6f} "
+              f"acc={rec['acc']:.4f} grad_norm={rec['grad_norm']:.4f} "
+              f"{ms:.3f} ms/step, {rec['tokens_per_s']:.1f} tokens/s",
+              flush=True)
+
+    def losses(self):
+        return [r["loss"] for r in self.records if r.get("kind") == "train"]
+
+
+def train_loader(seed=None):
+    """for_train=True DataLoader over the corpus with local banks, as the
+    train CLI builds it (c2's 8192-token batches)."""
+    from gtos_tpu_torch.data import BucketSpec, DataLoader
+
+    cfg, tcfg = c2_configs()
+    instances, vocabs = corpus()
+    return DataLoader(instances, *vocabs,
+                      batch_size_tokens=tcfg.batch_size_tokens,
+                      spec=BucketSpec().for_model_max_oov(cfg.max_oov),
+                      for_train=True, build_local_banks=True,
+                      seed=tcfg.seed if seed is None else seed)
+
+
+def new_trainer(cfg, tcfg, seed, ckpt=None, log=None):
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.trainer import Trainer
+
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(seed))
+    example = next(iter(train_loader()))
+    return Trainer(model, cfg, tcfg, example.arrays(), metrics_writer=log,
+                   checkpoint_manager=ckpt, device="cuda")
+
+
+def phase_train():
+    """Trainer.fit of the c2 model at full width (bf16, dropout 0.2, label
+    smoothing 0.1, the c2 schedule) for TRAIN_STEPS steps from the
+    DataLoader, counting the launches of that run; then the overfit.
+    Returns the trainer, its mean ms per
+    step after the first logged interval, and the launches."""
+    cfg, tcfg = c2_configs()
+    log = StepLog("train")
+    trainer = new_trainer(cfg, dataclasses.replace(
+        tcfg, total_steps=TRAIN_STEPS, checkpoint_every=10 ** 9), 0,
+        log=log)
+    print(f"[train] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
+          f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
+          f"{cfg.attention_impl} dropout={cfg.dropout} label_smoothing="
+          f"{cfg.label_smoothing}; {TRAIN_STEPS} steps of "
+          f"{tcfg.batch_size_tokens}-token batches", flush=True)
+    import torch
+
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(train_loader(), log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect = dict.fromkeys(KERNELS, cfg.enc_layers * TRAIN_STEPS)
+    expect["local_relation_attention_fwd"] = 0
+    if trainer.step != TRAIN_STEPS or launches != expect:
+        fail(f"training ran {trainer.step} steps with launches {launches}, "
+             f"expected {TRAIN_STEPS} with {expect} (B1p = B2 = enc_layers "
+             "x steps, B1 none)")
+    losses = log.losses()
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    steady = [r["ms_per_step"] for r in log.records[1:]]
+    ms_step = sum(steady) / len(steady)
+    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s; {ms_step:.3f} "
+          f"ms/step after step {LOG_EVERY}; launches {launches} = "
+          f"{cfg.enc_layers} layers x {TRAIN_STEPS} steps", flush=True)
+
+    overfit(cfg, tcfg)
+    return trainer, ms_step, launches
+
+
+def overfit(cfg, tcfg):
+    """A fresh c2 model trained OVERFIT_STEPS steps on one fixed batch
+    with dropout and label smoothing off (the objective of the JAX
+    package's own overfit test), warm-up 30 steps to a peak learning rate
+    of 8e-4: its loss must fall below OVERFIT_RATIO x its first. (With
+    label smoothing 0.1, or peaks of 1.4e-3 and more, the batch stalls
+    near the unigram loss: PERF.md, Findings.)"""
+    batch = next(iter(train_loader()))
+    log = StepLog("overfit", every=10)
+    trainer = new_trainer(
+        dataclasses.replace(cfg, dropout=0.0, label_smoothing=0.0),
+        dataclasses.replace(tcfg, total_steps=OVERFIT_STEPS,
+                            warmup_steps=30, lr_scale=0.1,
+                            checkpoint_every=10 ** 9), 1, log=log)
+    trainer.fit([batch] * OVERFIT_STEPS, log_every=1)
+    first, last = log.losses()[0], log.losses()[-1]
+    ok = last < OVERFIT_RATIO * first
+    print(f"[overfit] one batch of {batch.concept_mask.shape[0]} graphs, "
+          f"{OVERFIT_STEPS} steps: loss {first:.6f} at step 1 -> "
+          f"{last:.6f}; must fall below {OVERFIT_RATIO} x the first: "
+          + ("yes" if ok else "no"), flush=True)
+    if not ok:
+        fail("the overfit loss did not fall by its stated margin")
+
+
+@contextlib.contextmanager
+def wrapper_replaced(name, fn):
+    """Within the block, the ops module's wrapper `name` is `fn`, as the
+    trainable attention finds it (by name, at call time). The real wrapper
+    counts its launches on whatever the name holds, so `fn` carries the
+    count while it stands in and hands it back after."""
+    from gtos_tpu_torch.ops import local_relation_attention as mod
+
+    real = getattr(mod, name)
+    fn.launches = real.launches
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+        real.launches = fn.launches
+
+
+def planted_b2(kind):
+    """B2 made wrong on purpose, as a control for the gradient check: the
+    kernel's result with the bank gradients zeroed ("no bank gradient"),
+    or with g_a_loc summing ge_ij k_j without the ge_ij b_r part of the
+    t4 unfold ("no t4 b_r term", the plain version's g_a_loc with b_loc
+    zeroed)."""
+    import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import (
+        local_relation_attention_bwd as lrab,
+        local_relation_attention_bwd_reference as plain)
+
+    def wrong(q, k, v, g, probs, a_loc, b_loc, idx, pair_order=None,
+              slot_start=None, scale=None):
+        gq, gk, gv, ga, gb = lrab(q, k, v, g, probs, a_loc, b_loc, idx,
+                                  pair_order, slot_start, scale)
+        if kind == "no bank gradient":
+            return gq, gk, gv, torch.zeros_like(ga), torch.zeros_like(gb)
+        ga = plain(q, k, v, g, probs, a_loc, torch.zeros_like(b_loc), idx,
+                   scale)[3]
+        return gq, gk, gv, ga, gb
+    return wrong
+
+
+def loss_and_grads(model, arrays):
+    """The loss and every parameter gradient of one batch, f32 on the
+    CPU (train mode; the config has dropout 0)."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+
+    model.train()
+    names, params = zip(*model.named_parameters())
+    loss, _ = model(batch_to_device(arrays, model.device))
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), {n: (torch.zeros_like(p) if g is None else g
+                             ).float().cpu()
+                         for n, p, g in zip(names, params, grads)}
+
+
+def grad_gap(ref, got):
+    """(loss gap, largest relative L2 gap over the parameters, its name):
+    ||g - g_ref|| / ||g_ref|| per parameter tensor, over those whose
+    reference gradient is above 1e-6 of the largest (the attention key
+    biases of the decoder have a zero gradient in exact arithmetic)."""
+    (ref_loss, rg), (loss, g) = ref, got
+    top = max(x.norm().item() for x in rg.values())
+    worst, name = 0.0, None
+    for n, x in rg.items():
+        scale = x.norm().item()
+        if scale > 1e-6 * top:
+            rel = (g[n] - x).norm().item() / scale
+            if rel > worst or not np.isfinite(rel):
+                worst, name = rel, n
+    return abs(loss - ref_loss), worst, name
+
+
+def phase_grads():
+    """The loss and every parameter gradient of one train batch (dropout
+    0) on the card with the kernels, the f32 model and the bf16 one,
+    against the same f32 weights on the CPU with the plain versions; then
+    the same with each planted wrong B2, which must fail the check."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+
+    cfg, _ = c2_configs()
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    loader = train_loader(seed=3)
+    batch = next(b for b in loader if b.concept_mask.shape[1] == 32)
+    arrays = batch.arrays()
+    weights = Generator(cfg, device="cpu",
+                        rng=torch.Generator().manual_seed(4)).state_dict()
+    models = {}
+    for name, c, dev in (("cpu", f32, "cpu"), ("float32", f32, "cuda"),
+                         ("bfloat16", cfg, "cuda")):
+        models[name] = Generator(c, device=dev)
+        models[name].load_state_dict(weights)
+    t0 = time.perf_counter()
+    ref = loss_and_grads(models["cpu"], arrays)
+    print(f"[grads] batch B={batch.concept_mask.shape[0]} N=32 "
+          f"T={batch.token_in.shape[1]} P_loc={batch.bank_map.shape[1]}; "
+          f"cpu f32 loss {ref[0]:.6f} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    def check(dtype_name, b2):
+        zero_counts()
+        got = loss_and_grads(models[dtype_name], arrays)
+        launches = read_counts()
+        expect = dict.fromkeys(KERNELS, cfg.enc_layers)
+        expect["local_relation_attention_fwd"] = 0
+        if launches != expect:
+            fail(f"the {dtype_name} gradient run launched {launches}, "
+                 f"expected {expect}")
+        dloss, rel, name = grad_gap(ref, got)
+        tol = GRAD_TOL[dtype_name]
+        ok = dloss <= tol["loss"] and rel <= tol["rel"]
+        print(f"[grads] card {dtype_name} with {b2} vs cpu f32: loss gap "
+              f"{dloss:.4e}, largest relative gradient gap {rel:.4e} "
+              f"({name}) (tol {tol}): " + ("within" if ok else "outside"),
+              flush=True)
+        return ok
+
+    for dtype_name in ("float32", "bfloat16"):
+        if not check(dtype_name, "B2"):
+            fail(f"the {dtype_name} model's loss and gradients on the card "
+                 "disagree with the f32 CPU run")
+    # the check passes when both runs are within their limits; a planted
+    # B2 must make it fail
+    for kind in ("no bank gradient", "no t4 b_r term"):
+        with wrapper_replaced("local_relation_attention_bwd",
+                              planted_b2(kind)):
+            passed = [check(dtype_name, f"planted B2 ({kind})")
+                      for dtype_name in ("float32", "bfloat16")]
+        if all(passed):
+            fail(f"the gradient check passes a B2 with {kind}")
+
+
+def phase_resume():
+    """The c2 model trained RESUME_AT steps, saved, restored into a fresh
+    model and trainer and trained RESUME_MORE more, against the unbroken
+    run of the same seeds: the losses of the resumed steps must be the
+    same bits (B2 walks each slot's pairs in a fixed order; no atomics)."""
+    from gtos_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg, tcfg = c2_configs()
+    total = RESUME_AT + RESUME_MORE
+    tcfg = dataclasses.replace(tcfg, total_steps=total,
+                               checkpoint_every=RESUME_AT)
+    whole = StepLog("resume")
+    new_trainer(cfg, tcfg, 5, log=whole).fit(train_loader(), log_every=1)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        ckpt = CheckpointManager(tmp, cfg, tcfg)
+        new_trainer(cfg, dataclasses.replace(tcfg, total_steps=RESUME_AT),
+                    5, ckpt=ckpt, log=StepLog("resume")).fit(
+                        train_loader(), log_every=1)
+        cont = StepLog("resume")
+        trainer = new_trainer(cfg, tcfg, 6, ckpt=CheckpointManager(
+            tmp, cfg, tcfg), log=cont)
+        if trainer.restore_if_available() != RESUME_AT:
+            fail("restore did not find the checkpoint of step "
+                 f"{RESUME_AT}")
+        trainer.fit(train_loader(), log_every=1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want, got = whole.losses()[RESUME_AT:], cont.losses()
+    same = want == got
+    print(f"[resume] steps {RESUME_AT + 1}-{total}: unbroken {want}, "
+          f"resumed {got}: " + ("bit-identical" if same else "DIFFER"),
+          flush=True)
+    if not same:
+        fail("the resumed run's losses differ from the unbroken run's")
+
+
+def phase_localize(batches, D=512):
+    """The backward of localize_bank at training batches' shapes (bank
+    [P, D], bank_map [B, P_loc]): autograd of the plain gather (a sorted
+    index_put with accumulation) against the port's training path, the
+    sorted prefix sum over the batch's loc_perm/loc_bnd (the JAX
+    package's form); they agree in f32 to 1e-4 and both are timed in
+    bf16."""
+    import torch
+
+    from gtos_tpu_torch.ops.localize import localize_bank
+
+    for i, batch in enumerate(batches):
+        bm = torch.from_numpy(batch.bank_map).cuda()
+        aux = (torch.from_numpy(batch.loc_perm).cuda(),
+               torch.from_numpy(batch.loc_bnd).cuda())
+        P = batch.rel_bank.shape[0]
+        times = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            rel = torch.randn(P, D, generator=gen, device="cuda").to(
+                dtype).requires_grad_()
+            g = torch.randn(*bm.shape, D, generator=gen,
+                            device="cuda").to(dtype)
+            gather = lambda: torch.autograd.grad(  # noqa: E731
+                localize_bank(rel, bm), rel, g)[0]
+            prefix = lambda: torch.autograd.grad(  # noqa: E731
+                localize_bank(rel, bm, *aux), rel, g)[0]
+            if dtype == torch.float32:
+                try:
+                    torch.testing.assert_close(gather(), prefix(),
+                                               atol=1e-4, rtol=1e-4)
+                except AssertionError as e:
+                    fail(f"localize backward: the gather's and the sorted "
+                         f"prefix sum's disagree: {e}")
+            else:
+                times = dict(gather=time_ms(gather), prefix=time_ms(prefix))
+        print(f"[localize] backward, B={bm.shape[0]} P_loc={bm.shape[1]} "
+              f"P={P} D={D} bf16: autograd of the gather "
+              f"{times['gather']:.6f} ms, sorted prefix sum over "
+              f"loc_perm/loc_bnd (the port's) {times['prefix']:.6f} ms",
+              flush=True)
+
+
+def capture_train_inputs(trainer, batches):
+    """The arguments the training path hands B1p and B2: layer 0's (the
+    first forward call, the last backward call) for each batch, from one
+    more forward and backward per batch through recording shims."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.ops import local_relation_attention as mod
+
+    real_fwd = mod.local_relation_attention_with_probs
+    real_bwd = mod.local_relation_attention_bwd
+    fwd, bwd, out = [], [], []
+
+    def rec_fwd(*args):
+        fwd.append(tuple(a.detach() for a in args[:7]))
+        return real_fwd(*args)
+
+    def rec_bwd(*args):
+        bwd.append(args[:10])
+        return real_bwd(*args)
+
+    with wrapper_replaced("local_relation_attention_with_probs", rec_fwd), \
+            wrapper_replaced("local_relation_attention_bwd", rec_bwd):
+        trainer.model.train()
+        for batch in batches:
+            fwd.clear()
+            bwd.clear()
+            loss, _ = trainer.model(batch_to_device(batch.arrays(), "cuda"))
+            torch.autograd.grad(loss, trainer.params, allow_unused=True)
+            out.append((fwd[0], bwd[-1]))
+    return out
+
+
+def phase_profile_train(trainer, ms_step):
+    """Where a train step's time goes (--profile): torch.profiler over one
+    more step on a train batch, its device busy time, the idle share
+    against the unprofiled mean step time of the train phase, and the
+    busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+
+    batch = next(iter(train_loader()))
+    arrays = batch_to_device(batch.arrays(), "cuda")
+    trainer.train_step(arrays)                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step(arrays)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(arrays)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms <= 0:
+        fail("the profiler recorded no device time")
+    print(f"[profile] train step (B={batch.concept_mask.shape[0]} "
+          f"N={batch.concept_mask.shape[1]} T={batch.token_in.shape[1]}): "
+          f"device busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall:.4f}"
+          f" of this step's {wall:.3f} ms wall, {1 - busy_ms / ms_step:.4f} "
+          f"of the train phase's mean {ms_step:.3f} ms/step; "
+          f"{sum(e.count for e in dev)} device kernels/copies", flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x {e.key[:90]}")
+
+
 def main():
     import argparse
 
@@ -495,7 +1167,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the served batches on the card")
+                    help="also profile the served batches and a train step "
+                         "on the card")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -510,12 +1183,23 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     phase_kernels()
-    cfg, model, tv, batches, seconds, launches = phase_serve()
+    torch.cuda.empty_cache()   # free the plain versions' GBs before serving
+    cfg, model, tv, batches, seconds, serve_launches = phase_serve()
     phase_encoder_check(cfg, model, batches[0])
-    row = phase_main_shapes(capture_b1_inputs(model, batches), launches)
+    b1_inputs = capture_b1_inputs(model, batches)
+    trainer, ms_step, train_launches = phase_train()
+    phase_grads()
+    phase_resume()
+    train_batches = [b for _, b in zip(range(CAPTURE_BATCHES),
+                                       train_loader())]
+    phase_localize(train_batches)
+    train_inputs = capture_train_inputs(trainer, train_batches)
+    rows = phase_main_shapes(b1_inputs, serve_launches, train_inputs,
+                             train_launches)
     if args.profile:
         phase_profile(model, tv, batches, seconds)
-    print(json.dumps({"kernels": [row]}))
+        phase_profile_train(trainer, ms_step)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,15 @@
 """Static-shape bucketed batching with the relation-bank dedup.
 
-Port of gtos_tpu/data/batching.py for serving batches: the same bucket
-ladders, the same batch-global relation bank (`rel_bank` [P, L] of unique
-shortest-path label sequences, `rel_index` [B, N, N] into it) and the same
-per-graph localized banks (`bank_map`, `rel_index_loc`), array for array.
+Port of gtos_tpu/data/batching.py: the same bucket ladders, the same
+batch-global relation bank (`rel_bank` [P, L] of unique shortest-path
+label sequences, `rel_index` [B, N, N] into it) and the same per-graph
+localized banks (`bank_map`, `rel_index_loc`, and for training batches the
+localize sort auxiliaries `loc_perm`/`loc_bnd`), array for array.
 
 Not ported yet, and raising NotImplementedError when asked for:
   * the sparse edge cells and block-sparse tile layouts (build_edges,
     build_block_tiles, and the "auto" overflow fallback to tiles) —
     ROADMAP A8;
-  * the training-only localize-backward auxiliaries (for_train=True with
-    build_local_banks) — ROADMAP A5, the training slice;
   * multi-host row sharding (host_shard) — ROADMAP A9.
 """
 
@@ -23,6 +22,7 @@ import numpy as np
 
 from gtos_tpu_torch.data.vocab import LexicalMap, Vocab
 from gtos_tpu_torch.graph.paths import GLOBAL_LABEL, PackedPaths
+from gtos_tpu_torch.ops.localize import build_localize_aux
 
 
 class BatchCapacityError(ValueError):
@@ -95,6 +95,10 @@ class GraphBatch:
     # references only its own P_loc distinct paths
     bank_map: Optional[np.ndarray] = None       # [B, P_loc] int32 -> bank row
     rel_index_loc: Optional[np.ndarray] = None  # [B, N, N] int32 local slots
+    # training batches only: the localize gather's sort order (the JAX
+    # package's scatter-free backward; ops/localize.py)
+    loc_perm: Optional[np.ndarray] = None       # [B*P_loc] int32
+    loc_bnd: Optional[np.ndarray] = None        # [2, P] int32
     oov_lists: List[List[str]] = dataclasses.field(default_factory=list)
     meta: List[Optional[dict]] = dataclasses.field(default_factory=list)
 
@@ -147,11 +151,6 @@ def batchify(
     if host_shard is not None:
         raise NotImplementedError(
             "multi-host row sharding is not ported yet (ROADMAP A9)")
-    if build_local_banks and for_train:
-        raise NotImplementedError(
-            "training batches with local banks need the localize-backward "
-            "auxiliaries, which come with the training slice (ROADMAP A5); "
-            "pass for_train=False for serving batches")
     B = batch_size_bucket or len(instances)
     if B < len(instances):
         raise ValueError(f"batch bucket {B} < {len(instances)} instances")
@@ -287,6 +286,9 @@ def batchify(
                     "the 'auto' overflow fallback to block-sparse tiles is "
                     "not ported yet (ROADMAP A8)") from e
             raise
+        if for_train:
+            local_arrays["loc_perm"], local_arrays["loc_bnd"] = \
+                build_localize_aux(local_arrays["bank_map"], P)
 
     return GraphBatch(
         **local_arrays,

@@ -30,7 +30,9 @@ def beam_decode_arrays(
     unk_id: int = 1,
 ) -> BeamResult:
     """arrays: the GraphBatch.arrays() payload. Returns BeamResult (on the
-    model's device)."""
+    model's device). Runs `model.serving_copy()`: the weights rounded once
+    to the compute type."""
+    model = model.serving_copy()
     cfg = model.cfg
     dev = model.device
     t = batch_to_device(arrays, dev)

@@ -5,10 +5,14 @@ incremental step, sinusoidal positions, post-LN residuals, the FFN.
 Batch-major [B, T, D] layout and parameter names as in the JAX package, so
 `convert.py` maps its parameter tree onto these modules name for name.
 
-Numerics follow the JAX package: parameters and activations in the compute
-dtype, attention scores and softmax in f32, LayerNorm statistics in f32
-with epsilon 1e-6 (flax's default; torch's is 1e-5). Inference only:
-dropout comes with the training slice.
+Numerics follow the JAX package: parameters are kept in f32 and each
+layer rounds its weights to the activations' type at use (flax's
+`param_dtype` f32 with `dtype` the compute type; a no-op when the weights
+are already in that type, as in the serving copy), attention scores and
+softmax in f32, LayerNorm statistics in f32 with epsilon 1e-6 (flax's
+default; torch's is 1e-5). Dropout is flax's: in training each element is
+kept with probability 1-p and scaled by 1/(1-p), with bits from an
+explicit torch.Generator.
 """
 
 from __future__ import annotations
@@ -21,6 +25,46 @@ import torch.nn.functional as F
 from torch import nn
 
 NEG_INF = -1e9
+
+
+class Dense(nn.Linear):
+    """nn.Linear that rounds its f32 weight and bias to the input's type at
+    use (flax Dense with dtype = the compute type)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding whose rows come out in the compute type `dtype` (flax
+    Embed with dtype set: the same values as rounding the table first)."""
+
+    def __init__(self, num: int, dim: int, dtype=torch.float32):
+        super().__init__(num, dim)
+        self.dtype = dtype
+
+    def forward(self, ids):
+        return super().forward(ids).to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout: an identity in eval mode or at rate 0; in
+    training, where(keep, x / (1 - p), 0) with keep ~ Bernoulli(1 - p).
+    The bits come from `rng`, a torch.Generator on the activations' device
+    that the owning model sets (models/generator.py)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.rng: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.rng,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def sinusoidal_positions(length: int, dim: int,
@@ -81,10 +125,10 @@ class MultiheadAttention(nn.Module):
     def __init__(self, d_model: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.q_proj = Dense(d_model, d_model)
+        self.k_proj = Dense(d_model, d_model)
+        self.v_proj = Dense(d_model, d_model)
+        self.out_proj = Dense(d_model, d_model)
 
     def forward(self, query, key, value, mask=None):
         """query [B,Tq,D], key/value [B,Tk,D]; mask [B,1|H,Tq,Tk] or None."""
@@ -121,24 +165,29 @@ class MultiheadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    """fc2(dropout(relu(fc1(x))))."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(d_model, d_ff)
-        self.fc2 = nn.Linear(d_ff, d_model)
+        self.fc1 = Dense(d_model, d_ff)
+        self.fc2 = Dense(d_ff, d_model)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(x)))
+        return self.fc2(self.drop(torch.relu(self.fc1(x))))
 
 
 class PostLNResidual(nn.Module):
-    """x = LayerNorm(x + f(x)) — the reference's fairseq post-LN convention."""
+    """x = LayerNorm(x + dropout(f(x))) — the reference's fairseq post-LN
+    convention."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout: float = 0.0):
         super().__init__()
         self.ln = LayerNorm(d_model)
+        self.drop = Dropout(dropout)
 
     def forward(self, x, sub):
-        return self.ln(x + sub).to(x.dtype)
+        return self.ln(x + self.drop(sub)).to(x.dtype)
 
 
 def causal_mask(T: int, device=None) -> torch.Tensor:

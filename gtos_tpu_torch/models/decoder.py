@@ -1,11 +1,11 @@
 """Transformer decoder with an alignment cross-attention for the copy path.
 
-Port of gtos_tpu/models/decoder.py for incremental decoding: causal
-self-attention over a horizon-sized KV cache, cross-attention to the
-concept representations (precomputed memory K/V), FFN, post-LN residuals.
-The last layer's cross-attention distribution feeds the copy mechanism
-(models/generator.py). The teacher-forced full-sequence mode comes with
-the training slice.
+Port of gtos_tpu/models/decoder.py. Two modes share all parameters:
+`forward`, the teacher-forced full sequence (training: input dropout, the
+causal self-mask, dropout in the residuals and the FFN), and `step`, one
+token over a horizon-sized KV cache with precomputed memory K/V (search,
+no dropout). The last layer's cross-attention distribution feeds the copy
+mechanism (models/generator.py).
 """
 
 from __future__ import annotations
@@ -14,20 +14,32 @@ import torch
 from torch import nn
 
 from gtos_tpu_torch.models.components import (
-    FeedForward, MultiheadAttention, PostLNResidual, sinusoidal_positions,
+    Dropout, Embedding, FeedForward, MultiheadAttention, PostLNResidual,
+    causal_mask, sinusoidal_positions,
 )
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, heads: int):
+    def __init__(self, d_model: int, d_ff: int, heads: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.self_attn = MultiheadAttention(d_model, heads)
-        self.self_res = PostLNResidual(d_model)
+        self.self_res = PostLNResidual(d_model, dropout)
         self.cross_attn = MultiheadAttention(d_model, heads)
-        self.cross_res = PostLNResidual(d_model)
-        self.ffn = FeedForward(d_model, d_ff)
-        self.ffn_res = PostLNResidual(d_model)
+        self.cross_res = PostLNResidual(d_model, dropout)
+        self.ffn = FeedForward(d_model, d_ff, dropout)
+        self.ffn_res = PostLNResidual(d_model, dropout)
+
+    def forward(self, x, mem, mem_mask, self_mask):
+        """x: [B,T,D]; mem: [B,N,D]; mem_mask: [B,N]; self_mask
+        [1,1,T,T]. Returns (x, cross_probs [B,H,T,N] f32)."""
+        sa, _ = self.self_attn(x, x, x, self_mask)
+        x = self.self_res(x, sa)
+        ca, cross_probs = self.cross_attn(x, mem, mem,
+                                          mem_mask[:, None, None, :])
+        x = self.cross_res(x, ca)
+        return self.ffn_res(x, self.ffn(x)), cross_probs
 
     def init_cache(self, B: int, Tmax: int, mem):
         """Self-attn KV buffers [B, H, Tmax, Dh] + precomputed memory KV.
@@ -57,12 +69,15 @@ class Decoder(nn.Module):
     tied to this embedding (`output_logits`)."""
 
     def __init__(self, vocab: int, layers: int, d_model: int, d_ff: int,
-                 heads: int, max_len: int):
+                 heads: int, max_len: int, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.d_model, self.max_len, self.layers = d_model, max_len, layers
-        self.embed = nn.Embedding(vocab, d_model)
+        self.embed = Embedding(vocab, d_model, dtype)
+        self.input_drop = Dropout(dropout)
         for i in range(layers):
-            self.add_module(f"layer{i}", DecoderLayer(d_model, d_ff, heads))
+            self.add_module(f"layer{i}",
+                            DecoderLayer(d_model, d_ff, heads, dropout))
         self.register_buffer("pos_table",
                              sinusoidal_positions(max_len, d_model),
                              persistent=False)
@@ -74,9 +89,22 @@ class Decoder(nn.Module):
         return self.embed(ids) * (self.d_model ** 0.5)
 
     def output_logits(self, h):
-        """Tied softmax projection: h [.., D] -> logits [.., vocab]."""
-        w = self.embed.weight
-        return torch.matmul(h.to(w.dtype), w.t())
+        """Tied softmax projection: h [.., D] -> logits [.., vocab], both
+        rounded to the compute type."""
+        dt = self.embed.dtype
+        return torch.matmul(h.to(dt), self.embed.weight.to(dt).t())
+
+    def forward(self, token_in, mem, mem_mask):
+        """Teacher-forced: token_in [B,T] -> (h [B,T,D], align [B,H,T,N],
+        the last layer's cross-attention probabilities)."""
+        T = token_in.shape[1]
+        x = self.embed_tokens(token_in)
+        x = self.input_drop(x + self.pos_table[:T][None].to(x.dtype))
+        smask = causal_mask(T, device=x.device)
+        align = None
+        for blk in self.blocks():
+            x, align = blk(x, mem, mem_mask, smask)
+        return x, align
 
     def init_cache(self, B: int, mem, horizon=None):
         """horizon: self-KV buffer length (number of decode steps);

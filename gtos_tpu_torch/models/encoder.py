@@ -5,6 +5,8 @@ Port of gtos_tpu/models/encoder.py: concept embedding + character CNN, and
 a bidirectional GRU over each unique relation path in the batch bank, with
 the carry frozen at pad steps (the backward direction runs over the whole
 reversed padded sequence, so its leading pads are skipped the same way).
+Dropout where the JAX package has it: at the token encoder's output, on
+the relation embeddings and at the relation encoder's output.
 """
 
 from __future__ import annotations
@@ -13,7 +15,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gtos_tpu_torch.models.components import LayerNorm, sinusoidal_positions
+from gtos_tpu_torch.models.components import (
+    Dense, Dropout, Embedding, LayerNorm, sinusoidal_positions,
+)
+
+
+class Conv1d(nn.Conv1d):
+    """nn.Conv1d that rounds its f32 weight and bias to the input's type at
+    use (flax Conv with dtype = the compute type)."""
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class CharCNN(nn.Module):
@@ -21,13 +33,13 @@ class CharCNN(nn.Module):
     real chars of each word. chars: [B, N, C] ids."""
 
     def __init__(self, char_vocab: int, char_dim: int, filters: int,
-                 widths, out_dim: int):
+                 widths, out_dim: int, dtype=torch.float32):
         super().__init__()
         self.widths = tuple(widths)
-        self.char_embed = nn.Embedding(char_vocab, char_dim)
+        self.char_embed = Embedding(char_vocab, char_dim, dtype)
         for w in self.widths:
-            setattr(self, f"conv{w}", nn.Conv1d(char_dim, filters, w))
-        self.char_proj = nn.Linear(filters * len(self.widths), out_dim)
+            setattr(self, f"conv{w}", Conv1d(char_dim, filters, w))
+        self.char_proj = Dense(filters * len(self.widths), out_dim)
 
     def forward(self, chars):
         B, N, C = chars.shape
@@ -46,21 +58,23 @@ class CharCNN(nn.Module):
 
 
 class TokenEncoder(nn.Module):
-    """Concept embedding + CharCNN -> d_model, LayerNorm (f32).
+    """Concept embedding + CharCNN -> d_model, LayerNorm (f32), dropout.
 
     add_positions: sinusoidal positions for the translator path, where
     nodes are source words in sentence order."""
 
     def __init__(self, vocab: int, char_vocab: int, d_model: int,
                  char_dim: int, char_filters: int, char_widths,
+                 dropout: float = 0.0, dtype=torch.float32,
                  add_positions: bool = False):
         super().__init__()
         self.add_positions = add_positions
-        self.embed = nn.Embedding(vocab, d_model)
+        self.embed = Embedding(vocab, d_model, dtype)
         self.char_cnn = CharCNN(char_vocab, char_dim, char_filters,
-                                char_widths, d_model)
-        self.merge = nn.Linear(2 * d_model, d_model)
+                                char_widths, d_model, dtype)
+        self.merge = Dense(2 * d_model, d_model)
         self.ln = LayerNorm(d_model)
+        self.drop = Dropout(dropout)
 
     def forward(self, ids, chars):
         emb = self.embed(ids)
@@ -68,7 +82,7 @@ class TokenEncoder(nn.Module):
         if self.add_positions:
             pos = sinusoidal_positions(ids.shape[1], x.shape[-1])
             x = x + pos[None].to(x.device, x.dtype)
-        return self.ln(x).to(emb.dtype)
+        return self.drop(self.ln(x).to(emb.dtype))
 
 
 class GRUCell(nn.Module):
@@ -86,15 +100,17 @@ class GRUCell(nn.Module):
     def scan(self, xs, valid):
         """xs [L, P, in], valid [L, P] bool -> last carry [P, hidden]; the
         carry stays frozen where valid is False."""
-        gi = F.linear(xs, self.weight_ih, self.bias_ih)     # [L, P, 3h]
+        dt = xs.dtype
+        gi = F.linear(xs, self.weight_ih.to(dt), self.bias_ih.to(dt))
+        w_hh, b_hn = self.weight_hh.to(dt), self.bias_hn.to(dt)
         hidden = self.bias_hn.shape[0]
         h = xs.new_zeros(xs.shape[1], hidden)
         for t in range(xs.shape[0]):
             gi_r, gi_z, gi_n = gi[t].split(hidden, dim=-1)
-            gh_r, gh_z, gh_n = F.linear(h, self.weight_hh).split(hidden, -1)
+            gh_r, gh_z, gh_n = F.linear(h, w_hh).split(hidden, -1)
             r = torch.sigmoid(gi_r + gh_r)
             z = torch.sigmoid(gi_z + gh_z)
-            n = torch.tanh(gi_n + r * (gh_n + self.bias_hn))
+            n = torch.tanh(gi_n + r * (gh_n + b_hn))
             h = torch.where(valid[t][:, None], (1.0 - z) * n + z * h, h)
         return h
 
@@ -107,19 +123,21 @@ class RelationEncoder(nn.Module):
     batch is encoded once."""
 
     def __init__(self, relation_vocab: int, emb_dim: int, hidden: int,
-                 out_dim: int):
+                 out_dim: int, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.rel_embed = nn.Embedding(relation_vocab, emb_dim)
+        self.rel_embed = Embedding(relation_vocab, emb_dim, dtype)
         self.gru_fwd = GRUCell(emb_dim, hidden)
         self.gru_bwd = GRUCell(emb_dim, hidden)
-        self.out_proj = nn.Linear(2 * hidden, out_dim)
+        self.out_proj = Dense(2 * hidden, out_dim)
+        self.emb_drop = Dropout(dropout)
+        self.out_drop = Dropout(dropout)
 
     def forward(self, bank, lengths):
         L = bank.shape[1]
-        xs = self.rel_embed(bank).transpose(0, 1)            # [L, P, e]
+        xs = self.emb_drop(self.rel_embed(bank)).transpose(0, 1)  # [L, P, e]
         valid = (torch.arange(L, device=bank.device)[:, None]
                  < lengths[None, :])                         # [L, P]
         h_fwd = self.gru_fwd.scan(xs, valid)
         h_bwd = self.gru_bwd.scan(xs.flip(0), valid.flip(0))
         out = self.out_proj(torch.cat([h_fwd, h_bwd], dim=-1))
-        return out.masked_fill((lengths == 0)[:, None], 0.0)
+        return self.out_drop(out.masked_fill((lengths == 0)[:, None], 0.0))

@@ -1,22 +1,29 @@
 """The top graph-to-sequence model: token encoder + relation GRU + graph
 transformer + copy decoder.
 
-Port of gtos_tpu/models/generator.py for serving: encode once, then
-`decode_step` repeatedly for search. The copy mechanism mixes the
-generation softmax with the alignment layer's cross-attention scattered
-onto an extended vocabulary:
+Port of gtos_tpu/models/generator.py: `forward(batch)` is the
+teacher-forced loss for training; for search, encode once, then
+`decode_step` repeatedly. The copy mechanism mixes the generation softmax
+with the alignment layer's cross-attention scattered onto an extended
+vocabulary:
 
     P(w) = g * P_vocab(w) + (1 - g) * sum_i alpha_i * [cp_seq_i == w]
 
 The JAX package lands the copy mass either by a split-precision bf16
 one-hot matmul (copy_impl="onehot", equal to an f32 scatter-add to about
 1e-6) or by a scatter-add ("scatter"); the port computes both values with
-one f32 `scatter_add`. The teacher-forced loss comes with the training
-slice.
+one f32 scatter-add (`index_put` with accumulation while gradients are
+taken, whose CUDA kernel sorts the indices and so adds colliding copy
+targets in a fixed order; `scatter_add` otherwise).
+
+Parameters are f32 (flax's param_dtype); each layer computes in
+cfg.compute_dtype, rounding its weights at use. Search runs on
+`serving_copy()`, the same weights rounded once to the compute type.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Optional
 
@@ -25,9 +32,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gtos_tpu_torch.models.components import LayerNorm
+from gtos_tpu_torch.models.components import (
+    Dense, Dropout, Embedding, LayerNorm,
+)
 from gtos_tpu_torch.models.decoder import Decoder
-from gtos_tpu_torch.models.encoder import GRUCell, RelationEncoder, TokenEncoder
+from gtos_tpu_torch.models.encoder import (
+    Conv1d, GRUCell, RelationEncoder, TokenEncoder,
+)
 from gtos_tpu_torch.models.graph_transformer import GraphTransformer, check_impl
 from gtos_tpu_torch.utils.config import ModelConfig
 from gtos_tpu_torch.utils.device import resolve_device
@@ -68,7 +79,9 @@ class Generator(nn.Module):
     """cfg: the model config. device: where the model runs — the CUDA card
     unless "cpu" is passed (raises when no card is visible). rng: the
     torch.Generator of the init (default: seeded with 0). Parameters are
-    kept in cfg.compute_dtype, LayerNorms in f32."""
+    f32; activations in cfg.compute_dtype. `dropout_rng` is the
+    torch.Generator (on `device`, seeded with 0) that every dropout draws
+    from in train mode; the model starts in eval mode."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  rng: Optional[torch.Generator] = None):
@@ -78,36 +91,63 @@ class Generator(nn.Module):
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.cfg = cfg
-        self.dtype = _DTYPES[cfg.compute_dtype]
+        self.dtype = dt = _DTYPES[cfg.compute_dtype]
         self.token_encoder = TokenEncoder(
             cfg.concept_vocab, cfg.char_vocab, cfg.d_model, cfg.char_dim,
-            cfg.char_filters, cfg.char_widths,
+            cfg.char_filters, cfg.char_widths, cfg.dropout, dt,
             add_positions=cfg.use_node_positions)
         self.relation_encoder = RelationEncoder(
-            cfg.relation_vocab, cfg.rel_emb_dim, cfg.rel_hidden, cfg.d_model)
+            cfg.relation_vocab, cfg.rel_emb_dim, cfg.rel_hidden, cfg.d_model,
+            cfg.dropout, dt)
         self.graph_transformer = GraphTransformer(
             cfg.enc_layers, cfg.d_model, cfg.d_ff, cfg.heads,
-            impl=cfg.attention_impl)
+            impl=cfg.attention_impl, dropout=cfg.dropout)
         self.decoder = Decoder(
             cfg.token_vocab, cfg.dec_layers, cfg.d_model, cfg.d_ff,
-            cfg.heads, cfg.max_target_len)
+            cfg.heads, cfg.max_target_len, cfg.dropout, dt)
         if not cfg.tie_embeddings:
-            self.out_proj = nn.Linear(cfg.d_model, cfg.token_vocab)
+            self.out_proj = Dense(cfg.d_model, cfg.token_vocab)
         if cfg.use_copy:
-            self.copy_gate = nn.Linear(cfg.d_model, 1)
+            self.copy_gate = Dense(cfg.d_model, 1)
         # init on the CPU so a seed gives the same weights on every device
         init_params(self, rng if rng is not None
                     else torch.Generator().manual_seed(0))
         self.to(device)
+        self.dropout_rng = torch.Generator(device=device).manual_seed(0)
         for mod in self.modules():
-            if not isinstance(mod, LayerNorm):
-                for p in mod.parameters(recurse=False):
-                    p.data = p.data.to(self.dtype)
+            if isinstance(mod, Dropout):
+                mod.rng = self.dropout_rng
+        self._serving = [None, None]   # (parameter versions, rounded copy)
         self.eval()
 
     @property
     def device(self) -> torch.device:
         return self.decoder.embed.weight.device
+
+    def serving_copy(self) -> "Generator":
+        """The model for search: itself when it computes in f32, else a
+        copy in eval mode with every parameter but the LayerNorms' rounded
+        to the compute type (the values each layer would round them to)
+        and its Dense/Conv1d/Embedding layers turned into the plain torch
+        layers they extend, so that no layer casts a weight or checks a
+        type per decode step. The copy is kept until a parameter changes
+        in place (an optimizer step, load_state_dict)."""
+        if self.dtype == torch.float32:
+            return self
+        key = tuple(p._version for p in self.parameters())
+        if self._serving[0] != key:
+            self._serving[1] = None
+            memo = {id(self.dropout_rng): None}   # not needed in eval
+            with torch.inference_mode(False):  # plain tensors, even in search
+                clone = copy.deepcopy(self, memo)
+                for mod in clone.modules():
+                    if not isinstance(mod, LayerNorm):
+                        for p in mod.parameters(recurse=False):
+                            p.data = p.data.to(self.dtype)
+                    if type(mod) in (Dense, Conv1d, Embedding):
+                        mod.__class__ = type(mod).__bases__[0]
+            self._serving[:] = [key, clone.eval()]
+        return self._serving[1]
 
     # ---------------- encoding ----------------
 
@@ -129,7 +169,9 @@ class Generator(nn.Module):
         return self.out_proj(h)
 
     def ext_log_probs(self, h, align_probs, cp_seq, copy_mask):
-        """Extended-vocabulary log P, f32 [..., ext_vocab].
+        """Extended-vocabulary log P, f32 [..., ext_vocab]. On a CUDA card
+        the copy mass lands in a fixed order while gradients are taken, so
+        a training step gives the same bits on every run.
 
         h: [..., D]; align_probs: [..., H, N] cross-attn probs; cp_seq and
         copy_mask: [B, N], broadcast over the middle dims of h."""
@@ -148,8 +190,48 @@ class Generator(nn.Module):
         g = torch.sigmoid(self.copy_gate(h).float())              # [..., 1]
         ext = F.pad(g * p_vocab, (0, pad_tail))
         cp = cp_seq.long().reshape(B, *mid, N).expand_as(alpha)
-        ext = ext.scatter_add(-1, cp, (1.0 - g) * alpha)
+        if torch.is_grad_enabled():
+            lead = torch.meshgrid(
+                *(torch.arange(n, device=cp.device) for n in cp.shape[:-1]),
+                indexing="ij")
+            ext = ext.index_put((*(i[..., None] for i in lead), cp),
+                                (1.0 - g) * alpha, accumulate=True)
+        else:
+            ext = ext.scatter_add(-1, cp, (1.0 - g) * alpha)
         return torch.log(ext + EPS)
+
+    # ---------------- training ----------------
+
+    def forward(self, batch: Dict[str, torch.Tensor]):
+        """Teacher-forced loss of a batch (GraphBatch.arrays() on the
+        model's device, batch_to_device): token NLL over the copy-mixed
+        extended vocabulary, label-smoothed over the real token vocab
+        (cfg.label_smoothing), averaged over real target positions.
+        Dropout is active in train mode. Returns (loss, {"loss", "acc",
+        "n_tok"}), scalars on the device."""
+        cfg = self.cfg
+        mem = self.encode(batch["concept"], batch["concept_char"],
+                          batch["concept_mask"], batch["rel_bank"],
+                          batch["rel_length"], batch["rel_index"],
+                          batch_edges(batch))
+        h, align = self.decoder(batch["token_in"], mem, batch["concept_mask"])
+        # align: [B, H, T, N] -> per position [B, T, H, N]
+        logp = self.ext_log_probs(h, align.transpose(1, 2), batch["cp_seq"],
+                                  batch["copy_mask"])
+        tgt = batch["token_out"].long()
+        mask = batch["token_mask"].float()
+        nll = -logp.gather(-1, tgt[..., None])[..., 0]
+        n_tok = mask.sum() + EPS
+        loss = (nll * mask).sum() / n_tok
+        if cfg.label_smoothing > 0.0:
+            # the uniform mass goes to the real token vocab only: the OOV
+            # tail is per instance and mostly padding
+            smooth = -(logp[..., :cfg.token_vocab].mean(-1)
+                       * mask).sum() / n_tok
+            loss = ((1.0 - cfg.label_smoothing) * loss
+                    + cfg.label_smoothing * smooth)
+        acc = ((logp.argmax(-1) == tgt) * mask).sum() / n_tok
+        return loss, {"loss": loss, "acc": acc, "n_tok": mask.sum()}
 
     # ---------------- incremental decoding ----------------
 
@@ -168,8 +250,10 @@ class Generator(nn.Module):
 
 def batch_edges(batch: Dict[str, torch.Tensor]):
     """The encoder's auxiliary arrays from a batch dict, if present (the
-    localized-bank arrays of attention_impl="pallas_local")."""
-    out = {k: batch[k] for k in ("bank_map", "rel_index_loc") if k in batch}
+    localized-bank arrays of attention_impl="pallas_local", and the
+    localize sort order of training batches)."""
+    out = {k: batch[k] for k in ("bank_map", "rel_index_loc", "loc_perm",
+                                 "loc_bnd") if k in batch}
     return out or None
 
 

@@ -9,13 +9,18 @@ attention impls are ported:
   "pallas_local" per-graph localized banks (batchify
                  build_local_banks=True): the GRU's relation vectors are
                  gathered once per stack (ops/localize.py) and every layer
-                 runs the localized relation-attention kernel
-                 (ops/local_relation_attention.py, a CUDA kernel on the
-                 card).
+                 runs the localized relation attention
+                 (ops/local_relation_attention.py): kernel B1 without
+                 gradients, and with them the trainable entry, whose
+                 forward is B1p and backward B2 (CUDA kernels on the card,
+                 plain versions on the CPU). B2's slot order over each
+                 graph's pairs is built once per stack, as the JAX package
+                 builds its sort auxiliaries once per step.
 
 The JAX package's other impls raise NotImplementedError naming the ROADMAP
-item that ports them. Inference only: the localized backward and its
-sort-order auxiliaries come with the training slice.
+item that ports them. Dropout where the JAX package has it: on the
+attention and FFN outputs before each residual add, and after the FFN's
+ReLU.
 """
 
 from __future__ import annotations
@@ -26,11 +31,11 @@ import torch
 from torch import nn
 
 from gtos_tpu_torch.models.components import (
-    FeedForward, PostLNResidual, merge_heads, split_heads,
+    Dense, FeedForward, PostLNResidual, merge_heads, split_heads,
 )
 from gtos_tpu_torch.ops.attention import bank_relation_attention
 from gtos_tpu_torch.ops.local_relation_attention import (
-    local_relation_attention,
+    local_relation_attention, local_relation_attention_trainable, slot_order,
 )
 from gtos_tpu_torch.ops.localize import localize_bank
 
@@ -67,17 +72,18 @@ class RelationMultiheadAttention(nn.Module):
         super().__init__()
         check_impl(impl)
         self.d_model, self.heads, self.impl = d_model, heads, impl
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.rel_proj = nn.Linear(d_model, 2 * d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.q_proj = Dense(d_model, d_model)
+        self.k_proj = Dense(d_model, d_model)
+        self.v_proj = Dense(d_model, d_model)
+        self.rel_proj = Dense(d_model, 2 * d_model)
+        self.out_proj = Dense(d_model, d_model)
 
     def forward(self, x, rel_vecs, rel_index, node_mask,
                 edges: Optional[Dict[str, torch.Tensor]] = None):
         """x: [B,N,D]; node_mask: [B,N]. rel_vecs: [P,Dr] for "xla", or
         pre-localized [B,P_loc,Dr] for "pallas_local" (with
-        edges["rel_index_loc"])."""
+        edges["rel_index_loc"], and edges["pair_order"]/["slot_start"]
+        when gradients are taken)."""
         H, D = self.heads, self.d_model
         q = split_heads(self.q_proj(x), H)
         k = split_heads(self.k_proj(x), H)
@@ -87,10 +93,14 @@ class RelationMultiheadAttention(nn.Module):
         a = ab[..., :D].reshape(*lead, H, D // H)
         b = ab[..., D:].reshape(*lead, H, D // H)
         if self.impl == "pallas_local":
-            out = local_relation_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                a.contiguous(), b.contiguous(), edges["rel_index_loc"],
-                node_mask)
+            args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                    a.contiguous(), b.contiguous(), edges["rel_index_loc"],
+                    node_mask)
+            if torch.is_grad_enabled() and q.requires_grad:
+                out = local_relation_attention_trainable(
+                    *args, edges.get("pair_order"), edges.get("slot_start"))
+            else:
+                out = local_relation_attention(*args)
         else:
             out, _ = bank_relation_attention(q, k, v, a, b, rel_index,
                                              node_mask)
@@ -99,12 +109,12 @@ class RelationMultiheadAttention(nn.Module):
 
 class GraphTransformerLayer(nn.Module):
     def __init__(self, d_model: int, d_ff: int, heads: int,
-                 impl: str = "xla"):
+                 impl: str = "xla", dropout: float = 0.0):
         super().__init__()
         self.self_attn = RelationMultiheadAttention(d_model, heads, impl)
-        self.attn_res = PostLNResidual(d_model)
-        self.ffn = FeedForward(d_model, d_ff)
-        self.ffn_res = PostLNResidual(d_model)
+        self.attn_res = PostLNResidual(d_model, dropout)
+        self.ffn = FeedForward(d_model, d_ff, dropout)
+        self.ffn_res = PostLNResidual(d_model, dropout)
 
     def forward(self, x, rel_vecs, rel_index, node_mask, edges=None):
         x = self.attn_res(x, self.self_attn(x, rel_vecs, rel_index,
@@ -114,13 +124,13 @@ class GraphTransformerLayer(nn.Module):
 
 class GraphTransformer(nn.Module):
     def __init__(self, layers: int, d_model: int, d_ff: int, heads: int,
-                 impl: str = "xla"):
+                 impl: str = "xla", dropout: float = 0.0):
         super().__init__()
         check_impl(impl)
         self.impl = impl
         for i in range(layers):
             self.add_module(f"layer{i}", GraphTransformerLayer(
-                d_model, d_ff, heads, impl))
+                d_model, d_ff, heads, impl, dropout))
         self.layers = layers
 
     def forward(self, x, rel_vecs, rel_index, node_mask, edges=None):
@@ -129,7 +139,13 @@ class GraphTransformer(nn.Module):
                 raise ValueError("attention_impl='pallas_local' needs "
                                  "batchify build_local_banks=True")
             # localize the relation vectors ONCE for the whole stack
-            rel_vecs = localize_bank(rel_vecs, edges["bank_map"])
+            rel_vecs = localize_bank(rel_vecs, edges["bank_map"],
+                                     edges.get("loc_perm"),
+                                     edges.get("loc_bnd"))
+            if torch.is_grad_enabled():
+                order, start = slot_order(edges["rel_index_loc"],
+                                          edges["bank_map"].shape[1])
+                edges = dict(edges, pair_order=order, slot_start=start)
         for i in range(self.layers):
             x = getattr(self, f"layer{i}")(x, rel_vecs, rel_index,
                                            node_mask, edges)

@@ -1,7 +1,10 @@
 // Localized relation-aware graph attention, forward, for Hopper (sm_90a).
 //
 // Replaces: gtos_tpu/ops/pallas/local_relation_attention.py `_fwd_kernel`
-// (the Pallas TPU kernel behind `local_relation_attention`, without probs).
+// (the Pallas TPU kernel behind `local_relation_attention`), both without
+// probs (B1, serving) and with them (B1p, `with_probs=True`, the forward of
+// a training step: a non-null `probs` pointer receives the f32
+// probabilities [B, H, N, N] before they are rounded to the input type).
 //
 // Computes, for graph b, head h, query node i, key node j, r = idx[b,i,j]:
 //   e_ij  = scale * (q_i + a_r) . (k_j + b_r) + (mask[b,j] ? 0 : -1e9)
@@ -77,8 +80,8 @@ local_rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ b_loc,
                           const int32_t* __restrict__ idx,
                           const uint8_t* __restrict__ mask,
-                          T* __restrict__ out, int H, int N, int Dh,
-                          int P_loc, float scale) {
+                          T* __restrict__ out, float* __restrict__ probs,
+                          int H, int N, int Dh, int P_loc, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);                    // [N][Dh]
   T* vs = ks + N * Dh;                                   // [N][Dh]
@@ -141,8 +144,15 @@ local_rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     s += p;
   }
   s = warp_sum(s);
-  for (int j = lane; j < N; j += 32)
-    row[j] = to_f32(from_f32<T>(row[j] / s));  // attn in the input type
+  float* prob_row =
+      probs == nullptr
+          ? nullptr
+          : probs + ((static_cast<size_t>(b) * H + h) * N + i) * N;
+  for (int j = lane; j < N; j += 32) {
+    const float p = row[j] / s;
+    if (prob_row != nullptr) prob_row[j] = p;  // f32, before rounding
+    row[j] = to_f32(from_f32<T>(p));           // attn in the input type
+  }
   __syncwarp();
 
 #pragma unroll
@@ -159,7 +169,7 @@ local_rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* a_loc,
            const void* b_loc, const void* idx, const void* mask, void* out,
-           int B, int H, int N, int Dh, int P_loc, float scale,
+           void* probs, int B, int H, int N, int Dh, int P_loc, float scale,
            cudaStream_t stream) {
   const size_t smem = 2 * static_cast<size_t>(N) * Dh * sizeof(T) +
                       static_cast<size_t>(kWarps + 1) * N * sizeof(float);
@@ -174,8 +184,8 @@ int launch(const void* q, const void* k, const void* v, const void* a_loc,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(a_loc),
       static_cast<const T*>(b_loc), static_cast<const int32_t*>(idx),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, N, Dh,
-      P_loc, scale);
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out),
+      static_cast<float*>(probs), H, N, Dh, P_loc, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -183,23 +193,24 @@ int launch(const void* q, const void* k, const void* v, const void* a_loc,
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors contiguous on one device:
 // q, k, v, out [B, H, N, Dh]; a_loc, b_loc [B, P_loc, H, Dh]; idx [B, N, N]
-// int32 slots in [0, P_loc); mask [B, N] bytes (nonzero = real node).
-// Returns the CUDA error code of the launch (0 = launched).
+// int32 slots in [0, P_loc); mask [B, N] bytes (nonzero = real node);
+// probs [B, H, N, N] f32, or null for none. Returns the CUDA error code of
+// the launch (0 = launched).
 extern "C" int gtos_local_rel_attn_fwd(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* a_loc, const void* b_loc,
                                        const void* idx, const void* mask,
-                                       void* out, int B, int H, int N,
-                                       int Dh, int P_loc, float scale,
+                                       void* out, void* probs, int B, int H,
+                                       int N, int Dh, int P_loc, float scale,
                                        void* stream) {
   if (N < 1 || N > kMaxN || Dh < 1 || Dh > 32 * kMaxDPL || B < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, a_loc, b_loc, idx, mask, out, B, H, N, Dh,
-                         P_loc, scale, s);
+    return launch<float>(q, k, v, a_loc, b_loc, idx, mask, out, probs, B, H,
+                         N, Dh, P_loc, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, a_loc, b_loc, idx, mask, out, B,
-                                 H, N, Dh, P_loc, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, a_loc, b_loc, idx, mask, out,
+                                 probs, B, H, N, Dh, P_loc, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

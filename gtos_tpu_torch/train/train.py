@@ -1,0 +1,288 @@
+"""Training CLI — port of gtos_tpu/train/train.py, the same flags and
+`--config` handling, plus `--device`:
+
+  # the c2 AMR model on synthetic data, on the CUDA card
+  python -m gtos_tpu_torch.train.train --config configs/c2_amr2.json \\
+      --synthetic 256 --ckpt_dir ckpt
+
+  # a small run on the CPU
+  python -m gtos_tpu_torch.train.train --synthetic 64 --device cpu \\
+      --d_model 32 --d_ff 64 --heads 2 --enc_layers 2 --dec_layers 1 \\
+      --total_steps 4 --ckpt_dir ckpt
+
+Training runs on the CUDA card unless `--device cpu` is given, and raises
+without a card. The configs and vocabs go into the checkpoint directory
+(the args-in-checkpoint contract), so inference rebuilds the model from it
+alone. Options whose feature is not ported raise and name the ROADMAP item
+that ports it: --dp/--mp/--graph/--coordinator and batchify worker pools
+(A9, A4), the sparse impls (A8), "pallas"/"auto" (A7), reading sembank or
+CoNLL files (A4: graph/amr.py, graph/dependency.py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List
+
+import torch
+
+from gtos_tpu_torch.graph.paths import RelationPathConfig
+from gtos_tpu_torch.models.graph_transformer import check_impl
+from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+IMPLS = ["xla", "pallas", "pallas_interpret", "pallas_local",
+         "pallas_local_interpret", "sparse", "block_sparse",
+         "block_sparse_interpret", "auto", "auto_interpret"]
+
+
+def parse_args(argv=None):
+    # --config FILE loads experiment defaults (configs/*.json); explicit CLI
+    # flags override the file
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--config")
+    pre_args, _ = pre.parse_known_args(argv)
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", help="JSON experiment config (configs/*.json)")
+    p.add_argument("--task", choices=["amr", "nmt"], default="amr")
+    p.add_argument("--train_data",
+                   help="sembank file (amr) or CoNLL file (nmt)")
+    p.add_argument("--train_target", help="target sentences (nmt)")
+    p.add_argument("--dev_data")
+    p.add_argument("--dev_target")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic instances instead of files")
+    p.add_argument("--ckpt_dir")
+    p.add_argument("--device", default=None,
+                   help="'cpu' to train on the CPU (default: the CUDA card)")
+    # model
+    p.add_argument("--d_model", type=int, default=512)
+    p.add_argument("--d_ff", type=int, default=1024)
+    p.add_argument("--heads", type=int, default=8)
+    p.add_argument("--enc_layers", type=int, default=4)
+    p.add_argument("--dec_layers", type=int, default=4)
+    p.add_argument("--dropout", type=float, default=0.2)
+    p.add_argument("--label_smoothing", type=float, default=0.0)
+    p.add_argument("--max_path_len", type=int, default=8)
+    p.add_argument("--max_target_len", type=int, default=128)
+    p.add_argument("--max_oov", type=int, default=64,
+                   help="copyable OOVs per instance (extended vocab = "
+                        "token vocab + this; also caps batchify's OOV list)")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--copy_impl", default="onehot",
+                   choices=["onehot", "scatter"],
+                   help="kept for the config's sake: the port computes "
+                        "both values with one f32 scatter-add")
+    p.add_argument("--attention_impl", default="xla", choices=IMPLS)
+    p.add_argument("--sparse_khop", type=int, default=0)
+    p.add_argument("--cp_schedule", default="ring", choices=["ring", "a2a"])
+    # optimization
+    p.add_argument("--total_steps", type=int, default=100000)
+    p.add_argument("--warmup_steps", type=int, default=4000)
+    p.add_argument("--lr_scale", type=float, default=1.0)
+    p.add_argument("--grad_clip", type=float, default=1.0)
+    p.add_argument("--accum_steps", type=int, default=1)
+    p.add_argument("--batch_size_tokens", type=int, default=4096)
+    p.add_argument("--eval_every", type=int, default=500)
+    p.add_argument("--checkpoint_every", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=19940117)
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint in --ckpt_dir")
+    p.add_argument("--profile", metavar="LOGDIR",
+                   help="write a torch.profiler trace of the run to "
+                        "LOGDIR/trace.json")
+    # parallelism (not ported: ROADMAP A9)
+    p.add_argument("--dp", type=int, default=0)
+    p.add_argument("--mp", type=int, default=1)
+    p.add_argument("--graph", type=int, default=1)
+    p.add_argument("--coordinator")
+    p.add_argument("--num_hosts", type=int, default=1)
+    p.add_argument("--host_id", type=int, default=0)
+    # evaluation
+    p.add_argument("--eval_bleu", action="store_true",
+                   help="decode the dev set at every eval interval and log "
+                        "dev BLEU (utils/bleu.py, sacrebleu's defaults)")
+    p.add_argument("--eval_bleu_max", type=int, default=200,
+                   help="cap on dev instances decoded for dev BLEU")
+    p.add_argument("--eval_bleu_beam", type=int, default=1,
+                   help="beam size for the dev-BLEU decode (1 = greedy)")
+    p.add_argument("--eval_bleu_alpha", type=float, default=0.0,
+                   help="length-penalty alpha for the dev-BLEU decode")
+    # input pipeline / dispatch overlap
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches packed and copied to the device ahead in a "
+                        "background thread (0 = synchronous)")
+    p.add_argument("--max_inflight", type=int, default=2,
+                   help="queued steps before the host reads a loss back "
+                        "(0 = wait for every step)")
+    p.add_argument("--batchify_workers", type=int, default=0)
+    p.add_argument("--batchify_worker_mode", default="process",
+                   choices=["process", "thread"])
+
+    if pre_args.config:
+        with open(pre_args.config) as f:
+            conf = {k: v for k, v in json.load(f).items()
+                    if not k.startswith("_")}
+        unknown = set(conf) - {a.dest for a in p._actions}
+        if unknown:
+            raise SystemExit(f"unknown keys in {pre_args.config}: {unknown}")
+        p.set_defaults(**conf)
+
+    args = p.parse_args(argv)
+    if not args.ckpt_dir:
+        raise SystemExit("--ckpt_dir is required")
+    return args
+
+
+def check_ported(args):
+    """Raise for the options whose feature the port does not have yet."""
+    if args.dp or args.mp > 1 or args.graph > 1 or args.coordinator:
+        raise NotImplementedError(
+            "--dp/--mp/--graph/--coordinator: the multi-device tier is not "
+            "ported yet (ROADMAP A9)")
+    if args.batchify_workers > 1:
+        raise NotImplementedError(
+            "--batchify_workers: DataLoader worker pools are not ported yet "
+            "(ROADMAP A4)")
+    if args.sparse_khop > 0 and not args.attention_impl.startswith(
+            ("sparse", "block_sparse")):
+        raise SystemExit(
+            "--sparse_khop prunes pairs only the sparse impls mask out; a "
+            "dense impl would attend to pruned pairs with the "
+            "unreachable-path embedding")
+    check_impl(args.attention_impl)
+
+
+def load_synthetic(task: str, n: int):
+    from gtos_tpu_torch.data.synthetic import (
+        synthetic_amr_corpus, synthetic_dependency_corpus)
+    fn = synthetic_amr_corpus if task == "amr" else synthetic_dependency_corpus
+    return fn(n, seed=0)
+
+
+def make_dev_bleu_fn(tv, cv, rv, chv, lm, dev_instances, dl_kw,
+                     beam_size: int = 1, alpha: float = 0.0,
+                     max_steps: int = 0):
+    """model -> corpus BLEU of the decoded dev set (a capped slice): the
+    training-time quality signal. The decode horizon follows the model's
+    target length unless max_steps is given."""
+    from gtos_tpu_torch.data.dataloader import DataLoader
+    from gtos_tpu_torch.infer.decode import decode_batch
+    from gtos_tpu_torch.utils.bleu import corpus_bleu
+
+    dl = DataLoader(dev_instances, tv, cv, rv, chv, lm,
+                    batch_size_tokens=2048, for_train=False, **dl_kw)
+
+    def dev_bleu(model) -> float:
+        hyps: List[str] = []
+        refs: List[str] = []
+        for batch, group in dl.iter_with_instances():
+            out = decode_batch(model, batch, tv, beam_size=beam_size,
+                               max_steps=max_steps or model.cfg.max_target_len,
+                               alpha=alpha)
+            for hyp, inst in zip(out, group):
+                hyps.append(" ".join(hyp))
+                refs.append(" ".join(inst.target))
+        return corpus_bleu(hyps, refs)
+
+    return dev_bleu
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    check_ported(args)
+
+    from gtos_tpu_torch.data.batching import BucketSpec
+    from gtos_tpu_torch.data.dataloader import DataLoader, preprocess
+    from gtos_tpu_torch.data.extract import (
+        build_vocabs, load_vocabs, save_vocabs)
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.checkpoint import CheckpointManager
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.device import resolve_device
+    from gtos_tpu_torch.utils.metrics import MetricsWriter
+
+    device = resolve_device(args.device)
+    path_cfg = RelationPathConfig(max_path_len=args.max_path_len)
+    if not args.synthetic:
+        raise NotImplementedError(
+            "reading sembank/CoNLL files (graph/amr.py, graph/dependency.py) "
+            "is not ported yet (ROADMAP A4); use --synthetic N")
+    graphs, targets = load_synthetic(args.task, args.synthetic)
+    dev_graphs, dev_targets = load_synthetic(args.task,
+                                             max(args.synthetic // 10, 4))
+
+    vocab_dir = os.path.join(args.ckpt_dir, "vocabs")
+    if os.path.exists(os.path.join(vocab_dir, "token_vocab.json")):
+        tv, cv, rv, chv, lm = load_vocabs(vocab_dir)
+    else:
+        tv, cv, rv, chv, lm = build_vocabs(graphs, targets, path_cfg=path_cfg)
+        save_vocabs(vocab_dir, tv, cv, rv, chv, lm)
+
+    model_cfg = ModelConfig(
+        token_vocab=len(tv), concept_vocab=len(cv), relation_vocab=len(rv),
+        char_vocab=len(chv), d_model=args.d_model, d_ff=args.d_ff,
+        heads=args.heads, enc_layers=args.enc_layers,
+        dec_layers=args.dec_layers, dropout=args.dropout,
+        label_smoothing=args.label_smoothing, max_oov=args.max_oov,
+        max_target_len=args.max_target_len,
+        compute_dtype=args.compute_dtype,
+        attention_impl=args.attention_impl, sparse_khop=args.sparse_khop,
+        cp_schedule=args.cp_schedule, use_copy=(args.task == "amr"),
+        copy_impl=args.copy_impl, use_node_positions=(args.task == "nmt"))
+    train_cfg = TrainConfig(
+        lr_scale=args.lr_scale, warmup_steps=args.warmup_steps,
+        grad_clip=args.grad_clip, accum_steps=args.accum_steps,
+        total_steps=args.total_steps, eval_every=args.eval_every,
+        checkpoint_every=args.checkpoint_every,
+        batch_size_tokens=args.batch_size_tokens, seed=args.seed,
+        dp_size=args.dp)
+
+    # spec.max_oov follows the model so extended target ids always fit
+    spec = BucketSpec().for_model_max_oov(model_cfg.max_oov)
+    dl_kw = dict(spec=spec, build_local_banks=(
+        args.attention_impl == "pallas_local"))
+    instances = preprocess(graphs, targets, path_cfg)
+    dev_instances = preprocess(dev_graphs, dev_targets, path_cfg)
+    dl = DataLoader(instances, tv, cv, rv, chv, lm,
+                    batch_size_tokens=args.batch_size_tokens, for_train=True,
+                    seed=args.seed, **dl_kw)
+    dev_dl = (DataLoader(dev_instances, tv, cv, rv, chv, lm,
+                         batch_size_tokens=args.batch_size_tokens,
+                         for_train=False, **dl_kw)
+              if dev_instances else None)
+
+    model = Generator(model_cfg, device=device,
+                      rng=torch.Generator().manual_seed(args.seed))
+    first = next(iter(dl))
+    metrics = MetricsWriter(os.path.join(args.ckpt_dir, "metrics.jsonl"))
+    ckpt = CheckpointManager(args.ckpt_dir, model_cfg, train_cfg)
+    dev_bleu_fn = None
+    if args.eval_bleu and dev_instances:
+        dev_bleu_fn = make_dev_bleu_fn(
+            tv, cv, rv, chv, lm, dev_instances[: args.eval_bleu_max], dl_kw,
+            beam_size=args.eval_bleu_beam, alpha=args.eval_bleu_alpha)
+    trainer = Trainer(model, model_cfg, train_cfg, first.arrays(),
+                      metrics_writer=metrics, checkpoint_manager=ckpt,
+                      dev_bleu_fn=dev_bleu_fn, prefetch=args.prefetch,
+                      max_inflight=args.max_inflight, device=device)
+    if args.resume:
+        step = trainer.restore_if_available()
+        print(f"resumed at step {step}", file=sys.stderr)
+    if args.profile:
+        from gtos_tpu_torch.utils.profiling import trace
+        with trace(args.profile):
+            last = trainer.fit(dl, dev_dl)
+    else:
+        last = trainer.fit(dl, dev_dl)
+    metrics.close()
+    print(f"done: {last}", file=sys.stderr)
+    return last
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,76 @@
+"""Corpus BLEU, as `sacrebleu.corpus_bleu(hyps, [refs]).score` computes it
+with its defaults (13a tokenizer, exp smoothing, 4-grams, one reference
+per hypothesis), for the dev-BLEU hook of training: the machine with the
+card has no sacrebleu.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from collections import Counter
+from typing import List, Sequence
+
+MAX_ORDER = 4
+_13A = [
+    # punctuation and symbols become tokens
+    (re.compile(r"([\{-\~\[-\` -\&\(-\+\:-\@\/])"), r" \1 "),
+    # period and comma, unless preceded by a digit
+    (re.compile(r"([^0-9])([\.,])"), r"\1 \2 "),
+    # period and comma, unless followed by a digit
+    (re.compile(r"([\.,])([^0-9])"), r" \1 \2"),
+    # dash after a digit
+    (re.compile(r"([0-9])(-)"), r"\1 \2 "),
+]
+
+
+def tokenize_13a(line: str) -> str:
+    """mteval-v13a's tokenization, as sacrebleu's default tokenizer."""
+    line = line.replace("<skipped>", "").replace("-\n", "")
+    line = line.replace("\n", " ")
+    if "&" in line:
+        line = (line.replace("&quot;", '"').replace("&amp;", "&")
+                .replace("&lt;", "<").replace("&gt;", ">"))
+    line = f" {line} "
+    for pattern, repl in _13A:
+        line = pattern.sub(repl, line)
+    return " ".join(line.split())
+
+
+def _ngrams(tokens: List[str]) -> Counter:
+    return Counter(tuple(tokens[i:i + n]) for n in range(1, MAX_ORDER + 1)
+                   for i in range(len(tokens) - n + 1))
+
+
+def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    """BLEU (0-100) of hypothesis strings against one reference string
+    each."""
+    correct = [0] * MAX_ORDER
+    total = [0] * MAX_ORDER
+    sys_len = ref_len = 0
+    for hyp, ref in zip(hyps, refs):
+        h = tokenize_13a(hyp.rstrip()).split()
+        r = tokenize_13a(ref.rstrip()).split()
+        sys_len += len(h)
+        ref_len += len(r)
+        ref_counts = _ngrams(r)
+        for gram, count in _ngrams(h).items():
+            total[len(gram) - 1] += count
+            correct[len(gram) - 1] += min(count, ref_counts.get(gram, 0))
+    bp = 1.0
+    if sys_len < ref_len:
+        bp = math.exp(1 - ref_len / sys_len) if sys_len > 0 else 0.0
+    if not any(correct):
+        return 0.0
+    precisions = [0.0] * MAX_ORDER
+    smooth = 1.0
+    for n in range(MAX_ORDER):
+        if total[n] == 0:
+            break
+        if correct[n] == 0:
+            smooth *= 2
+            precisions[n] = 100.0 / (smooth * total[n])
+        else:
+            precisions[n] = 100.0 * correct[n] / total[n]
+    logs = [math.log(p) if p > 0 else -9999999999 for p in precisions]
+    return bp * math.exp(sum(logs) / MAX_ORDER)

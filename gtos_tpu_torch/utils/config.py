@@ -1,6 +1,6 @@
-"""Typed, JSON-serializable model config — field for field the JAX package's
-`gtos_tpu.utils.config.ModelConfig`, so one `model_config.json` loads in
-both packages. `TrainConfig` comes with the training slice."""
+"""Typed, JSON-serializable configs — field for field the JAX package's
+`gtos_tpu.utils.config.ModelConfig` and `TrainConfig`, so one
+`model_config.json` / `train_config.json` loads in both packages."""
 
 from __future__ import annotations
 
@@ -73,3 +73,31 @@ class ModelConfig:
         if "char_widths" in d:
             d["char_widths"] = tuple(d["char_widths"])
         return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    # optimizer: Adam + inverse-sqrt warmup (the transformer schedule)
+    lr_scale: float = 1.0
+    warmup_steps: int = 4000
+    adam_b1: float = 0.9
+    adam_b2: float = 0.98
+    adam_eps: float = 1e-9
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    accum_steps: int = 1
+    # loop
+    total_steps: int = 10000
+    eval_every: int = 500
+    checkpoint_every: int = 1000
+    batch_size_tokens: int = 4096
+    seed: int = 19940117
+    # mesh (the multi-device tier is not ported: ROADMAP A9)
+    dp_size: int = 1
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "TrainConfig":
+        return cls(**json.loads(s))

@@ -16,6 +16,8 @@ from gtos_tpu.models import components as jax_components
 from gtos_tpu_torch.infer import beam
 from gtos_tpu_torch.models import components
 
+torch.set_num_threads(2)
+
 T, V_TOK, V_EXT, B = 10, 7, 9, 3
 IDS = dict(str_id=2, end_id=3, unk_id=1)
 

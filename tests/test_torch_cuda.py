@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from gtos_tpu_torch.ops.local_relation_attention import (
-    local_relation_attention, local_relation_attention_reference,
+    local_relation_attention, local_relation_attention_bwd,
+    local_relation_attention_bwd_reference, local_relation_attention_reference,
+    local_relation_attention_with_probs,
+    local_relation_attention_with_probs_reference,
 )
 from gtos_tpu_torch.ops.localize import localize_bank
 
@@ -97,6 +100,46 @@ def test_cuda_kernel_matches_plain_version(card, B, H, N, Dh, P, P_loc,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=1e-4, atol=1e-4)),
+    (torch.bfloat16, dict(rtol=2e-2, atol=3e-2)),
+])
+@pytest.mark.parametrize("B,H,N,Dh,P,P_loc",
+                         CASES + [(2, 8, 128, 64, 5000, 4096)])
+def test_cuda_b1p_and_b2_match_plain_versions(card, B, H, N, Dh, P, P_loc,
+                                              dtype, tol):
+    """B1p (forward with the f32 probabilities) and B2 (the backward from
+    them) against their plain versions on the same card inputs: out, gq,
+    gk, gv, g_a_loc and g_b_loc to B1's tolerances (f32 sums in another
+    order; in bf16 one rounding of each output), the probabilities to 1e-5
+    in both types (they are f32 from the same inputs). Each launch counts
+    once, and B2 gives the same bits on a second run (no atomics)."""
+    args = port_local_args(make_case(B, H, N, Dh, P, P_loc), dtype, card)
+    q = args[0]
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(card)
+    before = (local_relation_attention_with_probs.launches,
+              local_relation_attention_bwd.launches)
+    out, probs = local_relation_attention_with_probs(*args)
+    grads = local_relation_attention_bwd(*args[:3], g, probs, *args[3:6])
+    again = local_relation_attention_bwd(*args[:3], g, probs, *args[3:6])
+    torch.cuda.synchronize()
+    assert (local_relation_attention_with_probs.launches,
+            local_relation_attention_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 2)
+    ref_out, ref_probs = local_relation_attention_with_probs_reference(*args)
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+    torch.testing.assert_close(probs, ref_probs, rtol=1e-4, atol=1e-5)
+    ref = local_relation_attention_bwd_reference(*args[:3], g, probs,
+                                                 *args[3:6])
+    for name, x, y, z in zip(("gq", "gk", "gv", "g_a_loc", "g_b_loc"),
+                             grads, ref, again):
+        assert x.dtype == dtype and torch.isfinite(x.float()).all(), name
+        torch.testing.assert_close(x.float(), y.float(), **tol, msg=name)
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.cuda
 def test_cuda_serving_goes_through_the_kernel(card):
     """A small f32 model serves a batch on the card: its encoder agrees
     with the same weights on the CPU to 1e-4 (two layers), decode_batch
@@ -136,3 +179,54 @@ def test_cuda_serving_goes_through_the_kernel(card):
     assert local_relation_attention.launches == before + cfg.enc_layers
     assert len(hyps) == 8
     assert all(isinstance(w, str) for h in hyps for w in h)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_goes_through_b1p_and_b2(card):
+    """One training forward and backward of a small f32 model (dropout 0)
+    on the card: B1p and B2 launch once per encoder layer and B1 not at
+    all; every encoder layer's q/k/v/rel projections get a non-zero
+    gradient through the attention; the loss and every parameter gradient
+    agree with the same weights on the CPU (plain versions) to 1e-4
+    relative, 1e-6 absolute (f32 sums in another order)."""
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.utils.config import ModelConfig
+
+    g, t = synthetic_amr_corpus(8, seed=5)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    batch = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
+                     build_local_banks=True)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=64, d_ff=128, heads=4, enc_layers=2,
+                      dec_layers=2, max_target_len=32, dropout=0.0,
+                      label_smoothing=0.1, attention_impl="pallas_local")
+    out = {}
+    counts = (local_relation_attention.launches,
+              local_relation_attention_with_probs.launches,
+              local_relation_attention_bwd.launches)
+    for dev in ("cpu", "cuda"):
+        model = Generator(cfg, device=dev).train()
+        names, params = zip(*model.named_parameters())
+        loss, _ = model(batch_to_device(batch.arrays(), dev))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[dev] = loss, dict(zip(names, grads))
+    torch.cuda.synchronize()
+    assert (local_relation_attention.launches,
+            local_relation_attention_with_probs.launches,
+            local_relation_attention_bwd.launches) == (
+        counts[0], counts[1] + cfg.enc_layers, counts[2] + cfg.enc_layers)
+    (cpu_loss, cpu_grads), (loss, grads) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=1e-6)
+    for i in range(cfg.enc_layers):
+        for proj in ("q_proj", "k_proj", "v_proj", "rel_proj"):
+            grad = grads[f"graph_transformer.layer{i}.self_attn.{proj}.weight"]
+            assert grad is not None and grad.abs().sum() > 0, (i, proj)
+    for name, grad in grads.items():
+        torch.testing.assert_close(grad.cpu(), cpu_grads[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)

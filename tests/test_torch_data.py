@@ -5,6 +5,7 @@ equality: the data layer has no floating point."""
 
 import numpy as np
 import pytest
+import torch
 
 from gtos_tpu.data import DataLoader as JaxDataLoader
 from gtos_tpu.data.batching import BucketSpec as JaxBucketSpec
@@ -22,6 +23,8 @@ from gtos_tpu_torch.data.synthetic import (
     synthetic_amr2_corpus, synthetic_amr_corpus,
 )
 from gtos_tpu_torch.graph.paths import relation_paths
+
+torch.set_num_threads(2)
 
 
 def _same_graphs(jg, pg):
@@ -93,6 +96,37 @@ def test_serving_batches_equal_with_local_banks(amr2_200):
         assert jb.oov_lists == pb.oov_lists
 
 
+def test_training_batches_and_epoch_plans_equal(amr2_200):
+    """DataLoader(for_train=True, build_local_banks=True): epochs 1 and 2
+    shuffle instances and batches with random.Random(seed*1000003+epoch)
+    into the same plans as the JAX package's, and every array of every
+    batch is equal, the localize sort auxiliaries loc_perm/loc_bnd
+    included (the slot arrays are the serving ones, as in the JAX
+    package)."""
+    (jg, jt), (pg, pt) = amr2_200
+    jv, pv = jax_build_vocabs(jg, jt), build_vocabs(pg, pt)
+    kw = dict(batch_size_tokens=1024, for_train=True, build_local_banks=True,
+              seed=7)
+    jl = JaxDataLoader(jax_preprocess(jg, jt), *jv, **kw)
+    pl = DataLoader(preprocess(pg, pt), *pv, **kw)
+    plans = []
+    for epoch in (1, 2):
+        jbs = list(jl.iter_with_instances())
+        pbs = list(pl.iter_with_instances())
+        assert jl.epoch == pl.epoch == epoch
+        assert len(jbs) == len(pbs) > 1
+        plans.append([[i.orig_index for i in g] for _, g in pbs])
+        for (jb, ji), (pb, pi) in zip(jbs, pbs):
+            assert [i.orig_index for i in ji] == [i.orig_index for i in pi]
+            ja, pa = jb.arrays(), pb.arrays()
+            assert ja.keys() == pa.keys()
+            assert {"loc_perm", "loc_bnd", "bank_map"} <= pa.keys()
+            for k in ja:
+                assert ja[k].dtype == pa[k].dtype, k
+                np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
+    assert plans[0] != plans[1]
+
+
 def test_long_targets_truncated_like_the_reference():
     """A target longer than the last target bucket is cut to T-1 tokens
     without a warning, in both packages."""
@@ -111,7 +145,7 @@ def test_long_targets_truncated_like_the_reference():
 @pytest.mark.parametrize("flag", [
     dict(build_edges=True), dict(build_block_tiles=True),
     dict(host_shard=(0, 2)),
-    dict(build_local_banks=True, for_train=True),
+    dict(build_local_banks=True, for_train=True, host_shard=(0, 2)),
 ])
 def test_unported_batch_options_raise(flag):
     """Options whose port comes in a later slice raise and name the

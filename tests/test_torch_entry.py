@@ -1,6 +1,7 @@
 """The PyTorch port's entry points and package boundary: it imports no JAX
-and nothing of the JAX package, its entry points run on the card unless
-told otherwise, and its config loads the JAX package's JSON."""
+and nothing of the JAX package, its entry points (serving and training)
+run on the card unless told otherwise, and its configs load the JAX
+package's JSON."""
 
 import dataclasses
 import json
@@ -9,13 +10,19 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
 from gtos_tpu.utils.config import ModelConfig as JaxModelConfig
+from gtos_tpu.utils.config import TrainConfig as JaxTrainConfig
 from gtos_tpu_torch.infer.beam import beam_search
 from gtos_tpu_torch.models import Generator
-from gtos_tpu_torch.utils.config import ModelConfig
+from gtos_tpu_torch.train.train import main as train_main
+from gtos_tpu_torch.train.trainer import Trainer
+from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(token_vocab=20, concept_vocab=20, relation_vocab=10,
@@ -67,17 +74,58 @@ NO_JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
+# one training step of a small model on the CPU through the Trainer, then
+# the same report of imported modules
+NO_JAX_TRAIN_SCRIPT = textwrap.dedent("""
+    import json, sys
+    import torch
+    torch.set_num_threads(1)
+    from gtos_tpu_torch.data import DataLoader
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+    g, t = synthetic_amr_corpus(6, seed=0)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=16, d_ff=32, heads=2, enc_layers=1,
+                      dec_layers=1, char_dim=4, char_filters=8,
+                      rel_emb_dim=4, rel_hidden=8, max_oov=64,
+                      max_target_len=16, dropout=0.1,
+                      attention_impl="pallas_local")
+    batch = next(iter(DataLoader(preprocess(g, t), tv, cv, rv, chv, lm,
+                                 build_local_banks=True)))
+    model = Generator(cfg, device="cpu")
+    trainer = Trainer(model, cfg, TrainConfig(), batch.arrays(),
+                      device="cpu")
+    m = trainer.train_step(batch_to_device(batch.arrays(), "cpu"))
+    print(json.dumps({"loss": m["loss"].item(), "step": trainer.step,
+                      "imported": sorted(
+                          m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "flax", "gtos_tpu")
+                          or m.startswith("jaxlib"))}))
+""")
+
+
+def _run_port_script(script):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def test_port_imports_no_jax_and_decodes_on_the_cpu():
     """In a fresh interpreter (this one has JAX: conftest imports it):
     every gtos_tpu_torch module imports, a CPU decode runs, and neither
     jax, flax nor gtos_tpu is in sys.modules afterwards."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT, os.environ.get("PYTHONPATH", "")]))
-    res = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=ROOT,
-                         env=env, capture_output=True, text=True,
-                         timeout=300)
-    assert res.returncode == 0, res.stderr
-    report = json.loads(res.stdout.strip().splitlines()[-1])
+    report = _run_port_script(NO_JAX_SCRIPT)
     assert report["modules"] >= 20
     assert report["hyps"] == 6 and report["strings"]
     assert report["imported"] == []
@@ -95,6 +143,62 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         Generator(ModelConfig(**TINY), device="cuda")
     model = Generator(ModelConfig(**TINY), device="cpu")
     assert model.device == torch.device("cpu")
+
+
+def test_port_trains_on_the_cpu_without_jax():
+    """In a fresh interpreter, a train step on the CPU (forward, the
+    localized attention's plain backward, clip, Adam) leaves jax, flax and
+    gtos_tpu out of sys.modules."""
+    report = _run_port_script(NO_JAX_TRAIN_SCRIPT)
+    assert report["step"] == 1 and report["loss"] > 0
+    assert report["imported"] == []
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """Without a visible card, the Trainer and the train CLI called without
+    a device raise before any work; given the CPU they run (the CLI test in
+    tests/test_torch_train.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Generator(ModelConfig(**TINY), device="cpu")
+    arrays = {"token_out": np.zeros((1, 4), np.int32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, model.cfg, TrainConfig(), arrays)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, model.cfg, TrainConfig(), arrays, device="cuda")
+    assert Trainer(model, model.cfg, TrainConfig(), arrays,
+                   device="cpu").step == 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--synthetic", "8", "--ckpt_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--dp", "2"], "A9"), (["--graph", "2"], "A9"),
+    (["--coordinator", "localhost:1234"], "A9"),
+    (["--attention_impl", "auto"], "A7"),
+    (["--attention_impl", "pallas"], "A7"),
+    (["--attention_impl", "sparse"], "A8"),
+    (["--attention_impl", "block_sparse"], "A8"),
+])
+def test_train_cli_refuses_unported_options(flags, item, tmp_path):
+    """The train CLI's options whose feature is not ported raise and name
+    the ROADMAP item that ports it, before any work."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        train_main(["--synthetic", "8", "--device", "cpu", "--ckpt_dir",
+                    str(tmp_path), *flags])
+
+
+def test_train_config_json_loads_in_both_packages():
+    """One train_config.json loads in both packages, field for field."""
+    names = {f.name for f in dataclasses.fields(JaxTrainConfig)}
+    assert names == {f.name for f in dataclasses.fields(TrainConfig)}
+    jcfg = JaxTrainConfig(warmup_steps=7, accum_steps=2, weight_decay=0.1)
+    pcfg = TrainConfig.from_json(jcfg.to_json())
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(JaxTrainConfig.from_json(pcfg.to_json())) == \
+        dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(TrainConfig()) == \
+        dataclasses.asdict(JaxTrainConfig())
 
 
 def test_model_config_json_loads_in_both_packages():

@@ -1,7 +1,8 @@
-"""The port's localized relation-attention forward (ops/
-local_relation_attention.py) and the attention ops around it, against the
-JAX package on the CPU (the CUDA kernel itself is held against its plain
-version in tests/test_torch_cuda.py, on a card).
+"""The port's localized relation attention (ops/local_relation_attention.py:
+the forward, the forward with probabilities and the backward), the bank
+localization and the attention ops around them, against the JAX package
+on the CPU (the CUDA kernels themselves are held against their plain
+versions in tests/test_torch_cuda.py, on a card).
 
 Inputs are made with numpy from a seed (tests/test_torch_cuda.py
 make_case) and handed to both packages. The
@@ -10,6 +11,7 @@ JAX kernel runs as its own tests run it, under the Pallas interpreter
 tests/test_local_kernel.py holds the JAX kernel against its dense
 reference (f32 sums in another order)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,14 +20,21 @@ import torch
 from gtos_tpu.ops.attention import (
     bank_relation_attention as jax_bank_relation_attention,
 )
+from gtos_tpu.ops.localize import build_localize_aux as jax_localize_aux
+from gtos_tpu.ops.localize import localize_bank as jax_localize_bank
 from gtos_tpu.ops.pallas.local_relation_attention import (
     local_relation_attention as jax_local_relation_attention,
+    local_relation_attention_trainable as jax_trainable,
 )
 from gtos_tpu_torch.ops.attention import bank_relation_attention
 from gtos_tpu_torch.ops.local_relation_attention import (
-    _check_cuda_args, local_relation_attention,
-    local_relation_attention_reference,
+    _check_bwd_args, _check_cuda_args, local_relation_attention,
+    local_relation_attention_bwd, local_relation_attention_reference,
+    local_relation_attention_trainable, local_relation_attention_with_probs,
+    slot_order,
 )
+from gtos_tpu_torch.ops.localize import build_localize_aux, localize_bank
+from test_local_kernel import build_case
 from test_torch_cuda import CASES, make_case, port_local_args
 
 torch.set_num_threads(2)
@@ -105,3 +114,135 @@ def test_kernel_argument_checks_raise(which):
     args = port_local_args(make_case(*CASES[0]))
     with pytest.raises((TypeError, ValueError)):
         _check_cuda_args(*_bad(args, which))
+
+
+# the two cases of tests/test_local_kernel.py's gradient test
+GRAD_CASES = [(2, 2, 32, 16, 200, 128), (1, 3, 64, 32, 300, 256)]
+
+
+@pytest.mark.parametrize("B,H,N,Dh,P,P_loc", GRAD_CASES)
+def test_plain_b1p_and_b2_match_jax_trainable(B, H, N, Dh, P, P_loc):
+    """The differentiable entry on CPU tensors (forward: the plain B1p;
+    backward: the plain B2) against the JAX package's
+    local_relation_attention_trainable under the Pallas interpreter, on
+    tests/test_local_kernel.py's build_case: the output, B1p's f32
+    probabilities against the JAX kernel's (its lane-padded columns cut
+    off), and the gradients of sum(out^2) to q, k, v and both GLOBAL banks
+    through the bank_map gather, at that test's 5e-4."""
+    (q, k, v, a_bank, b_bank, _, mask, bank_map, idx_loc,
+     srt, bnd, srtT, bndT) = build_case(B, H, N, Dh, P, P_loc)
+
+    def jax_loss(q, k, v, ab, bb):
+        o = jax_trainable(q, k, v, ab[bank_map], bb[bank_map], idx_loc, mask,
+                          srt, bnd, srtT, bndT, interpret=True)
+        return (o ** 2).sum(), o
+
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(
+            q, k, v, a_bank, b_bank)
+    _, jprobs = jax_local_relation_attention(
+        q, k, v, a_bank[bank_map], b_bank[bank_map], idx_loc, mask,
+        interpret=True, with_probs=True)
+
+    leaves = [torch.tensor(np.asarray(x), requires_grad=True)
+              for x in (q, k, v, a_bank, b_bank)]
+    bm, idx, nmask = (torch.from_numpy(np.array(x))
+                      for x in (bank_map, idx_loc, mask))
+    a_loc = localize_bank(leaves[3].flatten(1), bm).reshape(B, P_loc, H, Dh)
+    b_loc = localize_bank(leaves[4].flatten(1), bm).reshape(B, P_loc, H, Dh)
+    before = (local_relation_attention_with_probs.launches,
+              local_relation_attention_bwd.launches)
+    out = local_relation_attention_trainable(*leaves[:3], a_loc, b_loc, idx,
+                                             nmask)
+    (out ** 2).sum().backward()
+    _, probs = local_relation_attention_with_probs(
+        *(x.detach() for x in (*leaves[:3], a_loc, b_loc)), idx, nmask)
+    assert (local_relation_attention_with_probs.launches,
+            local_relation_attention_bwd.launches) == before
+    tol = dict(rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **tol)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs)[..., :N],
+                               rtol=2e-5, atol=2e-6)
+    for name, leaf, ref in zip("qkvab", leaves, jgrads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref),
+                                   **tol, err_msg=name)
+
+
+@pytest.mark.parametrize("sorted_aux", [False, True])
+def test_localize_bank_grads_match_the_scatter_free_backward(sorted_aux):
+    """The port's localize_bank backward, a scatter-add of [B*P_loc, D]
+    into [P, D] (autograd of the gather, or with loc_perm/loc_bnd the
+    sorted prefix sum), against the JAX package's scatter-free backward
+    over the host sort order (_localize_aux), with colliding rows across
+    graphs and pad slots on row 0, to 1e-5 (f32 sums in another order);
+    build_localize_aux's arrays equal the JAX package's."""
+    rng = np.random.default_rng(0)
+    B, P_loc, P, D = 5, 96, 300, 24
+    bank_map = np.zeros((B, P_loc), np.int32)
+    for b in range(B):
+        rows = np.unique(rng.integers(0, P, size=rng.integers(10, P_loc)))
+        bank_map[b, 1:1 + len(rows)] = rows
+    perm, bnd = jax_localize_aux(bank_map, P)
+    p_perm, p_bnd = build_localize_aux(bank_map, P)
+    np.testing.assert_array_equal(p_perm, perm)
+    np.testing.assert_array_equal(p_bnd, bnd)
+    rel_vecs = rng.standard_normal((P, D)).astype(np.float32)
+    g_out = rng.standard_normal((B, P_loc, D)).astype(np.float32)
+    ref = jax.grad(lambda rv: (jax_localize_bank(
+        rv, jnp.asarray(bank_map), jnp.asarray(perm), jnp.asarray(bnd))
+        * g_out).sum())(jnp.asarray(rel_vecs))
+    rv = torch.tensor(rel_vecs, requires_grad=True)
+    aux = ((torch.from_numpy(p_perm), torch.from_numpy(p_bnd)) if sorted_aux
+           else ())
+    out = localize_bank(rv, torch.from_numpy(bank_map), *aux)
+    (out * torch.from_numpy(g_out)).sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(), rel_vecs[bank_map])
+    np.testing.assert_allclose(rv.grad.numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_slot_order_walks_each_graphs_pairs_by_slot():
+    """B2's walk order: per graph, the flat pairs i*N+j sorted by slot
+    (stable, so by pair within a slot) and each slot's run bounds, the
+    last at N*N; empty slots have empty runs."""
+    c = make_case(*CASES[2])
+    idx = torch.from_numpy(c["idx_loc"])
+    P_loc = c["bank_map"].shape[1]
+    order, start = slot_order(idx, P_loc)
+    assert order.dtype == start.dtype == torch.int32
+    flat = c["idx_loc"].reshape(len(idx), -1)
+    for b in range(len(idx)):
+        np.testing.assert_array_equal(
+            order[b].numpy(), np.argsort(flat[b], kind="stable"))
+        counts = np.bincount(flat[b], minlength=P_loc)
+        np.testing.assert_array_equal(
+            start[b].numpy(), np.concatenate([[0], np.cumsum(counts)]))
+
+
+@pytest.mark.parametrize("which", ["g_dtype", "probs_shape", "order_dtype",
+                                   "start_shape", "too_many_nodes"])
+def test_backward_argument_checks_raise(which):
+    """What B2 does not take is refused before a launch: an f32 cotangent
+    and f32 probabilities [B, H, N, N], int32 walk arrays of their shapes,
+    node buckets up to 128."""
+    q, k, v, a, b, idx, mask = port_local_args(make_case(*CASES[0]))
+    g = torch.zeros_like(q)
+    _, probs = local_relation_attention_with_probs(q, k, v, a, b, idx, mask)
+    order, start = slot_order(idx, a.shape[1])
+    _check_bwd_args(q, k, v, g, probs, a, b, idx, order, start)
+    if which == "g_dtype":
+        g = g.double()
+    elif which == "probs_shape":
+        probs = probs[..., :-1].contiguous()
+    elif which == "order_dtype":
+        order = order.long()
+    elif which == "start_shape":
+        start = start[:, :-1].contiguous()
+    else:
+        q = k = v = g = torch.zeros(1, 1, 136, 16)
+        a = b = torch.zeros(1, 128, 1, 16)
+        idx = torch.zeros(1, 136, 136, dtype=torch.int32)
+        probs = torch.zeros(1, 1, 136, 136)
+        order, start = slot_order(idx, 128)
+    with pytest.raises((TypeError, ValueError)):
+        _check_bwd_args(q, k, v, g, probs, a, b, idx, order, start)

@@ -252,3 +252,45 @@ def test_beam_decode_token_identical(m, beam):
     np.testing.assert_array_equal(_np(out.lengths), np.asarray(ref.lengths))
     np.testing.assert_allclose(_np(out.scores), np.asarray(ref.scores),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_serving_copy_is_the_rounded_model():
+    """A bf16 model searches on `serving_copy()`: its weights rounded once
+    to bf16 (LayerNorms stay f32) in the plain torch layers, kept until a
+    parameter changes in place. It encodes and steps bit for bit as the
+    f32-master model, which rounds the same weights at every use, and
+    decodes the same tokens."""
+    from torch import nn
+
+    from gtos_tpu_torch.infer.decode import decode_batch
+    from gtos_tpu_torch.models.components import LayerNorm
+
+    g, t = synthetic_amr_corpus(6, seed=3)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    batch = batchify(preprocess(g, t), tv, cv, rv, chv, lm,
+                     batch_size_bucket=8, for_train=False,
+                     build_local_banks=True)
+    cfg = ModelConfig(**dict(
+        SMALL, token_vocab=len(tv), concept_vocab=len(cv),
+        relation_vocab=len(rv), char_vocab=len(chv),
+        compute_dtype="bfloat16", attention_impl="pallas_local"))
+    model = Generator(cfg, device="cpu")
+    copy = model.serving_copy()
+    assert copy is model.serving_copy() and not copy.training
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for mod in copy.modules():
+        want = torch.float32 if isinstance(mod, LayerNorm) else torch.bfloat16
+        assert all(p.dtype == want for p in mod.parameters(recurse=False))
+    assert type(copy.decoder.embed) is nn.Embedding
+    assert type(copy.token_encoder.merge) is nn.Linear
+    t_ = batch_to_device(batch.arrays(), "cpu")
+    args = (t_["concept"], t_["concept_char"], t_["concept_mask"],
+            t_["rel_bank"], t_["rel_length"], t_["rel_index"])
+    with torch.no_grad():
+        assert torch.equal(model.encode(*args, edges=batch_edges(t_)),
+                           copy.encode(*args, edges=batch_edges(t_)))
+    assert decode_batch(model, batch, tv, beam_size=2, max_steps=6) == \
+        decode_batch(copy, batch, tv, beam_size=2, max_steps=6)
+    with torch.no_grad():
+        next(model.parameters()).add_(1.0)
+    assert model.serving_copy() is not copy

@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (gtos_tpu_torch) on one NVIDIA GPU, end to end:
-serving and training of the configs/c2_amr2.json model at full width.
+serving and training of the configs/c2_amr2.json model at full width,
+under each ported attention impl ("pallas_local", "pallas", "auto"), and
+the train and work CLIs.
 
     python3 chip_smoke.py            # from the repo root, on a machine with a card
     python3 chip_smoke.py --profile  # and where the serving and training time goes
 
 Phases, each of which exits non-zero on failure:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — builds every CUDA kernel of the serving and training paths
-               from gtos_tpu_torch/ops/csrc (one nvcc per source, all
-               started together; sm_90a) and prints the build times;
+  2. build   — builds every CUDA kernel from gtos_tpu_torch/ops/csrc (one
+               nvcc per source, all started together; sm_90a) and prints
+               the build times, registers and spills;
   3. kernels — holds each kernel against its plain torch version on real
-               batchify index arrays (N=32 and N=128 buckets, bf16 and
-               f32), and times both (CUDA events, L2 flushed before every
-               launch) beside the bound: B1 (forward), B1p (forward with
-               the f32 probabilities: out and probs) and B2 (backward:
-               gq, gk, gv, g_a_loc, g_b_loc against autograd of the plain
-               forward);
+               batchify index arrays, bf16 and f32, and times both (CUDA
+               events, L2 flushed before every launch) beside the bound:
+               B1 (forward), B1p (forward with the f32 probabilities) and
+               B2 (backward) of the localized attention at N=32 and N=128;
+               B3 (global-bank forward from tables), B3' (from the banks)
+               and B4 (its backward) at N=32 (B=16) and N=128 (B=8), P=2048
+               and 4096, with B3 and B3' timed on the same inputs;
   4. serve   — builds the model with seeded random weights and serves the
                fullest batch of each of three node buckets with
                decode_batch (beam 8), counting the kernel launches of that
-               run (B1 = enc_layers per batch, B1p = B2 = 0); then holds
+               run (B1 = enc_layers per batch, no other kernel); then holds
                the whole encoder (card, bf16, kernel) against the same
                weights on the CPU in f32 (plain version), in bf16 and in
                f32 on the card, and shows that two planted wrong versions
@@ -29,9 +32,10 @@ Phases, each of which exits non-zero on failure:
                batches of the synthetic AMR 2.0-scale corpus for
                TRAIN_STEPS steps: step time, tokens/s and the loss every
                few steps, and the launches of that run (B1p = B2 =
-               enc_layers per step, B1 = 0); then an overfit of one fixed
-               batch (dropout and label smoothing off, short warm-up),
-               whose loss must fall below OVERFIT_RATIO of its first;
+               enc_layers per step, no other kernel); then an overfit of
+               one fixed batch (dropout and label smoothing off, short
+               warm-up), whose loss must fall below OVERFIT_RATIO of its
+               first;
   6. grads   — the loss and every parameter gradient of one batch on the
                card with the kernels (f32 model, then bf16) against the
                same weights on the CPU in f32 with the plain versions; two
@@ -43,12 +47,28 @@ Phases, each of which exits non-zero on failure:
                shapes: autograd of the plain gather against the port's
                (and the JAX package's) sorted prefix sum over
                loc_perm/loc_bnd, both timed;
-  9. shapes  — each kernel again, on the very inputs the serving run (B1)
-               and the training run (B1p, B2) gave it, against its plain
-               version and timed: the table rows;
-  10. profile — with --profile only: torch.profiler over each served batch
-               and over one train step, the device busy time, idle share
-               and top kernels.
+  9. pallas  — phases 4-7 under attention_impl "pallas": serving (each
+               batch's P and whether it took B3 or B3'; B3 + B3' =
+               enc_layers per batch), training on loader batches with the
+               4096-row bank (B3) and with banks that fit _inline_fits
+               (B3'), B3 + B3' = B4 = enc_layers per step; the gradient
+               check with two planted wrong B4s; a bit-identical resume;
+  10. auto   — training and serving under "auto" on batches of both
+               routes (each printed with its P and P_loc), the launches of
+               each kernel, and for one batch of each route the loss under
+               "auto" equal to the fixed route's to the last bit;
+  11. work   — the train CLI (`--config configs/c2_amr2.json
+               --attention_impl auto --synthetic N`) writes a checkpoint,
+               and the work CLI decodes a PENMAN file written here from
+               synthetic graphs: one hypothesis per graph in corpus order,
+               BLEU and chrF;
+  12. shapes — each kernel again, on the very inputs the serving runs (B1;
+               B3, B3') and the training runs (B1p, B2; B3, B3', B4) gave
+               it, against its plain version and timed: the table rows;
+  13. profile — with --profile only: torch.profiler over each served batch
+               ("pallas_local") and over one train step ("pallas_local"
+               and "pallas"), the device busy time, idle share and top
+               kernels.
 The last three lines are the kernel table (JSON), the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -72,7 +92,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
 BEAM, MAX_STEPS, SERVE_BATCHES = 8, 64, 3
-TRAIN_STEPS, LOG_EVERY = 30, 5
+TRAIN_STEPS, LOG_EVERY = 20, 5
+# "pallas" training: loader batches (4096-row banks: B3), then batches
+# whose banks fit _inline_fits (B3')
+PALLAS_STEPS, PALLAS_INLINE_STEPS = 16, 4
+AUTO_STEPS_PER_ROUTE = 3
+WORK_SYNTHETIC, WORK_STEPS, WORK_GRAPHS = 256, 6, 48
 OVERFIT_STEPS, OVERFIT_RATIO = 100, 0.5  # last loss < 0.5 x the first
 RESUME_AT, RESUME_MORE = 4, 4
 CAPTURE_BATCHES = 3                      # train batches behind the B1p/B2 rows
@@ -227,7 +252,10 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from gtos_tpu_torch.ops import build
-    from gtos_tpu_torch.ops.local_relation_attention import SOURCES
+    from gtos_tpu_torch.ops import local_relation_attention as lra
+    from gtos_tpu_torch.ops import relation_attention as ra
+
+    SOURCES = lra.SOURCES + ra.SOURCES
 
     def one(source):
         t0 = time.perf_counter()
@@ -387,11 +415,232 @@ def check_b2(label, bargs, mask):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ------------------------------------------- global-bank kernels B3, B3', B4
+
+
+def global_batch(n_graphs, seed, min_nodes, max_nodes, N, P):
+    """A batch from the port's batchify on the synthetic AMR corpus,
+    padded to the node bucket N, with a global relation bank of exactly P
+    rows (its pairs reference fewer)."""
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+
+    graphs, targets = synthetic_amr_corpus(
+        n_graphs, seed=seed, min_nodes=min_nodes, max_nodes=max_nodes)
+    return batchify(preprocess(graphs, targets),
+                    *build_vocabs(graphs, targets),
+                    batch_size_bucket=n_graphs, for_train=False,
+                    spec=BucketSpec(nodes=(N,), bank=(P,)))
+
+
+def global_inputs(batch, H, Dh, dtype, seed=0):
+    """Seeded q, k, v [B, H, N, Dh] and banks [P, H, Dh] on the card in
+    `dtype`, with the batch's rel_index and node mask: the arguments of
+    B3' (and of build_tables)."""
+    import torch
+
+    B, N = batch.concept_mask.shape
+    P = batch.rel_bank.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    dev = lambda x: x.to(device="cuda", dtype=dtype).contiguous()  # noqa
+    return (dev(rnd(B, H, N, Dh)), dev(rnd(B, H, N, Dh)),
+            dev(rnd(B, H, N, Dh)), dev(rnd(P, H, Dh) * 0.5),
+            dev(rnd(P, H, Dh) * 0.5),
+            torch.from_numpy(batch.rel_index).cuda(),
+            torch.from_numpy(batch.concept_mask).cuda())
+
+
+def table_args(bank_args):
+    """B3's arguments (q, k, v, t2, t3, rel_index, mask) from B3''s."""
+    from gtos_tpu_torch.ops.relation_attention import build_tables
+
+    q, k, v, a, b, idx, mask = bank_args
+    return (q, k, v, *build_tables(q, k, a, b), idx, mask)
+
+
+def b4_args(targs, seed=1):
+    """B4's arguments for B3's inputs: a seeded cotangent in the input
+    type and the walk orders."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import walk_orders
+
+    q, k, v, t2, t3, idx, mask = targs
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    return (q, k, v, g, t2, t3, idx, mask, *walk_orders(idx))
+
+
+def _pair_entries(idx):
+    """Table entries these pairs reference, per head: the distinct
+    (graph, i, r) of t2 and (graph, j, r) of t3, r = idx[b, i, j]."""
+    B, N, _ = idx.shape
+    width = int(idx.max()) + 1
+    node = np.arange(N)
+    rows = sum(len(np.unique(idx[b] + node[:, None] * width))
+               for b in range(B))
+    cols = sum(len(np.unique(idx[b] + node[None, :] * width))
+               for b in range(B))
+    return rows + cols
+
+
+def global_attention_bound(idx, H, Dh, P, dtype_name, kind):
+    """(bound_ms, bound_by) on an H100 SXM of B3 ("tables"), B3'
+    ("inline") or B4 ("bwd") on these inputs. Bytes: q, k, v (and B4's
+    cotangent) read once, the output written once (B4: gq, gk, gv in f32
+    and the dense table gradients [B, N, H, P] in full), idx and mask read
+    once (B4: and its two walk orders), and of the tables the entries the
+    pairs reference (B3, B4) or of the banks the rows they reference and
+    their t4 (B3'). Operations per pair and head: q.k and p.v (B3); q.k,
+    q.b, k.a and p.v (B3'); q.k, g.v, gv, gq and gk (B4), each Dh
+    multiply-adds."""
+    B, N, _ = idx.shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    base = B * N * N * 4 + B * N
+    if kind == "tables":
+        nbytes = (4 * B * H * N * Dh * elt + base
+                  + _pair_entries(idx) * H * elt)
+        return _bound(nbytes, B * H * N * N * 4 * Dh, dtype_name)
+    if kind == "inline":
+        rows = len(np.unique(idx))
+        nbytes = (4 * B * H * N * Dh * elt + base
+                  + rows * H * (2 * Dh * elt + 4))
+        return _bound(nbytes, B * H * N * N * 8 * Dh, dtype_name)
+    nbytes = (4 * B * H * N * Dh * elt + base + 2 * B * N * N * 4
+              + _pair_entries(idx) * H * elt + 3 * B * H * N * Dh * 4
+              + 2 * B * N * H * P * elt)
+    return _bound(nbytes, B * H * N * N * 10 * Dh, dtype_name)
+
+
+def _compare(kernel, label, dtype_name, pairs):
+    """Each (name, kernel output, plain output) within KERNEL_TOL, finite;
+    returns the largest absolute error."""
+    import torch
+
+    err = 0.0
+    for name, x, ref in pairs:
+        if not torch.isfinite(x.float()).all():
+            fail(f"{kernel} {label} {dtype_name}: {name} non-finite")
+        err = max(err, (x.float() - ref.float()).abs().max().item())
+        try:
+            torch.testing.assert_close(x.float(), ref.float(),
+                                       **KERNEL_TOL[dtype_name])
+        except AssertionError as e:
+            fail(f"{kernel} {label} {dtype_name}: {name} disagrees with its "
+                 f"plain version: {e}")
+    return err
+
+
+def check_b3(label, targs):
+    """B3's wrapper against its plain version on the same tables, then
+    both timed; prints one line and returns its numbers."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        fused_relation_attention as fra, fused_relation_attention_reference)
+
+    q, idx, P = targs[0], targs[5], targs[3].shape[-1]
+    B, H, N, Dh = q.shape
+    dtype_name = _dtype_name(q)
+    out = fra(*targs)
+    ref = fused_relation_attention_reference(*targs)
+    torch.cuda.synchronize()
+    err = _compare("B3", label, dtype_name, [("out", out, ref)])
+    bound_ms, bound_by = global_attention_bound(
+        idx.cpu().numpy(), H, Dh, P, dtype_name, "tables")
+    ms = time_ms(lambda: fra(*targs))
+    plain_ms = time_ms(lambda: fused_relation_attention_reference(*targs))
+    print(f"[kernel] B3 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
+          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]})"
+          f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
+          f"plain={plain_ms:.6f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_b3i(label, args):
+    """B3''s wrapper against its plain version on the same banks, then
+    both timed; prints one line and returns its numbers."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        fused_relation_attention_inline as frai,
+        fused_relation_attention_inline_reference as plain)
+
+    q, idx, P = args[0], args[5], args[3].shape[0]
+    B, H, N, Dh = q.shape
+    dtype_name = _dtype_name(q)
+    out = frai(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = _compare("B3'", label, dtype_name, [("out", out, ref)])
+    bound_ms, bound_by = global_attention_bound(
+        idx.cpu().numpy(), H, Dh, P, dtype_name, "inline")
+    ms = time_ms(lambda: frai(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    print(f"[kernel] B3' {label} B={B} H={H} N={N} Dh={Dh} P={P} "
+          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]})"
+          f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
+          f"plain={plain_ms:.6f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_b4(label, bargs):
+    """B4's wrapper against its plain version on the same tables and
+    cotangent (gq, gk, gv, g_t2, g_t3), the same bits from a second launch
+    (no atomics), then both timed; returns its numbers."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        fused_relation_attention_bwd as frab,
+        fused_relation_attention_bwd_reference as plain)
+
+    q, t2, idx = bargs[0], bargs[4], bargs[6]
+    B, H, N, Dh = q.shape
+    P = t2.shape[-1]
+    dtype_name = _dtype_name(q)
+    grads, again = frab(*bargs), frab(*bargs)
+    refs = plain(*bargs[:8])
+    torch.cuda.synchronize()
+    names = ("gq", "gk", "gv", "g_t2", "g_t3")
+    for name, x, ref, y in zip(names, grads, refs, again):
+        if x.dtype != ref.dtype or x.shape != ref.shape:
+            fail(f"B4 {label} {dtype_name}: {name} is {x.dtype} "
+                 f"{tuple(x.shape)}, the plain version's {ref.dtype} "
+                 f"{tuple(ref.shape)}")
+        if not torch.equal(x, y):
+            fail(f"B4 {label} {dtype_name}: {name} differs between two "
+                 "launches on the same inputs")
+    err = _compare("B4", label, dtype_name, list(zip(names, grads, refs)))
+    bound_ms, bound_by = global_attention_bound(
+        idx.cpu().numpy(), H, Dh, P, dtype_name, "bwd")
+    ms = time_ms(lambda: frab(*bargs))
+    plain_ms = time_ms(lambda: plain(*bargs[:8]))
+    print(f"[kernel] B4 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
+          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]})"
+          f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
+          f"plain={plain_ms:.6f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernels():
     """B1, B1p and B2 against their plain versions on real batchify index
     arrays: the dominant N=32 bucket (B=32) and an N=128 bucket with the
-    corpus's largest local bank, H=8, Dh=64, in f32 and bf16."""
+    corpus's largest local bank, H=8, Dh=64, in f32 and bf16. Then B3, B3'
+    and B4 on real batchify global index arrays at N=32 (B=16) and N=128
+    (B=8) with P=2048 and P=4096, and B3 (with and without its table
+    build) and B3' timed on the same inputs: where the JAX package's
+    _inline_fits rule stands on this card."""
     import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        _inline_fits, build_tables, fused_relation_attention,
+        fused_relation_attention_inline)
 
     H, Dh = 8, 64
     cases = {"N32": honest_batch(32, 0, 10, 31),
@@ -405,6 +654,34 @@ def phase_kernels():
     print("[kernel] library_ms: none — no single PyTorch call computes "
           "localized relation attention or its backward (the score gathers "
           "a bank row per pair), so there is no library yardstick")
+    cases = {"N32_P2048": global_batch(16, 0, 10, 14, 32, 2048),
+             "N32_P4096": global_batch(16, 0, 16, 20, 32, 4096),
+             "N128_P2048": global_batch(8, 1, 12, 18, 128, 2048),
+             "N128_P4096": global_batch(8, 1, 20, 30, 128, 4096)}
+    for name, batch in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = global_inputs(batch, H, Dh, dtype)
+            targs = table_args(args)
+            check_b3(name, targs)
+            check_b3i(name, args)
+            check_b4(name, b4_args(targs))
+            if dtype == torch.bfloat16:
+                path = time_ms(lambda: fused_relation_attention(
+                    *table_args(args)))
+                tables = time_ms(lambda: build_tables(
+                    *args[:2], *args[3:5]))
+                inline = time_ms(lambda: fused_relation_attention_inline(
+                    *args))
+                print(f"[kernel] B3 vs B3' {name} bf16: build_tables "
+                      f"{tables:.6f} ms + B3 = {path:.6f} ms; B3' "
+                      f"{inline:.6f} ms; _inline_fits (the TPU rule) picks "
+                      + ("B3'" if _inline_fits(args[0], args[3]) else "B3"),
+                      flush=True)
+        torch.cuda.empty_cache()
+    print("[kernel] library_ms: none — no single PyTorch call computes the "
+          "global-bank relation attention or its backward (the score "
+          "gathers a table entry per pair), so there is no library "
+          "yardstick")
 
 
 KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
@@ -420,12 +697,36 @@ KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
         "local_relation_attention_bwd",
         "gtos_tpu_torch/ops/csrc/local_relation_attention_bwd.cu",
         "gtos_tpu/ops/pallas/local_relation_attention.py:326"),
+    "relation_attention_fwd_tables": (
+        "fused_relation_attention",
+        "gtos_tpu_torch/ops/csrc/relation_attention_fwd.cu",
+        "gtos_tpu/ops/pallas/relation_attention.py:41"),
+    "relation_attention_fwd_inline": (
+        "fused_relation_attention_inline",
+        "gtos_tpu_torch/ops/csrc/relation_attention_fwd.cu",
+        "gtos_tpu/ops/pallas/relation_attention.py:195"),
+    "relation_attention_bwd": (
+        "fused_relation_attention_bwd",
+        "gtos_tpu_torch/ops/csrc/relation_attention_bwd.cu",
+        "gtos_tpu/ops/pallas/relation_attention_bwd.py:33"),
 }
+B1, B1P, B2 = ("local_relation_attention_fwd",
+               "local_relation_attention_fwd_probs",
+               "local_relation_attention_bwd")
+B3, B3I, B4 = ("relation_attention_fwd_tables",
+               "relation_attention_fwd_inline", "relation_attention_bwd")
+
+
+def _module(wrapper_name):
+    """The ops module that holds a kernel wrapper."""
+    from gtos_tpu_torch.ops import local_relation_attention as lra
+    from gtos_tpu_torch.ops import relation_attention as ra
+    return lra if hasattr(lra, wrapper_name) else ra
 
 
 def _wrapper(name):
-    from gtos_tpu_torch.ops import local_relation_attention as mod
-    return getattr(mod, KERNELS[name][0])
+    wrapper = KERNELS[name][0]
+    return getattr(_module(wrapper), wrapper)
 
 
 def zero_counts():
@@ -463,10 +764,35 @@ def phase_main_shapes(b1_inputs, serve_launches, train_inputs,
     for i, (fwd, bwd) in enumerate(train_inputs):
         b1p.append(check_b1p(f"train{i}", fwd))
         b2.append(check_b2(f"train{i}", bwd, fwd[6]))
-    return [table_row("local_relation_attention_fwd", b1, serve_launches),
-            table_row("local_relation_attention_fwd_probs", b1p,
-                      train_launches),
-            table_row("local_relation_attention_bwd", b2, train_launches)]
+    return [table_row(B1, b1, serve_launches),
+            table_row(B1P, b1p, train_launches),
+            table_row(B2, b2, train_launches)]
+
+
+def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
+                        train_launches):
+    """B3, B3' and B4 on the inputs the "pallas" paths gave them, held
+    against their plain versions and timed: layer 0's forward of each
+    served batch and each captured train batch (B3 or B3' as the batch's
+    bank decided), layer 0's backward of each captured train batch (B4),
+    bf16. The launches are those of the "pallas" serving run and training
+    run together (B3, B3') and of the training run (B4)."""
+    rows = {B3: [], B3I: [], B4: []}
+    for tag, captured in (("serve", serve_inputs), ("train", train_inputs)):
+        for i, (kind, args, bwd) in enumerate(captured):
+            label = f"{tag}{i}"
+            if kind == B3:
+                rows[B3].append(check_b3(label, args))
+            else:
+                rows[B3I].append(check_b3i(label, args))
+            if bwd is not None:
+                rows[B4].append(check_b4(label, bwd))
+    for name, found in rows.items():
+        if not found:
+            fail(f"the pallas paths gave {name} no inputs to check")
+    launches = {name: serve_launches[name] + train_launches[name]
+                for name in KERNELS}
+    return [table_row(name, rows[name], launches) for name in (B3, B3I, B4)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -498,39 +824,77 @@ def c2_configs():
     return cfg, TrainConfig(**pick(TrainConfig))
 
 
-def serving_setup():
+def route_of(impl, arrays, cfg):
+    """(the attention route of a batch under `impl`, and for the global
+    route the forward kernel its bank gets: B3' when it passes
+    _inline_fits, else B3; for the localized route B1)."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import resolve_attention_impl
+    from gtos_tpu_torch.ops.relation_attention import _inline_fits
+
+    route = resolve_attention_impl(impl, arrays)
+    if route != "pallas":
+        return route, B1
+    B, N = arrays["concept"].shape
+    H, Dh = cfg.heads, cfg.d_model // cfg.heads
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    q = torch.empty(B, H, N, Dh, dtype=dt, device="meta")
+    a = torch.empty(arrays["rel_bank"].shape[0], H, Dh, dtype=dt,
+                    device="meta")
+    return route, (B3I if _inline_fits(q, a) else B3)
+
+
+def describe(batch):
+    """A batch's shape line: B, N, T, the global bank P and, where built,
+    the local bank P_loc."""
+    B, N = batch.concept_mask.shape
+    loc = ("" if batch.bank_map is None
+           else f" P_loc={batch.bank_map.shape[1]}")
+    return (f"B={B} N={N} T={batch.token_in.shape[1]} "
+            f"P={batch.rel_bank.shape[0]}{loc}")
+
+
+def serving_setup(impl="pallas_local"):
     """The c2_amr2 model at full width (random weights from seed 0) with
-    the corpus's vocabularies, and a DataLoader of held-out requests
-    (another seed of the same corpus)."""
+    the corpus's vocabularies under attention_impl `impl`, and a
+    DataLoader of held-out requests (another seed of the same corpus)
+    with the impl's loader flags."""
     import torch
 
     from gtos_tpu_torch.data import DataLoader
     from gtos_tpu_torch.data.dataloader import preprocess
     from gtos_tpu_torch.data.synthetic import synthetic_amr2_corpus
     from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.train import loader_flags
 
     cfg, _ = c2_configs()
+    cfg = dataclasses.replace(cfg, attention_impl=impl)
     tv, cv, rv, chv, lm = corpus()[1]
     model = Generator(cfg, device="cuda",
                       rng=torch.Generator().manual_seed(0))
     req_g, req_t = synthetic_amr2_corpus(1024, seed=1)
     loader = DataLoader(preprocess(req_g, req_t), tv, cv, rv, chv, lm,
                         batch_size_tokens=4096, for_train=False,
-                        build_local_banks=True)
+                        **loader_flags(impl))
     return cfg, model, loader, tv
 
 
-def phase_serve():
+def phase_serve(impl="pallas_local"):
     """Serve SERVE_BATCHES batches, the fullest of each of the smallest
-    node buckets, through decode_batch, after one warm-up decode; returns
-    the batches served, their seconds and the launches of each kernel in
-    that run."""
+    node buckets, through decode_batch, after one warm-up decode; under
+    "pallas" also the fullest batch whose bank takes B3', under "auto" the
+    fullest batch of a route the others miss. Returns the batches served,
+    their seconds and the launches of each kernel in that run: enc_layers
+    per batch of the kernel its route and bank select, none of any
+    other."""
     import torch
 
     from gtos_tpu_torch.infer.decode import decode_batch
 
-    cfg, model, loader, tv = serving_setup()
-    print(f"[serve] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
+    tag = "serve" if impl == "pallas_local" else f"serve {impl}"
+    cfg, model, loader, tv = serving_setup(impl)
+    print(f"[{tag}] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
           f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
           f"{cfg.attention_impl}; vocab token={cfg.token_vocab} "
           f"concept={cfg.concept_vocab} relation={cfg.relation_vocab}")
@@ -545,21 +909,38 @@ def phase_serve():
 
     served.decode_step = counted_step
     fullest, counts = {}, {}  # per node bucket: its fullest batch; sizes
+    by_kernel = {}            # per route's kernel: its fullest batch
     for batch, insts in loader.iter_with_instances():
         N = batch.concept_mask.shape[1]
         counts.setdefault(N, []).append(len(insts))
         if N not in fullest or len(insts) > len(fullest[N][1]):
             fullest[N] = (batch, insts)
+        kern = route_of(impl, batch.arrays(), cfg)[1]
+        if kern not in by_kernel or len(insts) > len(by_kernel[kern][1]):
+            by_kernel[kern] = (batch, insts)
     for N, sizes in sorted(counts.items()):
-        print(f"[serve] loader, node bucket N={N}: {len(sizes)} batches, "
+        print(f"[{tag}] loader, node bucket N={N}: {len(sizes)} batches, "
               f"{sum(sizes)} requests, {min(sizes)}-{max(sizes)} per batch")
     plan = [fullest[N] for N in sorted(fullest)[:SERVE_BATCHES]]
+    kernels = {route_of(impl, b.arrays(), cfg)[1] for b, _ in plan}
+    # each of these must run: "pallas" both forward kernels, "auto" both
+    # routes (its global route with B3 or B3')
+    needs = {"pallas": [(B3,), (B3I,)], "auto": [(B1,), (B3, B3I)]}
+    for options in needs.get(impl, []):
+        if not kernels & set(options):
+            pick = next((k for k in options if k in by_kernel), None)
+            if pick is None:
+                fail(f"the {impl} serving loader has no batch for "
+                     f"{' or '.join(options)}")
+            plan.append(by_kernel[pick])
+            kernels.add(pick)
     t0 = time.perf_counter()  # first use: cuBLAS set-up, allocator growth
     decode_batch(model, plan[0][0], tv, beam_size=BEAM, max_steps=MAX_STEPS)
     torch.cuda.synchronize()
-    print(f"[serve] warm-up decode of batch 0 (cold): "
+    print(f"[{tag}] warm-up decode of batch 0 (cold): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
     batches, seconds = [], []
+    expect = dict.fromkeys(KERNELS, 0)
     zero_counts()
     for batch, insts in plan:
         steps = 0
@@ -572,11 +953,10 @@ def phase_serve():
                 isinstance(h, list) and all(isinstance(w, str) for w in h)
                 for h in hyps):
             fail("decode_batch must return one list of strings per request")
-        B, N = batch.concept_mask.shape
-        print(f"[serve] batch {len(batches)}: {len(insts)} requests "
-              f"(B={B} N={N} T={batch.token_in.shape[1]} "
-              f"P={batch.rel_bank.shape[0]} "
-              f"P_loc={batch.bank_map.shape[1]}) beam {BEAM}: "
+        route, kern = route_of(impl, batch.arrays(), cfg)
+        expect[kern] += cfg.enc_layers
+        print(f"[{tag}] batch {len(batches)}: {len(insts)} requests "
+              f"({describe(batch)}) route {route} ({kern}) beam {BEAM}: "
               f"{dt * 1e3:.3f} ms, {steps} decode steps, "
               f"{steps / dt:.3f} steps/s, {len(insts) / dt:.3f} "
               f"requests/s; first hypothesis: "
@@ -587,14 +967,13 @@ def phase_serve():
     del served.decode_step
     if len(batches) < 2:
         fail(f"only {len(batches)} batch(es) served")
-    expect = dict.fromkeys(KERNELS, 0)
-    expect["local_relation_attention_fwd"] = cfg.enc_layers * len(batches)
     if launches != expect:
-        fail(f"launches in the serving run: {launches}, expected {expect} "
-             "(B1 enc_layers x batches, B1p and B2 none)")
-    print(f"[serve] B1 launches in the serving run: "
-          f"{launches['local_relation_attention_fwd']} = {cfg.enc_layers} "
-          f"layers x {len(batches)} batches")
+        fail(f"launches in the {impl} serving run: {launches}, expected "
+             f"{expect} (enc_layers x batches of each route's kernel, no "
+             "other kernel)")
+    print(f"[{tag}] launches in the serving run: "
+          f"{ {k: v for k, v in launches.items() if v} } "
+          f"({cfg.enc_layers} layers x {len(batches)} batches)", flush=True)
     return cfg, model, tv, batches, seconds, launches
 
 
@@ -776,18 +1155,42 @@ class StepLog:
         return [r["loss"] for r in self.records if r.get("kind") == "train"]
 
 
-def train_loader(seed=None):
-    """for_train=True DataLoader over the corpus with local banks, as the
-    train CLI builds it (c2's 8192-token batches)."""
+def train_loader(seed=None, impl="pallas_local"):
+    """for_train=True DataLoader over the corpus with the loader flags of
+    attention_impl `impl`, as the train CLI builds it (c2's 8192-token
+    batches)."""
     from gtos_tpu_torch.data import BucketSpec, DataLoader
+    from gtos_tpu_torch.train.train import loader_flags
 
     cfg, tcfg = c2_configs()
     instances, vocabs = corpus()
     return DataLoader(instances, *vocabs,
                       batch_size_tokens=tcfg.batch_size_tokens,
                       spec=BucketSpec().for_model_max_oov(cfg.max_oov),
-                      for_train=True, build_local_banks=True,
+                      for_train=True, **loader_flags(impl),
                       seed=tcfg.seed if seed is None else seed)
+
+
+def route_plan(impl, cfg, head, picks):
+    """Training batches from one epoch of the `impl` loader: its first
+    `head` batches, then for each (kernel, count) of `picks` the first
+    `count` later batches whose route and bank select that kernel."""
+    plan, extra = [], {kern: [] for kern, _ in picks}
+    want = dict(picks)
+    for i, batch in enumerate(train_loader(impl=impl)):
+        if i < head:
+            plan.append(batch)
+            continue
+        kern = route_of(impl, batch.arrays(), cfg)[1]
+        if kern in extra and len(extra[kern]) < want[kern]:
+            extra[kern].append(batch)
+        if all(len(extra[k]) == want[k] for k in want):
+            break
+    for kern, count in picks:
+        if len(extra[kern]) < count:
+            fail(f"one epoch of the {impl} loader has {len(extra[kern])} "
+                 f"batches for {kern}, {count} wanted")
+    return plan, extra
 
 
 def new_trainer(cfg, tcfg, seed, ckpt=None, log=None):
@@ -803,47 +1206,79 @@ def new_trainer(cfg, tcfg, seed, ckpt=None, log=None):
                    checkpoint_manager=ckpt, device="cuda")
 
 
-def phase_train():
+def train_expect(impl, cfg, batches):
+    """The launches a training run over `batches` must make: per step,
+    enc_layers of the forward kernel its route and bank select and as
+    many of that route's backward (B2 or B4)."""
+    expect = dict.fromkeys(KERNELS, 0)
+    for batch in batches:
+        kern = route_of(impl, batch.arrays(), cfg)[1]
+        fwd, bwd = (B1P, B2) if kern == B1 else (kern, B4)
+        expect[fwd] += cfg.enc_layers
+        expect[bwd] += cfg.enc_layers
+    return expect
+
+
+def phase_train(impl="pallas_local"):
     """Trainer.fit of the c2 model at full width (bf16, dropout 0.2, label
-    smoothing 0.1, the c2 schedule) for TRAIN_STEPS steps from the
-    DataLoader, counting the launches of that run; then the overfit.
-    Returns the trainer, its mean ms per
-    step after the first logged interval, and the launches."""
-    cfg, tcfg = c2_configs()
-    log = StepLog("train")
-    trainer = new_trainer(cfg, dataclasses.replace(
-        tcfg, total_steps=TRAIN_STEPS, checkpoint_every=10 ** 9), 0,
-        log=log)
-    print(f"[train] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
-          f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
-          f"{cfg.attention_impl} dropout={cfg.dropout} label_smoothing="
-          f"{cfg.label_smoothing}; {TRAIN_STEPS} steps of "
-          f"{tcfg.batch_size_tokens}-token batches", flush=True)
+    smoothing 0.1, the c2 schedule) under attention_impl `impl`, counting
+    the launches of that run: "pallas_local" TRAIN_STEPS steps from the
+    DataLoader, then the overfit; "pallas" PALLAS_STEPS steps, the
+    loader's first batches (4096-row banks: B3) and then
+    PALLAS_INLINE_STEPS batches of the same epoch whose banks fit
+    _inline_fits (B3'). Returns the trainer, its mean ms per step after
+    the first logged interval, the launches and the batches trained on."""
     import torch
 
+    cfg, tcfg = c2_configs()
+    cfg = dataclasses.replace(cfg, attention_impl=impl)
+    tag = "train" if impl == "pallas_local" else f"train {impl}"
+    if impl == "pallas_local":
+        steps, source = TRAIN_STEPS, train_loader()
+        batches = [b for _, b in zip(range(steps), train_loader())]
+    else:
+        steps = PALLAS_STEPS
+        head, extra = route_plan(impl, cfg, steps - PALLAS_INLINE_STEPS,
+                                 [(B3I, PALLAS_INLINE_STEPS)])
+        batches = source = head + extra[B3I]
+    log = StepLog(tag)
+    trainer = new_trainer(cfg, dataclasses.replace(
+        tcfg, total_steps=steps, checkpoint_every=10 ** 9), 0, log=log)
+    print(f"[{tag}] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
+          f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
+          f"{cfg.attention_impl} dropout={cfg.dropout} label_smoothing="
+          f"{cfg.label_smoothing}; {steps} steps of "
+          f"{tcfg.batch_size_tokens}-token batches", flush=True)
+    if impl != "pallas_local":
+        for i, batch in enumerate(batches):
+            print(f"[{tag}] step {i + 1} batch: {describe(batch)} -> "
+                  f"{route_of(impl, batch.arrays(), cfg)[1]}")
     zero_counts()
     t0 = time.perf_counter()
-    trainer.fit(train_loader(), log_every=LOG_EVERY)
+    trainer.fit(source, log_every=LOG_EVERY)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    expect = dict.fromkeys(KERNELS, cfg.enc_layers * TRAIN_STEPS)
-    expect["local_relation_attention_fwd"] = 0
-    if trainer.step != TRAIN_STEPS or launches != expect:
+    expect = train_expect(impl, cfg, batches)
+    if trainer.step != steps or launches != expect:
         fail(f"training ran {trainer.step} steps with launches {launches}, "
-             f"expected {TRAIN_STEPS} with {expect} (B1p = B2 = enc_layers "
-             "x steps, B1 none)")
+             f"expected {steps} with {expect} (per step enc_layers of the "
+             "route's forward and backward kernels, none of any other)")
     losses = log.losses()
     if not all(np.isfinite(losses)):
         fail(f"non-finite training loss: {losses}")
     steady = [r["ms_per_step"] for r in log.records[1:]]
     ms_step = sum(steady) / len(steady)
-    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s; {ms_step:.3f} "
-          f"ms/step after step {LOG_EVERY}; launches {launches} = "
-          f"{cfg.enc_layers} layers x {TRAIN_STEPS} steps", flush=True)
+    tokens = sum(int(b.token_mask.sum()) for b in batches)
+    print(f"[{tag}] {steps} steps in {wall:.3f} s; {ms_step:.3f} "
+          f"ms/step after step {LOG_EVERY}; {tokens / wall:.1f} target "
+          f"tokens/s over the run; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = "
+          f"{cfg.enc_layers} layers x {steps} steps", flush=True)
 
-    overfit(cfg, tcfg)
-    return trainer, ms_step, launches
+    if impl == "pallas_local":
+        overfit(cfg, tcfg)
+    return trainer, ms_step, launches, batches
 
 
 def overfit(cfg, tcfg):
@@ -877,8 +1312,7 @@ def wrapper_replaced(name, fn):
     trainable attention finds it (by name, at call time). The real wrapper
     counts its launches on whatever the name holds, so `fn` carries the
     count while it stands in and hands it back after."""
-    from gtos_tpu_torch.ops import local_relation_attention as mod
-
+    mod = _module(name)
     real = getattr(mod, name)
     fn.launches = real.launches
     setattr(mod, name, fn)
@@ -911,6 +1345,30 @@ def planted_b2(kind):
                    scale)[3]
         return gq, gk, gv, ga, gb
     return wrong
+
+
+def planted_b4(kind):
+    """B4 made wrong on purpose, as a control for the gradient check: the
+    kernel's result with the g_t3 table gradient zeroed ("no g_t3": the
+    key side's bank terms are lost), or with g_t2 zeroed ("no g_t2": the
+    query side's bank terms and the t4 redistribution are lost)."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        fused_relation_attention_bwd as frab)
+
+    def wrong(*args, **kw):
+        gq, gk, gv, gt2, gt3 = frab(*args, **kw)
+        if kind == "no g_t3":
+            return gq, gk, gv, gt2, torch.zeros_like(gt3)
+        return gq, gk, gv, torch.zeros_like(gt2), gt3
+    return wrong
+
+
+PLANTS = {"pallas_local": ("local_relation_attention_bwd", planted_b2,
+                           ("no bank gradient", "no t4 b_r term")),
+          "pallas": ("fused_relation_attention_bwd", planted_b4,
+                     ("no g_t3", "no g_t2"))}
 
 
 def loss_and_grads(model, arrays):
@@ -946,19 +1404,21 @@ def grad_gap(ref, got):
     return abs(loss - ref_loss), worst, name
 
 
-def phase_grads():
+def phase_grads(impl="pallas_local"):
     """The loss and every parameter gradient of one train batch (dropout
-    0) on the card with the kernels, the f32 model and the bf16 one,
-    against the same f32 weights on the CPU with the plain versions; then
-    the same with each planted wrong B2, which must fail the check."""
+    0) under attention_impl `impl` on the card with the kernels, the f32
+    model and the bf16 one, against the same f32 weights on the CPU with
+    the plain versions; then the same with each planted wrong backward
+    kernel (B2, or B4 under "pallas"), which must fail the check."""
     import torch
 
     from gtos_tpu_torch.models import Generator
 
+    tag = "grads" if impl == "pallas_local" else f"grads {impl}"
     cfg, _ = c2_configs()
-    cfg = dataclasses.replace(cfg, dropout=0.0)
+    cfg = dataclasses.replace(cfg, dropout=0.0, attention_impl=impl)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    loader = train_loader(seed=3)
+    loader = train_loader(seed=3, impl=impl)
     batch = next(b for b in loader if b.concept_mask.shape[1] == 32)
     arrays = batch.arrays()
     weights = Generator(cfg, device="cpu",
@@ -970,75 +1430,77 @@ def phase_grads():
         models[name].load_state_dict(weights)
     t0 = time.perf_counter()
     ref = loss_and_grads(models["cpu"], arrays)
-    print(f"[grads] batch B={batch.concept_mask.shape[0]} N=32 "
-          f"T={batch.token_in.shape[1]} P_loc={batch.bank_map.shape[1]}; "
-          f"cpu f32 loss {ref[0]:.6f} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+    print(f"[{tag}] batch {describe(batch)}; cpu f32 loss {ref[0]:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    wrapper, planted, kinds = PLANTS[impl]
+    bwd = "B2" if impl == "pallas_local" else "B4"
 
-    def check(dtype_name, b2):
+    def check(dtype_name, what):
         zero_counts()
         got = loss_and_grads(models[dtype_name], arrays)
         launches = read_counts()
-        expect = dict.fromkeys(KERNELS, cfg.enc_layers)
-        expect["local_relation_attention_fwd"] = 0
+        expect = train_expect(impl, models[dtype_name].cfg, [batch])
         if launches != expect:
             fail(f"the {dtype_name} gradient run launched {launches}, "
                  f"expected {expect}")
         dloss, rel, name = grad_gap(ref, got)
         tol = GRAD_TOL[dtype_name]
         ok = dloss <= tol["loss"] and rel <= tol["rel"]
-        print(f"[grads] card {dtype_name} with {b2} vs cpu f32: loss gap "
+        print(f"[{tag}] card {dtype_name} with {what} vs cpu f32: loss gap "
               f"{dloss:.4e}, largest relative gradient gap {rel:.4e} "
               f"({name}) (tol {tol}): " + ("within" if ok else "outside"),
               flush=True)
         return ok
 
     for dtype_name in ("float32", "bfloat16"):
-        if not check(dtype_name, "B2"):
-            fail(f"the {dtype_name} model's loss and gradients on the card "
-                 "disagree with the f32 CPU run")
+        if not check(dtype_name, bwd):
+            fail(f"the {dtype_name} {impl} model's loss and gradients on "
+                 "the card disagree with the f32 CPU run")
     # the check passes when both runs are within their limits; a planted
-    # B2 must make it fail
-    for kind in ("no bank gradient", "no t4 b_r term"):
-        with wrapper_replaced("local_relation_attention_bwd",
-                              planted_b2(kind)):
-            passed = [check(dtype_name, f"planted B2 ({kind})")
+    # backward kernel must make it fail
+    for kind in kinds:
+        with wrapper_replaced(wrapper, planted(kind)):
+            passed = [check(dtype_name, f"planted {bwd} ({kind})")
                       for dtype_name in ("float32", "bfloat16")]
         if all(passed):
-            fail(f"the gradient check passes a B2 with {kind}")
+            fail(f"the gradient check passes a {bwd} with {kind}")
 
 
-def phase_resume():
-    """The c2 model trained RESUME_AT steps, saved, restored into a fresh
-    model and trainer and trained RESUME_MORE more, against the unbroken
-    run of the same seeds: the losses of the resumed steps must be the
-    same bits (B2 walks each slot's pairs in a fixed order; no atomics)."""
+def phase_resume(impl="pallas_local"):
+    """The c2 model under attention_impl `impl` trained RESUME_AT steps,
+    saved, restored into a fresh model and trainer and trained RESUME_MORE
+    more, against the unbroken run of the same seeds: the losses of the
+    resumed steps must be the same bits (B2 walks each slot's pairs, B4
+    each run of bank rows, in a fixed order; no atomics)."""
     from gtos_tpu_torch.train.checkpoint import CheckpointManager
 
+    tag = "resume" if impl == "pallas_local" else f"resume {impl}"
     cfg, tcfg = c2_configs()
+    cfg = dataclasses.replace(cfg, attention_impl=impl)
     total = RESUME_AT + RESUME_MORE
     tcfg = dataclasses.replace(tcfg, total_steps=total,
                                checkpoint_every=RESUME_AT)
-    whole = StepLog("resume")
-    new_trainer(cfg, tcfg, 5, log=whole).fit(train_loader(), log_every=1)
+    whole = StepLog(tag)
+    new_trainer(cfg, tcfg, 5, log=whole).fit(train_loader(impl=impl),
+                                             log_every=1)
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
         ckpt = CheckpointManager(tmp, cfg, tcfg)
         new_trainer(cfg, dataclasses.replace(tcfg, total_steps=RESUME_AT),
-                    5, ckpt=ckpt, log=StepLog("resume")).fit(
-                        train_loader(), log_every=1)
-        cont = StepLog("resume")
+                    5, ckpt=ckpt, log=StepLog(tag)).fit(
+                        train_loader(impl=impl), log_every=1)
+        cont = StepLog(tag)
         trainer = new_trainer(cfg, tcfg, 6, ckpt=CheckpointManager(
             tmp, cfg, tcfg), log=cont)
         if trainer.restore_if_available() != RESUME_AT:
             fail("restore did not find the checkpoint of step "
                  f"{RESUME_AT}")
-        trainer.fit(train_loader(), log_every=1)
+        trainer.fit(train_loader(impl=impl), log_every=1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want, got = whole.losses()[RESUME_AT:], cont.losses()
     same = want == got
-    print(f"[resume] steps {RESUME_AT + 1}-{total}: unbroken {want}, "
+    print(f"[{tag}] steps {RESUME_AT + 1}-{total}: unbroken {want}, "
           f"resumed {got}: " + ("bit-identical" if same else "DIFFER"),
           flush=True)
     if not same:
@@ -1121,18 +1583,220 @@ def capture_train_inputs(trainer, batches):
     return out
 
 
-def phase_profile_train(trainer, ms_step):
+def capture_global_inputs(model, batches, train):
+    """The arguments the "pallas" path hands the global-bank kernels, for
+    each batch: layer 0's forward (B3's tables or B3''s banks, whichever
+    the batch's bank takes) and, with train, layer 0's backward (B4, the
+    last call), from one more encode (serving) or forward and backward
+    (training) per batch through recording shims. Returns (kernel,
+    forward arguments, B4 arguments or None) per batch."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.ops import relation_attention as ra
+
+    real = {n: getattr(ra, n) for n in (
+        "fused_relation_attention", "fused_relation_attention_inline",
+        "fused_relation_attention_bwd")}
+    fwd, bwd, out = [], [], []
+
+    def recorder(name, kern, into):
+        def record(*args, **kw):
+            into.append((kern, tuple(a.detach() if torch.is_tensor(a)
+                                     else a for a in args[:10])))
+            return real[name](*args, **kw)
+        return record
+
+    with contextlib.ExitStack() as stack:
+        for name, kern, into in (("fused_relation_attention", B3, fwd),
+                                 ("fused_relation_attention_inline", B3I,
+                                  fwd),
+                                 ("fused_relation_attention_bwd", B4, bwd)):
+            stack.enter_context(wrapper_replaced(name,
+                                                 recorder(name, kern, into)))
+        for batch in batches:
+            fwd.clear()
+            bwd.clear()
+            if train:
+                model.train()
+                loss, _ = model(batch_to_device(batch.arrays(), "cuda"))
+                torch.autograd.grad(loss, [p for p in model.parameters()],
+                                    allow_unused=True)
+            else:
+                encode(model, batch)
+            kern, args = fwd[0]
+            out.append((kern, args[:7], bwd[-1][1] if train else None))
+    return out
+
+
+def phase_auto():
+    """attention_impl "auto" on the c2 model: Trainer.fit on batches of
+    both routes (the loader's first AUTO_STEPS_PER_ROUTE batches, which
+    take the localized route, and as many later batches of the same epoch
+    that take the global one), each printed with its route, P and P_loc,
+    and the launches of that run; then, for one batch of each route, the
+    loss under "auto" against the loss under the fixed route (dropout off,
+    the same weights): the same bits; then serving under "auto"."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+
+    cfg, tcfg = c2_configs()
+    cfg = dataclasses.replace(cfg, attention_impl="auto")
+    local, extra = route_plan("auto", cfg, AUTO_STEPS_PER_ROUTE,
+                              [(B3, AUTO_STEPS_PER_ROUTE)])
+    plan = [b for pair in zip(local, extra[B3]) for b in pair]
+    for i, batch in enumerate(plan):
+        route, kern = route_of("auto", batch.arrays(), cfg)
+        print(f"[auto] step {i + 1} batch: {describe(batch)} -> route "
+              f"{route} ({kern})")
+    log = StepLog("auto", every=1)
+    trainer = new_trainer(cfg, dataclasses.replace(
+        tcfg, total_steps=len(plan), checkpoint_every=10 ** 9), 0, log=log)
+    zero_counts()
+    trainer.fit(plan, log_every=1)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect = train_expect("auto", cfg, plan)
+    if trainer.step != len(plan) or launches != expect:
+        fail(f"auto training launched {launches}, expected {expect}")
+    if not all(np.isfinite(log.losses())):
+        fail(f"non-finite auto training loss: {log.losses()}")
+    print(f"[auto] {len(plan)} steps, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+    model = Generator(dataclasses.replace(cfg, dropout=0.0), device="cuda",
+                      rng=torch.Generator().manual_seed(7)).train()
+    for batch in (local[0], extra[B3][0]):
+        arrays = batch_to_device(batch.arrays(), "cuda")
+        route = route_of("auto", batch.arrays(), cfg)[0]
+        losses = []
+        for impl in ("auto", route):
+            model.cfg = dataclasses.replace(model.cfg, attention_impl=impl)
+            losses.append(model(arrays)[0].item())
+        same = losses[0] == losses[1]
+        print(f"[auto] loss of a {route} batch ({describe(batch)}): auto "
+              f"{losses[0]!r}, fixed {route} {losses[1]!r}: "
+              + ("bit-identical" if same else "DIFFER"), flush=True)
+        if not same:
+            fail(f"the auto loss of a {route} batch differs from the fixed "
+                 "route's")
+    del model, trainer
+    torch.cuda.empty_cache()
+    phase_serve("auto")
+
+
+def penman(graph) -> str:
+    """A synthetic Graph as PENMAN text: a depth-first walk from node 0
+    over its out-edges, a variable per node, an edge to a node already
+    written as that node's variable."""
+    out = {}
+    for src, label, tgt in graph.edges:
+        out.setdefault(src, []).append((label, tgt))
+    seen = set()
+
+    def node(i):
+        seen.add(i)
+        parts = [f"(n{i} / {graph.nodes[i]}"]
+        for label, tgt in out.get(i, []):
+            parts.append(f":{label} " + (f"n{tgt}" if tgt in seen
+                                         else node(tgt)))
+        return " ".join(parts) + ")"
+
+    return node(0)
+
+
+def phase_work():
+    """The CLIs a user runs, as subprocesses on the card: the train CLI
+    with the c2 config under "auto" on WORK_SYNTHETIC synthetic instances
+    for WORK_STEPS steps writes a checkpoint; the work CLI rebuilds the
+    model from that directory alone and decodes a PENMAN file of
+    WORK_GRAPHS synthetic graphs written here (beam 8), printing BLEU and
+    chrF. One hypothesis per graph; in corpus order, which a second, in
+    process run checks with a decode that answers each graph's own
+    sentence (the output must be the references, in file order)."""
+    import re
+
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.infer import work
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_work_", dir=ROOT)
+    try:
+        ckpt, sembank, output = (os.path.join(tmp, n) for n in (
+            "ckpt", "test.amr", "hyps.txt"))
+        cmd = [sys.executable, "-m", "gtos_tpu_torch.train.train",
+               "--config", "configs/c2_amr2.json", "--attention_impl",
+               "auto", "--synthetic", str(WORK_SYNTHETIC), "--total_steps",
+               str(WORK_STEPS), "--ckpt_dir", ckpt]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            fail(f"the train CLI failed:\n{res.stderr[-3000:]}")
+        print(f"[work] {' '.join(cmd[1:])}: "
+              f"{res.stderr.strip().splitlines()[-1]} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        graphs, targets = synthetic_amr_corpus(WORK_GRAPHS, seed=7)
+        refs = [" ".join(t) for t in targets]
+        with open(sembank, "w") as f:
+            for i, (g, ref) in enumerate(zip(graphs, refs)):
+                f.write(f"# ::id s{i} ::snt {ref}\n{penman(g)}\n\n")
+        args = ["--ckpt_dir", ckpt, "--test_data", sembank, "--output",
+                output, "--max_time_step", "32"]
+        cmd = [sys.executable, "-m", "gtos_tpu_torch.infer.work", *args,
+               "--eval_bleu", "--eval_chrf"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            fail(f"the work CLI failed:\n{res.stderr[-3000:]}")
+        scores = dict(re.findall(r"^(BLEU|chrF) = ([0-9.]+)$", res.stderr,
+                                 re.M))
+        with open(output) as f:
+            hyps = f.read().splitlines()
+        print(f"[work] {' '.join(cmd[1:])}: {len(hyps)} hypotheses for "
+              f"{len(graphs)} graphs, BLEU {scores.get('BLEU')}, chrF "
+              f"{scores.get('chrF')} ({time.perf_counter() - t0:.1f} s); "
+              f"first: {hyps[0][:60]!r}", flush=True)
+        if len(hyps) != len(graphs) or set(scores) != {"BLEU", "chrF"}:
+            fail("the work CLI must write one hypothesis per graph and "
+                 "print BLEU and chrF")
+
+        def answer(model, batch, tv, **kw):  # each graph's own sentence
+            return [m["snt"].split() for m in batch.meta]
+
+        from gtos_tpu_torch.infer import decode
+        real, decode.decode_batch = decode.decode_batch, answer
+        try:
+            bleu = work.main(args + ["--eval_bleu"])
+        finally:
+            decode.decode_batch = real
+        with open(output) as f:
+            ordered = f.read().splitlines() == refs
+        print(f"[work] corpus order: a decode that answers each graph's "
+              f"sentence gives BLEU {bleu:.2f} and the references in file "
+              f"order: {'yes' if ordered else 'no'}", flush=True)
+        if not ordered or abs(bleu - 100.0) > 1e-6:
+            fail("the work CLI does not write hypotheses in corpus order")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_profile_train(trainer, ms_step, impl="pallas_local"):
     """Where a train step's time goes (--profile): torch.profiler over one
-    more step on a train batch, its device busy time, the idle share
-    against the unprofiled mean step time of the train phase, and the
-    busiest kernels."""
+    more step on a train batch of the `impl` loader, its device busy time,
+    the idle share against the unprofiled mean step time of the train
+    phase, and the busiest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gtos_tpu_torch.models.generator import batch_to_device
 
-    batch = next(iter(train_loader()))
+    batch = next(iter(train_loader(impl=impl)))
     arrays = batch_to_device(batch.arrays(), "cuda")
     trainer.train_step(arrays)                      # warm
     torch.cuda.synchronize()
@@ -1149,7 +1813,7 @@ def phase_profile_train(trainer, ms_step):
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if busy_ms <= 0:
         fail("the profiler recorded no device time")
-    print(f"[profile] train step (B={batch.concept_mask.shape[0]} "
+    print(f"[profile] {impl} train step (B={batch.concept_mask.shape[0]} "
           f"N={batch.concept_mask.shape[1]} T={batch.token_in.shape[1]}): "
           f"device busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall:.4f}"
           f" of this step's {wall:.3f} ms wall, {1 - busy_ms / ms_step:.4f} "
@@ -1181,13 +1845,15 @@ def main():
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     phase_build()
     phase_kernels()
     torch.cuda.empty_cache()   # free the plain versions' GBs before serving
+    # "pallas_local": serving, encoder check, training, grads, resume
     cfg, model, tv, batches, seconds, serve_launches = phase_serve()
     phase_encoder_check(cfg, model, batches[0])
     b1_inputs = capture_b1_inputs(model, batches)
-    trainer, ms_step, train_launches = phase_train()
+    trainer, ms_step, train_launches, _ = phase_train()
     phase_grads()
     phase_resume()
     train_batches = [b for _, b in zip(range(CAPTURE_BATCHES),
@@ -1196,9 +1862,32 @@ def main():
     train_inputs = capture_train_inputs(trainer, train_batches)
     rows = phase_main_shapes(b1_inputs, serve_launches, train_inputs,
                              train_launches)
+    torch.cuda.empty_cache()
+    # "pallas": the global-bank kernels B3, B3' and B4
+    _, g_model, _, g_batches, _, g_serve_launches = phase_serve("pallas")
+    g_serve_inputs = capture_global_inputs(g_model, g_batches, train=False)
+    del g_model
+    g_trainer, g_ms_step, g_train_launches, g_train_batches = \
+        phase_train("pallas")
+    g_train_inputs = capture_global_inputs(
+        g_trainer.model, g_train_batches[:CAPTURE_BATCHES]
+        + g_train_batches[-CAPTURE_BATCHES:], train=True)
+    if not args.profile:
+        del g_trainer
+    torch.cuda.empty_cache()
+    phase_grads("pallas")
+    phase_resume("pallas")
+    torch.cuda.empty_cache()
+    phase_auto()
+    phase_work()
+    rows += phase_global_shapes(g_serve_inputs, g_serve_launches,
+                                g_train_inputs, g_train_launches)
     if args.profile:
         phase_profile(model, tv, batches, seconds)
         phase_profile_train(trainer, ms_step)
+        phase_profile_train(g_trainer, g_ms_step, "pallas")
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

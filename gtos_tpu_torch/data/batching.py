@@ -6,10 +6,16 @@ label sequences, `rel_index` [B, N, N] into it) and the same per-graph
 localized banks (`bank_map`, `rel_index_loc`, and for training batches the
 localize sort auxiliaries `loc_perm`/`loc_bnd`), array for array.
 
+The "auto" aux mode of attention_impl "auto" is the JAX package's:
+build_block_tiles="auto" builds no tiles and build_local_banks="auto"
+builds the local banks; a batch whose path diversity overflows the local
+bank ladder raises BatchCapacityError (the DataLoader bisects it), except
+at a tile-aligned node bucket, where the JAX package falls back to tiles.
+
 Not ported yet, and raising NotImplementedError when asked for:
   * the sparse edge cells and block-sparse tile layouts (build_edges,
-    build_block_tiles, and the "auto" overflow fallback to tiles) —
-    ROADMAP A8;
+    build_block_tiles=True, and the "auto" overflow fallback to tiles at
+    N % 128 == 0) — ROADMAP A8;
   * multi-host row sharding (host_shard) — ROADMAP A9.
 """
 
@@ -144,6 +150,12 @@ def batchify(
 
     Same arrays as gtos_tpu.data.batching.batchify for the options ported
     so far (module docstring); the others raise NotImplementedError."""
+    # the "auto" aux mode: local banks at every bucket, no tiles
+    aux_auto = "auto" in (build_block_tiles, build_local_banks)
+    if build_block_tiles == "auto":
+        build_block_tiles = False
+    if build_local_banks == "auto":
+        build_local_banks = True
     if build_edges or build_block_tiles:
         raise NotImplementedError(
             "edge cells and block-sparse tiles are not ported yet "
@@ -280,8 +292,9 @@ def batchify(
             local_arrays = _build_local_banks(rel_index, spec)
         except BatchCapacityError as e:
             # under "auto" the JAX package falls back to the block-sparse
-            # tile layouts at tile-aligned buckets; tiles are not ported yet
-            if build_local_banks == "auto" and N % 128 == 0:
+            # tile layouts at tile-aligned buckets; tiles are not ported
+            # yet. Elsewhere the overflow is the DataLoader's to bisect.
+            if aux_auto and N % 128 == 0:
                 raise NotImplementedError(
                     "the 'auto' overflow fallback to block-sparse tiles is "
                     "not ported yet (ROADMAP A8)") from e

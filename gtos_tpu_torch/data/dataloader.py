@@ -55,7 +55,8 @@ class DataLoader:
     """Iterates GraphBatches with token-count batch sizing.
 
     batch_size is measured in target tokens + nodes per batch; for_train
-    shuffles instance order and batch order each epoch."""
+    shuffles instance order and batch order each epoch. build_local_banks
+    goes to batchify ("auto" for attention_impl "auto")."""
 
     def __init__(
         self,

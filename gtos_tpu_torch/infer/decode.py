@@ -2,19 +2,21 @@
 
 Port of gtos_tpu/infer/decode.py. `decode_batch` is the one entry point
 for serving a GraphBatch; it runs on the device of the model's parameters
-(the CUDA card unless the model was built with device="cpu").
+(the CUDA card unless the model was built with device="cpu"), and it
+resolves attention_impl "auto" per batch for every caller (work.py, the
+dev-BLEU hook, user scripts): the same model runs either route.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from gtos_tpu_torch.infer.beam import BeamResult, beam_search, detokenize
 from gtos_tpu_torch.models.generator import (
-    Generator, batch_edges, batch_to_device,
+    Generator, batch_edges, batch_to_device, resolve_attention_impl,
 )
 
 
@@ -28,10 +30,13 @@ def beam_decode_arrays(
     str_id: int = 2,
     end_id: int = 3,
     unk_id: int = 1,
+    impl: Optional[str] = None,
 ) -> BeamResult:
-    """arrays: the GraphBatch.arrays() payload. Returns BeamResult (on the
-    model's device). Runs `model.serving_copy()`: the weights rounded once
-    to the compute type."""
+    """arrays: the GraphBatch.arrays() payload. impl: the encoder's
+    attention route (default: the model's, "auto" resolved from arrays).
+    Returns BeamResult (on the model's device). Runs
+    `model.serving_copy()`: the weights rounded once to the compute
+    type."""
     model = model.serving_copy()
     cfg = model.cfg
     dev = model.device
@@ -41,7 +46,7 @@ def beam_decode_arrays(
 
     mem = model.encode(t["concept"], t["concept_char"], t["concept_mask"],
                        t["rel_bank"], t["rel_length"], t["rel_index"],
-                       edges=batch_edges(t))
+                       edges=batch_edges(t), impl=impl)
 
     # tile per beam: [B, ...] -> [B*K, ...]
     concept_mask, cp_seq, copy_mask = (
@@ -72,11 +77,13 @@ def decode_batch(model: Generator, batch, token_vocab, beam_size: int = 8,
     """GraphBatch -> best hypothesis token list per instance.
 
     token_vocab: the target-side Vocab (id -> string table and the
-    STR/END/UNK ids)."""
+    STR/END/UNK ids). attention_impl "auto" is resolved here, per batch."""
+    arrays = batch.arrays()
     res = beam_decode_arrays(
-        model, batch.arrays(), beam_size=beam_size, max_steps=max_steps,
+        model, arrays, beam_size=beam_size, max_steps=max_steps,
         alpha=alpha, str_id=token_vocab.str_id, end_id=token_vocab.end_id,
-        unk_id=token_vocab.unk_id)
+        unk_id=token_vocab.unk_id,
+        impl=resolve_attention_impl(model.cfg.attention_impl, arrays))
     seqs = res.seqs[:, 0].cpu().numpy()
     return [detokenize(seqs[b], token_vocab.itos, batch.oov_lists[b],
                        end_id=token_vocab.end_id)

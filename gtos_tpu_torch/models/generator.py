@@ -46,6 +46,33 @@ from gtos_tpu_torch.utils.device import resolve_device
 EPS = 1e-9
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# "auto" sends a batch to the per-graph localized banks when they are at
+# least this much smaller than the batch-global bank. The JAX package's
+# value, a crossover measured on the TPU; the port keeps it until it is
+# measured on the H100 (ROADMAP A7).
+AUTO_LOCAL_RATIO = 4
+
+
+def resolve_attention_impl(impl: str, arrays) -> str:
+    """attention_impl "auto" -> the route for THIS batch, from the arrays
+    it carries (numpy or torch, GraphBatch.arrays() names), in the JAX
+    package's order: "block_sparse" when it carries tile layouts (never
+    built by the port's batchify: ROADMAP A8); "pallas_local" when it
+    carries localized banks at least AUTO_LOCAL_RATIO times smaller than
+    the global bank; "pallas" (the global-bank kernels) otherwise. Other
+    impls pass through unchanged."""
+    if not impl.startswith("auto"):
+        return impl
+    suffix = "_interpret" if impl.endswith("_interpret") else ""
+    if "tile_src" in arrays:
+        return "block_sparse" + suffix
+    if "bank_map" in arrays:
+        P = arrays["rel_bank"].shape[0]
+        P_loc = arrays["bank_map"].shape[1]
+        if P_loc * AUTO_LOCAL_RATIO <= P:
+            return "pallas_local" + suffix
+    return "pallas" + suffix
+
 
 def init_params(model: nn.Module, rng: torch.Generator):
     """Seeded random init following flax's defaults: LeCun-normal
@@ -152,14 +179,20 @@ class Generator(nn.Module):
     # ---------------- encoding ----------------
 
     def encode(self, concept, concept_char, concept_mask, rel_bank,
-               rel_length, rel_index, edges=None):
+               rel_length, rel_index, edges=None, impl: Optional[str] = None):
         """-> concept representations [B, N, D] in the compute dtype.
-        edges: the localized-bank arrays (batch_edges) for
-        attention_impl="pallas_local"."""
+        edges: the localized-bank arrays (batch_edges) for the
+        "pallas_local" route. impl: the attention route of this batch
+        (default: cfg.attention_impl, with "auto" resolved from rel_bank
+        and edges)."""
+        if impl is None:
+            impl = resolve_attention_impl(
+                self.cfg.attention_impl, dict(edges or {}, rel_bank=rel_bank))
+        check_impl(impl)
         x = self.token_encoder(concept, concept_char)
         rel_vecs = self.relation_encoder(rel_bank, rel_length)
         return self.graph_transformer(x, rel_vecs, rel_index, concept_mask,
-                                      edges)
+                                      edges, impl)
 
     # ---------------- output distribution ----------------
 
@@ -207,8 +240,9 @@ class Generator(nn.Module):
         model's device, batch_to_device): token NLL over the copy-mixed
         extended vocabulary, label-smoothed over the real token vocab
         (cfg.label_smoothing), averaged over real target positions.
-        Dropout is active in train mode. Returns (loss, {"loss", "acc",
-        "n_tok"}), scalars on the device."""
+        Dropout is active in train mode; attention_impl "auto" is resolved
+        for this batch (encode). Returns (loss, {"loss", "acc", "n_tok"}),
+        scalars on the device."""
         cfg = self.cfg
         mem = self.encode(batch["concept"], batch["concept_char"],
                           batch["concept_mask"], batch["rel_bank"],
@@ -250,8 +284,8 @@ class Generator(nn.Module):
 
 def batch_edges(batch: Dict[str, torch.Tensor]):
     """The encoder's auxiliary arrays from a batch dict, if present (the
-    localized-bank arrays of attention_impl="pallas_local", and the
-    localize sort order of training batches)."""
+    localized-bank arrays of the "pallas_local" route, and the localize
+    sort order of training batches)."""
     out = {k: batch[k] for k in ("bank_map", "rel_index_loc", "loc_perm",
                                  "loc_bnd") if k in batch}
     return out or None

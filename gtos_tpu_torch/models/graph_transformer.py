@@ -1,26 +1,33 @@
 """The graph-transformer encoder stack.
 
 Port of gtos_tpu/models/graph_transformer.py: post-LN layers of
-relation-aware multi-head attention + FFN over all node pairs. Two
-attention impls are ported:
+relation-aware multi-head attention + FFN over all node pairs. Three
+attention impls are ported, all with one set of parameters:
 
   "xla"          the plain bank decomposition over the batch-global bank
                  (ops/attention.py);
+  "pallas"       the fused attention over the batch-global bank
+                 (ops/relation_attention.py): kernel B3 or B3' forward, and
+                 with gradients the trainable entry, whose backward is B4
+                 (CUDA kernels on the card, plain versions on the CPU). B4's
+                 walk orders over each graph's rows and columns of
+                 rel_index are built once per stack;
   "pallas_local" per-graph localized banks (batchify
                  build_local_banks=True): the GRU's relation vectors are
                  gathered once per stack (ops/localize.py) and every layer
                  runs the localized relation attention
                  (ops/local_relation_attention.py): kernel B1 without
                  gradients, and with them the trainable entry, whose
-                 forward is B1p and backward B2 (CUDA kernels on the card,
-                 plain versions on the CPU). B2's slot order over each
+                 forward is B1p and backward B2. B2's slot order over each
                  graph's pairs is built once per stack, as the JAX package
                  builds its sort auxiliaries once per step.
 
-The JAX package's other impls raise NotImplementedError naming the ROADMAP
-item that ports them. Dropout where the JAX package has it: on the
-attention and FFN outputs before each residual add, and after the FFN's
-ReLU.
+"auto" is resolved per batch (models/generator.py resolve_attention_impl)
+into "pallas" or "pallas_local" and handed to `forward` as `impl`; the
+module is built once and runs either route. The sparse impls raise
+NotImplementedError naming ROADMAP A8. Dropout where the JAX package has
+it: on the attention and FFN outputs before each residual add, and after
+the FFN's ReLU.
 """
 
 from __future__ import annotations
@@ -38,18 +45,18 @@ from gtos_tpu_torch.ops.local_relation_attention import (
     local_relation_attention, local_relation_attention_trainable, slot_order,
 )
 from gtos_tpu_torch.ops.localize import localize_bank
+from gtos_tpu_torch.ops.relation_attention import (
+    pallas_relation_attention, relation_attention_trainable, walk_orders,
+)
 
+ROUTES = ("xla", "pallas", "pallas_local")   # what a layer runs
 # ROADMAP item that ports each of the JAX package's other impls
-_NOT_PORTED = {
-    "pallas": "A7/B3-B4", "pallas_interpret": "A7/B3-B4",
-    "auto": "A7", "auto_interpret": "A7",
-    "sparse": "A8", "block_sparse": "A8/B5-B6",
-    "block_sparse_interpret": "A8/B5-B6",
-}
+_NOT_PORTED = {"sparse": "A8", "block_sparse": "A8/B5-B6",
+               "block_sparse_interpret": "A8/B5-B6"}
 
 
 def check_impl(impl: str):
-    if impl in ("xla", "pallas_local"):
+    if impl in ROUTES or impl == "auto":
         return
     item = _NOT_PORTED.get(impl)
     if item is None and impl.endswith("_interpret"):
@@ -60,6 +67,16 @@ def check_impl(impl: str):
     raise NotImplementedError(
         f"attention_impl {impl!r} is not ported yet"
         + (f" (ROADMAP {item})" if item else ""))
+
+
+def _route(impl: str) -> str:
+    """The impl a call runs: a resolved one ("auto" must be resolved per
+    batch before it reaches the stack)."""
+    if impl not in ROUTES:
+        raise ValueError(
+            f"attention_impl {impl!r} reached the encoder unresolved: "
+            "resolve_attention_impl must run per batch")
+    return impl
 
 
 class RelationMultiheadAttention(nn.Module):
@@ -79,11 +96,15 @@ class RelationMultiheadAttention(nn.Module):
         self.out_proj = Dense(d_model, d_model)
 
     def forward(self, x, rel_vecs, rel_index, node_mask,
-                edges: Optional[Dict[str, torch.Tensor]] = None):
-        """x: [B,N,D]; node_mask: [B,N]. rel_vecs: [P,Dr] for "xla", or
-        pre-localized [B,P_loc,Dr] for "pallas_local" (with
-        edges["rel_index_loc"], and edges["pair_order"]/["slot_start"]
-        when gradients are taken)."""
+                edges: Optional[Dict[str, torch.Tensor]] = None,
+                impl: Optional[str] = None):
+        """x: [B,N,D]; node_mask: [B,N]. impl: the route of this call
+        (default: the module's). rel_vecs: the batch-global [P,Dr] for
+        "xla" and "pallas" (with edges["row_order"]/["col_order"] when
+        gradients are taken), or pre-localized [B,P_loc,Dr] for
+        "pallas_local" (with edges["rel_index_loc"], and
+        edges["pair_order"]/["slot_start"] when gradients are taken)."""
+        impl = _route(impl or self.impl)
         H, D = self.heads, self.d_model
         q = split_heads(self.q_proj(x), H)
         k = split_heads(self.k_proj(x), H)
@@ -92,15 +113,25 @@ class RelationMultiheadAttention(nn.Module):
         lead = ab.shape[:-1]
         a = ab[..., :D].reshape(*lead, H, D // H)
         b = ab[..., D:].reshape(*lead, H, D // H)
-        if self.impl == "pallas_local":
+        edges = edges or {}
+        grad = torch.is_grad_enabled() and q.requires_grad
+        if impl == "pallas_local":
             args = (q.contiguous(), k.contiguous(), v.contiguous(),
                     a.contiguous(), b.contiguous(), edges["rel_index_loc"],
                     node_mask)
-            if torch.is_grad_enabled() and q.requires_grad:
+            if grad:
                 out = local_relation_attention_trainable(
                     *args, edges.get("pair_order"), edges.get("slot_start"))
             else:
                 out = local_relation_attention(*args)
+        elif impl == "pallas":
+            args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                    a.contiguous(), b.contiguous(), rel_index, node_mask)
+            if grad:
+                out = relation_attention_trainable(
+                    *args, edges.get("row_order"), edges.get("col_order"))
+            else:
+                out, _ = pallas_relation_attention(*args)
         else:
             out, _ = bank_relation_attention(q, k, v, a, b, rel_index,
                                              node_mask)
@@ -116,9 +147,10 @@ class GraphTransformerLayer(nn.Module):
         self.ffn = FeedForward(d_model, d_ff, dropout)
         self.ffn_res = PostLNResidual(d_model, dropout)
 
-    def forward(self, x, rel_vecs, rel_index, node_mask, edges=None):
+    def forward(self, x, rel_vecs, rel_index, node_mask, edges=None,
+                impl=None):
         x = self.attn_res(x, self.self_attn(x, rel_vecs, rel_index,
-                                            node_mask, edges))
+                                            node_mask, edges, impl))
         return self.ffn_res(x, self.ffn(x))
 
 
@@ -133,8 +165,12 @@ class GraphTransformer(nn.Module):
                 d_model, d_ff, heads, impl, dropout))
         self.layers = layers
 
-    def forward(self, x, rel_vecs, rel_index, node_mask, edges=None):
-        if self.impl == "pallas_local":
+    def forward(self, x, rel_vecs, rel_index, node_mask, edges=None,
+                impl: Optional[str] = None):
+        """impl: the route of this batch (default: the module's; "auto"
+        must be resolved by the caller)."""
+        impl = _route(impl or self.impl)
+        if impl == "pallas_local":
             if edges is None or "bank_map" not in edges:
                 raise ValueError("attention_impl='pallas_local' needs "
                                  "batchify build_local_banks=True")
@@ -146,8 +182,11 @@ class GraphTransformer(nn.Module):
                 order, start = slot_order(edges["rel_index_loc"],
                                           edges["bank_map"].shape[1])
                 edges = dict(edges, pair_order=order, slot_start=start)
+        elif impl == "pallas" and torch.is_grad_enabled():
+            rows, cols = walk_orders(rel_index)
+            edges = dict(edges or {}, row_order=rows, col_order=cols)
         for i in range(self.layers):
             x = getattr(self, f"layer{i}")(x, rel_vecs, rel_index,
-                                           node_mask, edges)
+                                           node_mask, edges, impl)
         # zero padded nodes so downstream cross-attention sees clean memory
         return x.masked_fill(~node_mask[:, :, None], 0.0)

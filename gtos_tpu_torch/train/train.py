@@ -10,13 +10,20 @@
       --d_model 32 --d_ff 64 --heads 2 --enc_layers 2 --dec_layers 1 \\
       --total_steps 4 --ckpt_dir ckpt
 
+  # an AMR sembank (PENMAN, `# ::snt` or `# ::tok` targets)
+  python -m gtos_tpu_torch.train.train --config configs/c2_amr2.json \\
+      --train_data train.amr --dev_data dev.amr --ckpt_dir ckpt
+
+--attention_impl takes "xla", "pallas" (the global-bank kernels B3/B3'
+and B4), "pallas_local" (B1p/B2) and "auto" (per batch, one of the two).
 Training runs on the CUDA card unless `--device cpu` is given, and raises
 without a card. The configs and vocabs go into the checkpoint directory
 (the args-in-checkpoint contract), so inference rebuilds the model from it
-alone. Options whose feature is not ported raise and name the ROADMAP item
-that ports it: --dp/--mp/--graph/--coordinator and batchify worker pools
-(A9, A4), the sparse impls (A8), "pallas"/"auto" (A7), reading sembank or
-CoNLL files (A4: graph/amr.py, graph/dependency.py).
+alone (`python -m gtos_tpu_torch.infer.work`). Options whose feature is
+not ported raise and name the ROADMAP item that ports it:
+--dp/--mp/--graph/--coordinator and batchify worker pools (A9, A4), the
+sparse impls (A8), reading CoNLL files for the nmt task (A4:
+graph/dependency.py).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import argparse
 import json
 import os
 import sys
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -157,6 +164,36 @@ def check_ported(args):
     check_impl(args.attention_impl)
 
 
+def load_corpus(task: str, data_path: str
+                ) -> Tuple[list, List[List[str]]]:
+    """An AMR sembank as (graphs, targets): each graph whose metadata
+    carries `::tok` (else `::snt`) with that sentence split on spaces, as
+    the JAX package's CLI reads it. The nmt task's CoNLL files are not
+    ported yet (ROADMAP A4)."""
+    if task != "amr":
+        raise NotImplementedError(
+            "reading CoNLL files (graph/dependency.py) for the nmt task is "
+            "not ported yet (ROADMAP A4); use --synthetic N")
+    from gtos_tpu_torch.graph.amr import read_amr_file
+    graphs, targets = [], []
+    for g in read_amr_file(data_path):
+        snt = (g.meta or {}).get("tok") or (g.meta or {}).get("snt")
+        if snt is not None:
+            graphs.append(g)
+            targets.append(snt.split())
+    return graphs, targets
+
+
+def loader_flags(impl: str) -> dict:
+    """The DataLoader's batchify aux flag for an attention impl, as the
+    JAX package's CLIs set it: "auto" lets batchify pick per bucket (local
+    banks; the tile fallback on overflow raises ROADMAP A8), the others
+    build what their kernel reads. The sparse impls, whose tiles and edge
+    cells are not ported, are refused before a loader is built."""
+    return dict(build_local_banks="auto" if impl.startswith("auto")
+                else impl.startswith("pallas_local"))
+
+
 def load_synthetic(task: str, n: int):
     from gtos_tpu_torch.data.synthetic import (
         synthetic_amr_corpus, synthetic_dependency_corpus)
@@ -208,13 +245,16 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     path_cfg = RelationPathConfig(max_path_len=args.max_path_len)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "reading sembank/CoNLL files (graph/amr.py, graph/dependency.py) "
-            "is not ported yet (ROADMAP A4); use --synthetic N")
-    graphs, targets = load_synthetic(args.task, args.synthetic)
-    dev_graphs, dev_targets = load_synthetic(args.task,
-                                             max(args.synthetic // 10, 4))
+    if args.synthetic:
+        graphs, targets = load_synthetic(args.task, args.synthetic)
+        dev_graphs, dev_targets = load_synthetic(
+            args.task, max(args.synthetic // 10, 4))
+    else:
+        if not args.train_data:
+            raise SystemExit("--train_data or --synthetic required")
+        graphs, targets = load_corpus(args.task, args.train_data)
+        dev_graphs, dev_targets = (load_corpus(args.task, args.dev_data)
+                                   if args.dev_data else ([], []))
 
     vocab_dir = os.path.join(args.ckpt_dir, "vocabs")
     if os.path.exists(os.path.join(vocab_dir, "token_vocab.json")):
@@ -244,8 +284,7 @@ def main(argv=None):
 
     # spec.max_oov follows the model so extended target ids always fit
     spec = BucketSpec().for_model_max_oov(model_cfg.max_oov)
-    dl_kw = dict(spec=spec, build_local_banks=(
-        args.attention_impl == "pallas_local"))
+    dl_kw = dict(spec=spec, **loader_flags(args.attention_impl))
     instances = preprocess(graphs, targets, path_cfg)
     dev_instances = preprocess(dev_graphs, dev_targets, path_cfg)
     dl = DataLoader(instances, tv, cv, rv, chv, lm,

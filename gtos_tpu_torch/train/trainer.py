@@ -3,15 +3,17 @@
 Port of gtos_tpu/train/trainer.py: batchify -> forward -> backward ->
 clip -> scheduled Adam step -> periodic dev eval and checkpoint. PyTorch
 runs eagerly, so a step is the model's loss, its gradients by autograd
-(on the card the localized attention's backward is kernel B2) and the
+(on the card the encoder attention's backward is kernel B2 or B4) and the
 optimizer's foreach update; the host queues work for the card and reads a
 loss back only `max_inflight` steps later. Batches are packed and copied to the
 device `prefetch` ahead in a background thread. A non-finite loss stops
 training with a resumable checkpoint on disk.
 
-The JAX package's attention_impl "auto" and its meshes (data, tensor and
-context parallelism) are not ported: the model refuses "auto" (ROADMAP A7)
-and `mesh` raises (A9).
+Under attention_impl "auto" the model resolves each batch's route itself
+(Generator.forward): one model, one parameter set and one optimizer state
+for every route, and no per-route step cache, since nothing is compiled.
+The JAX package's meshes (data, tensor and context parallelism) are not
+ported: `mesh` raises (ROADMAP A9).
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
-"""Corpus BLEU, as `sacrebleu.corpus_bleu(hyps, [refs]).score` computes it
-with its defaults (13a tokenizer, exp smoothing, 4-grams, one reference
-per hypothesis), for the dev-BLEU hook of training: the machine with the
-card has no sacrebleu.
+"""Corpus BLEU and chrF, as `sacrebleu.corpus_bleu(hyps, [refs]).score`
+and `sacrebleu.corpus_chrf(hyps, [refs]).score` compute them with their
+defaults (BLEU: 13a tokenizer, exp smoothing, 4-grams; chrF: character
+6-grams without whitespace, beta 2, the effective-order average), one
+reference per hypothesis, for the dev-BLEU hook of training and the
+work.py CLI: the machine with the card has no sacrebleu.
 """
 
 from __future__ import annotations
@@ -74,3 +76,36 @@ def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> float:
             precisions[n] = 100.0 * correct[n] / total[n]
     logs = [math.log(p) if p > 0 else -9999999999 for p in precisions]
     return bp * math.exp(sum(logs) / MAX_ORDER)
+
+
+CHRF_ORDER, CHRF_BETA = 6, 2
+
+
+def corpus_chrf(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    """chrF (0-100) of hypothesis strings against one reference string
+    each: character n-gram (n = 1..6, whitespace removed) counts summed
+    over the corpus, then the F-beta of the precision and recall averaged
+    over the orders that both sides have."""
+    stats = [[0, 0, 0] for _ in range(CHRF_ORDER)]  # hyp, ref, match
+    for hyp, ref in zip(hyps, refs):
+        h, r = "".join(hyp.split()), "".join(ref.split())
+        for n in range(1, CHRF_ORDER + 1):
+            hc = Counter(h[i:i + n] for i in range(len(h) - n + 1))
+            rc = Counter(r[i:i + n] for i in range(len(r) - n + 1))
+            st = stats[n - 1]
+            st[0] += sum(hc.values()) if rc else 0
+            st[1] += sum(rc.values())
+            st[2] += sum(min(c, rc[g]) for g, c in hc.items() if g in rc)
+    factor = CHRF_BETA ** 2
+    prec = rec = 0.0
+    orders = 0
+    for n_hyp, n_ref, n_match in stats:
+        if n_hyp > 0 and n_ref > 0:
+            prec += n_match / n_hyp
+            rec += n_match / n_ref
+            orders += 1
+    if orders:
+        prec, rec = prec / orders, rec / orders
+    if prec + rec == 0:
+        return 0.0
+    return 100 * (1 + factor) * prec * rec / (factor * prec + rec)

@@ -21,6 +21,12 @@ from gtos_tpu_torch.ops.local_relation_attention import (
     local_relation_attention_with_probs_reference,
 )
 from gtos_tpu_torch.ops.localize import localize_bank
+from gtos_tpu_torch.ops.relation_attention import (
+    build_tables, fused_relation_attention, fused_relation_attention_bwd,
+    fused_relation_attention_bwd_reference, fused_relation_attention_inline,
+    fused_relation_attention_inline_reference,
+    fused_relation_attention_reference, walk_orders,
+)
 
 # the three cases of tests/test_local_kernel.py (B, H, N, Dh, P, P_loc)
 CASES = [(2, 2, 32, 16, 200, 128), (2, 2, 16, 16, 600, 512),
@@ -65,6 +71,36 @@ def port_local_args(c, dtype=torch.float32, device="cpu"):
     dev = lambda x: x.to(device=device, dtype=dtype).contiguous()  # noqa
     return (dev(t["q"]), dev(t["k"]), dev(t["v"]), dev(a_loc), dev(b_loc),
             t["idx_loc"].to(device), t["mask"].to(device))
+
+
+PAD = 3  # padded nodes of graph 0 in make_global_case
+
+
+def make_global_case(B, H, N, Dh, P, seed=0):
+    """Seeded numpy inputs of the global-bank attention: q, k, v, the
+    banks a_bank/b_bank [P, H, Dh], rel_index [B, N, N] in [0, P), an
+    output cotangent g, and a node mask whose first graph has PAD padded
+    nodes."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v, g = (rng.standard_normal((B, H, N, Dh)).astype(f)
+                  for _ in range(4))
+    a_bank, b_bank = ((rng.standard_normal((P, H, Dh)) * 0.5).astype(f)
+                      for _ in range(2))
+    rel_index = rng.integers(0, P, (B, N, N)).astype(np.int32)
+    mask = np.ones((B, N), bool)
+    mask[0, N - PAD:] = False
+    return dict(q=q, k=k, v=v, g=g, a_bank=a_bank, b_bank=b_bank,
+                rel_index=rel_index, mask=mask)
+
+
+def port_global_args(c, dtype=torch.float32, device="cpu"):
+    """A global case as the kernels' arguments (q, k, v, a_bank, b_bank,
+    rel_index, node_mask), in `dtype` on `device`."""
+    dev = lambda x: torch.from_numpy(x).to(device=device, dtype=dtype)  # noqa
+    return (*(dev(c[n]) for n in ("q", "k", "v", "a_bank", "b_bank")),
+            torch.from_numpy(c["rel_index"]).to(device),
+            torch.from_numpy(c["mask"]).to(device))
 
 
 @pytest.fixture
@@ -221,6 +257,110 @@ def test_cuda_train_step_goes_through_b1p_and_b2(card):
             local_relation_attention_with_probs.launches,
             local_relation_attention_bwd.launches) == (
         counts[0], counts[1] + cfg.enc_layers, counts[2] + cfg.enc_layers)
+    (cpu_loss, cpu_grads), (loss, grads) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=1e-6)
+    for i in range(cfg.enc_layers):
+        for proj in ("q_proj", "k_proj", "v_proj", "rel_proj"):
+            grad = grads[f"graph_transformer.layer{i}.self_attn.{proj}.weight"]
+            assert grad is not None and grad.abs().sum() > 0, (i, proj)
+    for name, grad in grads.items():
+        torch.testing.assert_close(grad.cpu(), cpu_grads[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)
+
+
+GLOBAL_CASES = [(2, 4, 16, 32, 128), (2, 4, 128, 32, 256),
+                (16, 8, 32, 64, 4096), (8, 8, 128, 64, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=1e-4, atol=1e-4)),
+    (torch.bfloat16, dict(rtol=2e-2, atol=3e-2)),
+])
+@pytest.mark.parametrize("B,H,N,Dh,P", GLOBAL_CASES)
+def test_cuda_global_kernels_match_plain_versions(card, B, H, N, Dh, P,
+                                                  dtype, tol):
+    """B3 (from the tables), B3' (from the banks) and B4 (the backward)
+    against their plain versions on the same card inputs, to B1's
+    tolerances (f32 sums in another order; in bf16 one rounding of each
+    output, the probabilities rounded before the product with v). Each
+    launch counts once, and B4 gives the same bits on a second run (no
+    atomics)."""
+    c = make_global_case(B, H, N, Dh, P)
+    q, k, v, a, b, idx, mask = port_global_args(c, dtype, card)
+    g = torch.from_numpy(c["g"]).to(card, dtype)
+    t2, t3 = build_tables(q, k, a, b)
+    rows, cols = walk_orders(idx)
+    before = (fused_relation_attention.launches,
+              fused_relation_attention_inline.launches,
+              fused_relation_attention_bwd.launches)
+    out = fused_relation_attention(q, k, v, t2, t3, idx, mask)
+    out_inline = fused_relation_attention_inline(q, k, v, a, b, idx, mask)
+    grads = fused_relation_attention_bwd(q, k, v, g, t2, t3, idx, mask, rows,
+                                         cols)
+    again = fused_relation_attention_bwd(q, k, v, g, t2, t3, idx, mask, rows,
+                                         cols)
+    torch.cuda.synchronize()
+    assert (fused_relation_attention.launches,
+            fused_relation_attention_inline.launches,
+            fused_relation_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    torch.testing.assert_close(
+        out.float(), fused_relation_attention_reference(
+            q, k, v, t2, t3, idx, mask).float(), **tol)
+    torch.testing.assert_close(
+        out_inline.float(), fused_relation_attention_inline_reference(
+            q, k, v, a, b, idx, mask).float(), **tol)
+    ref = fused_relation_attention_bwd_reference(q, k, v, g, t2, t3, idx,
+                                                 mask)
+    for name, x, y, z in zip(("gq", "gk", "gv", "g_t2", "g_t3"), grads, ref,
+                             again):
+        assert x.dtype == y.dtype and torch.isfinite(x.float()).all(), name
+        torch.testing.assert_close(x.float(), y.float(), **tol, msg=name)
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.cuda
+def test_cuda_pallas_train_step_goes_through_b3_and_b4(card):
+    """One training forward and backward of a small f32 model (dropout 0,
+    attention_impl "pallas") on the card: B3 or B3' launches once per
+    encoder layer and B4 once per encoder layer, the localized kernels
+    not at all; every encoder layer's q/k/v/rel projections get a non-zero
+    gradient through the attention; the loss and every parameter gradient
+    agree with the same weights on the CPU (plain versions) to 1e-4
+    relative, 1e-6 absolute (f32 sums in another order)."""
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.utils.config import ModelConfig
+
+    g, t = synthetic_amr_corpus(8, seed=5)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    batch = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=64, d_ff=128, heads=4, enc_layers=2,
+                      dec_layers=2, max_target_len=32, dropout=0.0,
+                      label_smoothing=0.1, attention_impl="pallas")
+    wrappers = (fused_relation_attention, fused_relation_attention_inline,
+                fused_relation_attention_bwd, local_relation_attention,
+                local_relation_attention_with_probs,
+                local_relation_attention_bwd)
+    counts = [w.launches for w in wrappers]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Generator(cfg, device=dev).train()
+        names, params = zip(*model.named_parameters())
+        loss, _ = model(batch_to_device(batch.arrays(), dev))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[dev] = loss, dict(zip(names, grads))
+    torch.cuda.synchronize()
+    delta = [w.launches - c for w, c in zip(wrappers, counts)]
+    assert delta[0] + delta[1] == cfg.enc_layers
+    assert delta[2:] == [cfg.enc_layers, 0, 0, 0]
     (cpu_loss, cpu_grads), (loss, grads) = out["cpu"], out["cuda"]
     torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=1e-6)
     for i in range(cfg.enc_layers):

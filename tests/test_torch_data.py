@@ -14,14 +14,18 @@ from gtos_tpu.data.dataloader import preprocess as jax_preprocess
 from gtos_tpu.data.extract import build_vocabs as jax_build_vocabs
 from gtos_tpu.data.synthetic import synthetic_amr2_corpus as jax_amr2
 from gtos_tpu.data.synthetic import synthetic_amr_corpus as jax_amr
+from gtos_tpu.graph.amr import AMRParseError as JaxAMRParseError
+from gtos_tpu.graph.amr import parse_amr as jax_parse_amr
+from gtos_tpu.graph.amr import read_amr_file as jax_read_amr_file
 from gtos_tpu.graph.paths import relation_paths as jax_relation_paths
 from gtos_tpu_torch.data import BucketSpec, DataLoader, batchify
-from gtos_tpu_torch.data.batching import Instance
+from gtos_tpu_torch.data.batching import BatchCapacityError, Instance
 from gtos_tpu_torch.data.dataloader import preprocess
 from gtos_tpu_torch.data.extract import build_vocabs, load_vocabs, save_vocabs
 from gtos_tpu_torch.data.synthetic import (
     synthetic_amr2_corpus, synthetic_amr_corpus,
 )
+from gtos_tpu_torch.graph.amr import AMRParseError, parse_amr, read_amr_file
 from gtos_tpu_torch.graph.paths import relation_paths
 
 torch.set_num_threads(2)
@@ -164,3 +168,98 @@ def test_batchify_takes_preprocessed_instances_only():
                     pair_paths=relation_paths(g[0]), target=t[0])
     with pytest.raises(ValueError, match="preprocess"):
         batchify([inst], *build_vocabs(g, t), for_train=False)
+
+
+@pytest.mark.parametrize("for_train", [False, True])
+def test_auto_aux_batches_equal(amr2_200, for_train):
+    """attention_impl "auto"'s loader flags (the JAX package's CLIs pass
+    build_block_tiles="auto" and build_local_banks="auto"; the port's
+    DataLoader takes the second, batchify both): local banks at every
+    bucket, no tile layouts, and every array of every batch equal to the
+    JAX package's (the localize auxiliaries of training batches
+    included)."""
+    (jg, jt), (pg, pt) = amr2_200
+    jv, pv = jax_build_vocabs(jg, jt), build_vocabs(pg, pt)
+    kw = dict(batch_size_tokens=2048, for_train=for_train, seed=3,
+              build_local_banks="auto")
+    jbs = list(JaxDataLoader(jax_preprocess(jg, jt), *jv,
+                             build_block_tiles="auto",
+                             **kw).iter_with_instances())
+    pbs = list(DataLoader(preprocess(pg, pt), *pv,
+                          **kw).iter_with_instances())
+    assert len(jbs) == len(pbs) > 1
+    for (jb, ji), (pb, pi) in zip(jbs, pbs):
+        assert [i.orig_index for i in ji] == [i.orig_index for i in pi]
+        ja, pa = jb.arrays(), pb.arrays()
+        assert ja.keys() == pa.keys()
+        assert "bank_map" in pa and "tile_src" not in pa
+        for k in ja:
+            assert ja[k].dtype == pa[k].dtype, k
+            np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
+    both = batchify(pi, *pv, for_train=for_train, build_block_tiles="auto",
+                    build_local_banks="auto").arrays()
+    ref = jax_batchify(ji, *jv, for_train=for_train,
+                       build_block_tiles="auto",
+                       build_local_banks="auto").arrays()
+    assert both.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(ref[k], both[k], err_msg=k)
+
+
+def test_auto_local_bank_overflow():
+    """Under "auto", a batch whose per-graph paths overflow the local-bank
+    ladder re-raises BatchCapacityError below a tile-aligned bucket (the
+    DataLoader bisects it) and, at N % 128 == 0, names ROADMAP A8 (the JAX
+    package falls back to tile layouts there)."""
+    g, t = synthetic_amr_corpus(2, seed=4, min_nodes=20, max_nodes=24)
+    vocabs = build_vocabs(g, t)
+    kw = dict(for_train=False, build_block_tiles="auto",
+              build_local_banks="auto")
+    with pytest.raises(BatchCapacityError, match="local bank"):
+        batchify(preprocess(g, t), *vocabs,
+                 spec=BucketSpec(local_bank=(16,)), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        batchify(preprocess(g, t), *vocabs,
+                 spec=BucketSpec(nodes=(128,), local_bank=(16,)), **kw)
+
+
+PENMAN = """# ::id a.1 ::date 2024 ::snt The boy wants to go .
+# ::tok The boy wants to go .
+(w / want-01~e.2
+   :ARG0 (b / boy~e.1)
+   :ARG1 (g / go-02 :ARG0 b)
+   :polarity -)
+
+# ::snt Smith said "hello" 3 times
+(s / say-01 :ARG0 (p / person :name (n / name :op1 "Smith"~e.0))
+   :ARG1 "hello" :quant 3 :time (a / after :op1 x2) :mod x2)
+
+(f / forward-ref :ARG0 q7 :ARG1 (q7 / thing))
+"""
+
+
+def test_amr_reader_matches_jax(tmp_path):
+    """graph/amr.py against gtos_tpu.graph.amr: the same graphs (nodes,
+    edges, metadata) from a sembank file with alignments, re-entrancies,
+    constants, strings and a forward reference, and the same errors with
+    the same messages (offsets included) on malformed text."""
+    path = tmp_path / "s.amr"
+    path.write_text(PENMAN)
+    jg, pg = jax_read_amr_file(str(path)), read_amr_file(str(path))
+    assert len(pg) == 3
+    _same_graphs(jg, pg)
+    assert [a.meta for a in jg] == [b.meta for b in pg]
+    assert pg[0].meta["tok"] == "The boy wants to go ."
+    for bad in ("(w /)", "(a / b :ARG0 (c / d)", "(a / b) (c / d)",
+                "(a / b : x)", "(a / b :ARG0 (a / c))", ":ARG0",
+                "(a / b :ARG0 )", "", "(a / b)\n(c / d :x\n  : y)"):
+        with pytest.raises(JaxAMRParseError) as je:
+            jax_parse_amr(bad)
+        with pytest.raises(AMRParseError) as pe:
+            parse_amr(bad)
+        assert str(pe.value) == str(je.value), bad
+    with pytest.raises(AMRParseError, match="at offset 7"):
+        parse_amr("(a / b : x)")
+    empty = tmp_path / "e.amr"
+    empty.write_text("")
+    assert read_amr_file(str(empty)) == []

@@ -175,17 +175,30 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--dp", "2"], "A9"), (["--graph", "2"], "A9"),
     (["--coordinator", "localhost:1234"], "A9"),
-    (["--attention_impl", "auto"], "A7"),
-    (["--attention_impl", "pallas"], "A7"),
+    # ported since (ROADMAP A7): these train
+    pytest.param(["--attention_impl", "auto"], None, id="flags3-A7"),
+    pytest.param(["--attention_impl", "pallas"], None, id="flags4-A7"),
     (["--attention_impl", "sparse"], "A8"),
     (["--attention_impl", "block_sparse"], "A8"),
 ])
 def test_train_cli_refuses_unported_options(flags, item, tmp_path):
     """The train CLI's options whose feature is not ported raise and name
-    the ROADMAP item that ports it, before any work."""
+    the ROADMAP item that ports it, before any work; the options ported
+    since (item None: "auto" and "pallas") train a step on the CPU."""
+    argv = ["--synthetic", "8", "--device", "cpu", "--ckpt_dir",
+            str(tmp_path), *flags]
+    if item is None:
+        last = train_main(argv + [
+            "--d_model", "16", "--d_ff", "32", "--heads", "2",
+            "--enc_layers", "1", "--dec_layers", "1", "--max_target_len",
+            "16", "--total_steps", "1", "--prefetch", "0"])
+        assert last["step"] == 1 and np.isfinite(last["loss"])
+        cfg = ModelConfig.from_json(
+            (tmp_path / "model_config.json").read_text())
+        assert cfg.attention_impl == flags[1]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train_main(["--synthetic", "8", "--device", "cpu", "--ckpt_dir",
-                    str(tmp_path), *flags])
+        train_main(argv)
 
 
 def test_train_config_json_loads_in_both_packages():
@@ -220,8 +233,36 @@ def test_model_config_json_loads_in_both_packages():
 @pytest.mark.parametrize("impl", ["pallas", "auto", "sparse",
                                   "block_sparse"])
 def test_unported_attention_impls_raise(impl):
-    """The JAX package's other encoder impls raise and name their ROADMAP
-    item."""
+    """The JAX package's sparse encoder impls raise and name their ROADMAP
+    item; "pallas" and "auto", ported since, build."""
+    cfg = ModelConfig(**dict(TINY, attention_impl=impl))
+    if impl in ("pallas", "auto"):
+        assert Generator(cfg, device="cpu").cfg.attention_impl == impl
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Generator(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "auto_interpret",
+                                  "pallas_local_interpret"])
+def test_interpret_impls_raise_value_error(impl):
+    """The port has no interpret mode: the JAX package's "*_interpret"
+    impls raise ValueError naming the impl to use (CPU tensors run the
+    plain versions)."""
+    with pytest.raises(ValueError, match="no interpret mode"):
         Generator(ModelConfig(**dict(TINY, attention_impl=impl)),
                   device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["pallas", "auto"])
+def test_global_bank_train_step_imports_no_jax(impl):
+    """In a fresh interpreter, a train step on the CPU under "pallas" (the
+    global-bank forward and backward's plain versions) or "auto" leaves
+    jax, flax and gtos_tpu out of sys.modules."""
+    script = NO_JAX_TRAIN_SCRIPT.replace(
+        'attention_impl="pallas_local"', f'attention_impl="{impl}"').replace(
+        "build_local_banks=True", 'build_local_banks="auto"')
+    assert f'"{impl}"' in script
+    report = _run_port_script(script)
+    assert report["step"] == 1 and report["loss"] > 0
+    assert report["imported"] == []

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from gtos_tpu.data import BucketSpec as JaxBucketSpec
 from gtos_tpu.data import batchify as jax_batchify
 from gtos_tpu.data.dataloader import preprocess as jax_preprocess
 from gtos_tpu.data.extract import build_vocabs as jax_build_vocabs
@@ -22,16 +23,23 @@ from gtos_tpu.data.synthetic import synthetic_amr_corpus as jax_corpus
 from gtos_tpu.infer.decode import beam_decode_arrays as jax_beam_decode
 from gtos_tpu.models import Generator as JaxGenerator
 from gtos_tpu.models.generator import batch_edges as jax_batch_edges
+from gtos_tpu.models.generator import (
+    resolve_attention_impl as jax_resolve_attention_impl,
+)
+from gtos_tpu.ops.pallas import relation_attention as jax_ra
 from gtos_tpu.utils.config import ModelConfig as JaxModelConfig
 from gtos_tpu_torch.convert import state_dict_from_flax
-from gtos_tpu_torch.data import batchify
+from gtos_tpu_torch.data import BucketSpec, batchify
 from gtos_tpu_torch.data.dataloader import preprocess
 from gtos_tpu_torch.data.extract import build_vocabs
 from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
 from gtos_tpu_torch.infer.decode import beam_decode_arrays
 from gtos_tpu_torch.models import Generator
-from gtos_tpu_torch.models.generator import batch_edges, batch_to_device
+from gtos_tpu_torch.models.generator import (
+    batch_edges, batch_to_device, resolve_attention_impl,
+)
 from gtos_tpu_torch.models.graph_transformer import GraphTransformer
+from gtos_tpu_torch.ops import relation_attention as port_ra
 from gtos_tpu_torch.utils.config import ModelConfig
 
 torch.set_num_threads(2)
@@ -294,3 +302,155 @@ def test_serving_copy_is_the_rounded_model():
     with torch.no_grad():
         next(model.parameters()).add_(1.0)
     assert model.serving_copy() is not copy
+
+
+# configs/c1_toy_parity.json's widths
+C1 = dict(d_model=64, d_ff=128, heads=4, enc_layers=2, dec_layers=1,
+          char_dim=8, char_filters=16, rel_emb_dim=8, rel_hidden=16,
+          max_oov=16, max_target_len=32, dropout=0.0, label_smoothing=0.1,
+          copy_impl="scatter")
+
+
+@pytest.mark.parametrize("route", ["inline", "tables"])
+def test_pallas_loss_and_every_gradient_match_jax(route, monkeypatch):
+    """Generator.forward under attention_impl "pallas" (the global-bank
+    forward B3' or B3, the backward B4 and its table contractions; plain
+    versions on the CPU) and autograd of it, against jax.value_and_grad of
+    the JAX Generator under "pallas_interpret" on converted weights, c1
+    widths, f32, a training batch: loss, acc and every parameter
+    gradient. `route` forces the forward kernel in both packages
+    (_inline_fits). Tolerance: the loss to 1e-6 relative, gradients to
+    1e-4 relative and 1e-6 absolute (f32 sums in another order through
+    two encoder layers)."""
+    if route == "tables":
+        monkeypatch.setattr(jax_ra, "_inline_fits", lambda q, a: False)
+        monkeypatch.setattr(port_ra, "_inline_fits", lambda q, a: False)
+    graphs, targets = jax_corpus(6, seed=3)
+    jv = jax_build_vocabs(graphs, targets)
+    ja = jax_batchify(jax_preprocess(graphs, targets), *jv,
+                      batch_size_bucket=8, for_train=True).arrays()
+    g2, t2 = synthetic_amr_corpus(6, seed=3)
+    pa = batchify(preprocess(g2, t2), *build_vocabs(g2, t2),
+                  batch_size_bucket=8, for_train=True).arrays()
+    tv, cv, rv, chv, _ = jv
+    kw = dict(C1, token_vocab=len(tv), concept_vocab=len(cv),
+              relation_vocab=len(rv), char_vocab=len(chv))
+    jm = JaxGenerator(JaxModelConfig(**kw, attention_impl="pallas_interpret"))
+    params = jm.init({"params": jax.random.PRNGKey(0)}, ja,
+                     deterministic=True)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.apply(p, ja, deterministic=True), has_aux=True))(params)
+    pm = Generator(ModelConfig(**kw, attention_impl="pallas"), device="cpu")
+    pm.load_state_dict(state_dict_from_flax(jax.device_get(params)))
+    pm.train()
+    names, ps = zip(*pm.named_parameters())
+    before = port_ra.fused_relation_attention_bwd.launches
+    loss, met = pm(batch_to_device(pa, "cpu"))
+    grads = torch.autograd.grad(loss, ps)
+    assert port_ra.fused_relation_attention_bwd.launches == before
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
+    np.testing.assert_allclose(met["acc"].item(), float(jmet["acc"]),
+                               atol=1e-6)
+    ref = state_dict_from_flax(jax.device_get(jgrads))
+    for name, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), ref[name].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+    for i in range(C1["enc_layers"]):
+        g = dict(zip(names, grads))[
+            f"graph_transformer.layer{i}.self_attn.rel_proj.weight"]
+        assert g.abs().sum() > 0
+
+
+def _route_batches():
+    """Two batches of the same corpus with the "auto" aux flags: eight
+    small graphs over a 1024-row global bank with 128-row local banks (the
+    localized route), and two graphs whose local bank is the global one
+    (the global route)."""
+    kw = dict(build_block_tiles="auto", build_local_banks="auto")
+    out = []
+    for corpus, bvocab, bat in ((jax_corpus, jax_build_vocabs, jax_batchify),
+                                (synthetic_amr_corpus, build_vocabs,
+                                 batchify)):
+        pre = jax_preprocess if bat is jax_batchify else preprocess
+        spec = (JaxBucketSpec if bat is jax_batchify else BucketSpec)
+        g, t = corpus(12, seed=5, min_nodes=3, max_nodes=6)
+        vocabs = bvocab(g, t)
+        insts = pre(g, t)
+        out.append((bat(insts[:8], *vocabs, spec=spec(bank=(1024,),
+                                                      local_bank=(128,)),
+                        **kw),
+                    bat(insts[8:10], *vocabs, **kw), vocabs))
+    return out
+
+
+def test_resolve_attention_impl_matches_jax():
+    """resolve_attention_impl on batches that route each way equals the
+    JAX package's (the counterpart of tests/test_train.py's
+    test_auto_impl_dispatch): local banks at least AUTO_LOCAL_RATIO times
+    smaller than the global bank go local, others global, batches without
+    local banks global, other impls unchanged; and the port's model gives
+    one batch the same loss on either route (one parameter set)."""
+    (j_local, j_global, _), (p_local, p_global, pv) = _route_batches()
+    cases = [(j_local.arrays(), p_local.arrays()),
+             (j_global.arrays(), p_global.arrays())]
+    no_banks = [{k: v for k, v in a.items() if k != "bank_map"}
+                for a in cases[0]]
+    routes = []
+    for ja, pa in cases + [tuple(no_banks)]:
+        for impl in ("auto", "xla", "pallas_local", "sparse"):
+            want = jax_resolve_attention_impl(impl, ja)
+            assert resolve_attention_impl(impl, pa) == want, impl
+            assert resolve_attention_impl(
+                impl, batch_to_device(pa, "cpu")) == want
+        routes.append(resolve_attention_impl("auto", pa))
+        assert jax_resolve_attention_impl("auto_interpret", ja) == \
+            routes[-1] + "_interpret"
+    assert routes == ["pallas_local", "pallas", "pallas"]
+    tv, cv, rv, chv, _ = pv
+    cfg = ModelConfig(**dict(C1, token_vocab=len(tv), concept_vocab=len(cv),
+                             relation_vocab=len(rv), char_vocab=len(chv),
+                             attention_impl="auto"))
+    model = Generator(cfg, device="cpu")
+    t = batch_to_device(p_local.arrays(), "cpu")
+    with torch.no_grad():
+        losses = [model(t)[0].item()]
+        for impl in ("pallas", "pallas_local"):
+            model.cfg = dataclasses.replace(cfg, attention_impl=impl)
+            losses.append(model(t)[0].item())
+    assert losses[0] == losses[2]            # auto took the local route
+    np.testing.assert_allclose(losses[1], losses[2], rtol=2e-5)
+
+
+def test_auto_trainer_trains_mixed_batches():
+    """One Trainer under attention_impl "auto" trains batches of both
+    routes on the CPU (the counterpart of tests/test_train.py's
+    test_auto_aux_prefers_local_banks_at_every_bucket): one parameter set
+    and one optimizer state, finite losses, and each step's loss equal to
+    the loss the same model gives the batch under its fixed route."""
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import TrainConfig
+
+    _, (p_local, p_global, pv) = _route_batches()
+    tv, cv, rv, chv, _ = pv
+    cfg = ModelConfig(**dict(C1, token_vocab=len(tv), concept_vocab=len(cv),
+                             relation_vocab=len(rv), char_vocab=len(chv),
+                             attention_impl="auto"))
+    model = Generator(cfg, device="cpu")
+    trainer = Trainer(model, cfg, TrainConfig(warmup_steps=10),
+                      p_local.arrays(), device="cpu")
+    torch.set_num_threads(1)   # the same sums in both evaluations
+    try:
+        for batch in (p_local, p_global, p_local, p_global):
+            arrays = batch_to_device(batch.arrays(), "cpu")
+            route = resolve_attention_impl("auto", arrays)
+            model.cfg = dataclasses.replace(cfg, attention_impl=route)
+            with torch.no_grad():
+                fixed = model.train()(arrays)[0].item()
+            model.cfg = cfg
+            model.dropout_rng.manual_seed(0)
+            m = trainer.train_step(arrays)
+            assert m["loss"].item() == fixed, route
+            assert np.isfinite(m["grad_norm"].item())
+    finally:
+        torch.set_num_threads(2)
+    assert trainer.step == 4

@@ -38,7 +38,8 @@ from gtos_tpu_torch.models.components import Dropout
 from gtos_tpu_torch.models.generator import batch_to_device
 from gtos_tpu_torch.train.train import main as train_main
 from gtos_tpu_torch.train.trainer import Trainer
-from gtos_tpu_torch.utils.bleu import corpus_bleu
+from gtos_tpu_torch.infer.work import main as work_main
+from gtos_tpu_torch.utils.bleu import corpus_bleu, corpus_chrf
 from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 
 torch.set_num_threads(2)
@@ -295,3 +296,99 @@ def test_corpus_bleu_matches_sacrebleu():
     for hyps in cases:
         ref = sacrebleu.corpus_bleu(hyps, [refs]).score
         assert corpus_bleu(hyps, refs) == pytest.approx(ref, abs=1e-9)
+
+
+def penman(graph) -> str:
+    """A Graph as PENMAN text: a depth-first walk from node 0 over its
+    out-edges, a variable per node, an edge to a node already written as
+    that node's variable."""
+    out = {}
+    for src, label, tgt in graph.edges:
+        out.setdefault(src, []).append((label, tgt))
+    seen = set()
+
+    def node(i):
+        seen.add(i)
+        parts = [f"(n{i} / {graph.nodes[i]}"]
+        for label, tgt in out.get(i, []):
+            parts.append(f":{label} " + (f"n{tgt}" if tgt in seen
+                                         else node(tgt)))
+        return " ".join(parts) + ")"
+
+    return node(0)
+
+
+def write_sembank(path, graphs, targets):
+    with open(path, "w") as f:
+        for i, (g, t) in enumerate(zip(graphs, targets)):
+            f.write(f"# ::id g{i} ::snt {' '.join(t)}\n{penman(g)}\n\n")
+
+
+def test_train_cli_on_a_sembank_then_work_cli(tmp_path, monkeypatch):
+    """The train CLI reads a PENMAN sembank (--train_data, --dev_data)
+    under attention_impl "auto" and writes a checkpoint; the work CLI
+    rebuilds the model from that directory alone, decodes a test sembank
+    and writes one hypothesis per graph in corpus order (checked with a
+    decode that answers each graph's own sentence: the output is the
+    references, in file order, and BLEU = chrF = 100), and its BLEU and
+    chrF of a real decode equal sacrebleu's on the written file."""
+    import sacrebleu
+
+    g, t = synthetic_amr_corpus(40, seed=8)
+    write_sembank(tmp_path / "train.amr", g[:30], t[:30])
+    write_sembank(tmp_path / "test.amr", g[30:], t[30:])
+    ckpt = tmp_path / "ckpt"
+    last = train_main([
+        "--train_data", str(tmp_path / "train.amr"), "--dev_data",
+        str(tmp_path / "test.amr"), "--device", "cpu", "--ckpt_dir",
+        str(ckpt), "--d_model", "32", "--d_ff", "64", "--heads", "2",
+        "--enc_layers", "1", "--dec_layers", "1", "--max_target_len", "32",
+        "--attention_impl", "auto", "--batch_size_tokens", "256",
+        "--total_steps", "2", "--prefetch", "0"])
+    assert last["step"] == 2 and np.isfinite(last["loss"])
+    out = tmp_path / "out.txt"
+    base = ["--ckpt_dir", str(ckpt), "--test_data",
+            str(tmp_path / "test.amr"), "--output", str(out), "--device",
+            "cpu", "--beam_size", "2", "--max_time_step", "6",
+            "--batch_size_tokens", "64"]
+    args = base + ["--eval_bleu", "--eval_chrf"]
+    refs = [" ".join(x) for x in t[30:]]
+
+    def answer(model, batch, tv, **kw):
+        return [m["snt"].split() for m in batch.meta]
+
+    monkeypatch.setattr("gtos_tpu_torch.infer.decode.decode_batch", answer)
+    assert work_main(args) == pytest.approx(100.0)
+    assert out.read_text().splitlines() == refs
+    monkeypatch.undo()
+    bleu = work_main(args)
+    hyps = out.read_text().splitlines()
+    assert len(hyps) == len(refs)
+    assert bleu == pytest.approx(
+        sacrebleu.corpus_bleu(hyps, [refs]).score, abs=1e-9)
+    chrf = work_main(base + ["--eval_chrf"])     # chrF alone: its score
+    assert out.read_text().splitlines() == hyps
+    assert chrf == pytest.approx(
+        sacrebleu.corpus_chrf(hyps, [refs]).score, abs=1e-9)
+    assert corpus_chrf(hyps, refs) == chrf
+
+
+def test_corpus_chrf_matches_sacrebleu():
+    """utils/bleu.py's chrF against sacrebleu.corpus_chrf with its
+    defaults (character 6-grams, whitespace removed, beta 2, the
+    effective-order average): punctuation, a short and an empty
+    hypothesis, and a corpus with no match."""
+    import sacrebleu
+
+    refs = ["The boy wants to go to New York, doesn't he?",
+            "It costs $3.50 -- or 3,000 yen.", "a b c d e f g",
+            "the cat sat on the mat", "no overlap here at all"]
+    cases = [refs,
+             ["The boy want to go to New-York , doesn't he ?",
+              "It costs 3.50$ or 3,000 yen.", "a b c", "the cat the mat",
+              ""],
+             ["boy", "It", "g f e d c b a", "on the mat sat the cat", "x"],
+             ["q"] * 5]
+    for hyps in cases:
+        ref = sacrebleu.corpus_chrf(hyps, [refs]).score
+        assert corpus_chrf(hyps, refs) == pytest.approx(ref, abs=1e-9)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (gtos_tpu_torch) on one NVIDIA GPU, end to end:
 serving and training of the configs/c2_amr2.json model at full width,
-under each ported attention impl ("pallas_local", "pallas", "auto"), and
-the train and work CLIs.
+under each dense attention impl ("pallas_local", "pallas", "auto"), and of
+the configs/c5_scaled_synthetic.json model at full width under the
+block-sparse tier ("block_sparse", "sparse"), and the train and work CLIs.
 
     python3 chip_smoke.py            # from the repo root, on a machine with a card
     python3 chip_smoke.py --profile  # and where the serving and training time goes
@@ -19,7 +20,11 @@ Phases, each of which exits non-zero on failure:
                B2 (backward) of the localized attention at N=32 and N=128;
                B3 (global-bank forward from tables), B3' (from the banks)
                and B4 (its backward) at N=32 (B=16) and N=128 (B=8), P=2048
-               and 4096, with B3 and B3' timed on the same inputs;
+               and 4096, with B3 and B3' timed on the same inputs; B5
+               (block-sparse forward), B5s (with the softmax statistics),
+               B6d, B6s and B6b (its backward: dst pass, src pass, bank
+               gradients) at c5 widths on batchify tile layouts of N=256
+               (B=4) and N=512 (B=2) at khop 4 and N=128 (B=8) at khop 0;
   4. serve   — builds the model with seeded random weights and serves the
                fullest batch of each of three node buckets with
                decode_batch (beam 8), counting the kernel launches of that
@@ -56,16 +61,31 @@ Phases, each of which exits non-zero on failure:
   10. auto   — training and serving under "auto" on batches of both
                routes (each printed with its P and P_loc), the launches of
                each kernel, and for one batch of each route the loss under
-               "auto" equal to the fixed route's to the last bit;
+               "auto" equal to the fixed route's to the last bit; then an
+               N=128 batch whose paths overflow the local-bank ladder: it
+               falls back to tiles, routes to "block_sparse" (B5s) and its
+               loss equals the fixed route's to the last bit;
   11. work   — the train CLI (`--config configs/c2_amr2.json
                --attention_impl auto --synthetic N`) writes a checkpoint,
                and the work CLI decodes a PENMAN file written here from
                synthetic graphs: one hypothesis per graph in corpus order,
-               BLEU and chrF;
-  12. shapes — each kernel again, on the very inputs the serving runs (B1;
-               B3, B3') and the training runs (B1p, B2; B3, B3', B4) gave
-               it, against its plain version and timed: the table rows;
-  13. profile — with --profile only: torch.profiler over each served batch
+               BLEU and chrF; then the same with `--config
+               configs/c5_scaled_synthetic.json --attention_impl
+               block_sparse --graph 1 --dp 0`;
+  12. c5     — the c5 model at full width (bf16, sparse_khop 4) on
+               C5_GRAPHS synthetic graphs of 100-500 nodes: serving the
+               fullest batch of each node bucket (128/256/512; B5 =
+               enc_layers per batch, no other kernel), the encoder on the
+               card against f32 on the CPU, C5_TRAIN_STEPS training steps
+               (B5s = B6d = B6s = B6b = enc_layers per step), the loss and
+               every gradient against f32 on the CPU with two planted wrong
+               B6s, "sparse" against "block_sparse" on one batch, and a
+               bit-identical resume;
+  13. shapes — each kernel again, on the very inputs the serving runs (B1;
+               B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
+               B5s, B6d, B6s, B6b) gave it, against its plain version and
+               timed: the table rows;
+  14. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local") and over one train step ("pallas_local"
                and "pallas"), the device busy time, idle share and top
                kernels.
@@ -115,6 +135,21 @@ PROBS_TOL = dict(atol=1e-5, rtol=1e-4)
 # relative L2 gap over the parameters with a gradient, and the loss gap
 GRAD_TOL = {"float32": dict(rel=1e-2, loss=1e-4),
             "bfloat16": dict(rel=0.4, loss=1e-2)}
+# the c5 model (configs/c5_scaled_synthetic.json) on synthetic graphs of
+# 100-500 nodes: the node buckets 128/256/512 with the bank and edge-cell
+# ladders widened (as tests/test_ring_block_sparse.py widens them); the
+# loader bisects a batch whose bank overflows 65536 rows
+C5_GRAPHS, C5_NODES = 96, (100, 500)
+C5_SPEC = dict(nodes=(128, 256, 512),
+               bank=(1024, 2048, 4096, 8192, 16384, 32768, 65536),
+               edge_cells=(1024, 4096, 16384, 32768, 65536))
+C5_TRAIN_STEPS = 6
+C5_RESUME_AT, C5_RESUME_MORE = 2, 2
+C5_ENCODER_TOL = ENCODER_TOL
+# "sparse" (plain torch, gathers and scatter-adds) against "block_sparse"
+# (B5s, B6) on the same f32 weights and batch: one function, sums in
+# another order
+SPARSE_TOL = dict(rel=1e-3, loss=1e-5)
 
 
 def fail(msg: str):
@@ -251,11 +286,13 @@ def phase_build():
     """Every kernel source, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from gtos_tpu_torch.ops import block_sparse_attention as bsa
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bsab
     from gtos_tpu_torch.ops import build
     from gtos_tpu_torch.ops import local_relation_attention as lra
     from gtos_tpu_torch.ops import relation_attention as ra
 
-    SOURCES = lra.SOURCES + ra.SOURCES
+    SOURCES = lra.SOURCES + ra.SOURCES + (bsa.FWD_SOURCE, bsab.BWD_SOURCE)
 
     def one(source):
         t0 = time.perf_counter()
@@ -709,19 +746,48 @@ KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
         "fused_relation_attention_bwd",
         "gtos_tpu_torch/ops/csrc/relation_attention_bwd.cu",
         "gtos_tpu/ops/pallas/relation_attention_bwd.py:33"),
+    "block_sparse_attention_fwd": (
+        "block_sparse_attention",
+        "gtos_tpu_torch/ops/csrc/block_sparse_attention_fwd.cu",
+        "gtos_tpu/ops/pallas/block_sparse_attention.py:43"),
+    "block_sparse_attention_fwd_stats": (
+        "block_sparse_attention_with_stats",
+        "gtos_tpu_torch/ops/csrc/block_sparse_attention_fwd.cu",
+        "gtos_tpu/ops/pallas/block_sparse_attention.py:116"),
+    "block_sparse_attention_bwd_dst": (
+        "block_sparse_attention_bwd_dst",
+        "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
+        "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:85"),
+    "block_sparse_attention_bwd_src": (
+        "block_sparse_attention_bwd_src",
+        "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
+        "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:150"),
+    # the bank gradients the TPU's dst and src passes sum in their g_bb /
+    # g_ab output blocks (and finish_bank_grads's t4 term, :259)
+    "block_sparse_bank_grads": (
+        "block_sparse_bank_grads",
+        "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
+        "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:85"),
 }
 B1, B1P, B2 = ("local_relation_attention_fwd",
                "local_relation_attention_fwd_probs",
                "local_relation_attention_bwd")
 B3, B3I, B4 = ("relation_attention_fwd_tables",
                "relation_attention_fwd_inline", "relation_attention_bwd")
+B5, B5S, B6D, B6S, B6B = ("block_sparse_attention_fwd",
+                          "block_sparse_attention_fwd_stats",
+                          "block_sparse_attention_bwd_dst",
+                          "block_sparse_attention_bwd_src",
+                          "block_sparse_bank_grads")
 
 
 def _module(wrapper_name):
     """The ops module that holds a kernel wrapper."""
+    from gtos_tpu_torch.ops import block_sparse_attention as bsa
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bsab
     from gtos_tpu_torch.ops import local_relation_attention as lra
     from gtos_tpu_torch.ops import relation_attention as ra
-    return lra if hasattr(lra, wrapper_name) else ra
+    return next(m for m in (lra, ra, bsa, bsab) if hasattr(m, wrapper_name))
 
 
 def _wrapper(name):
@@ -834,6 +900,8 @@ def route_of(impl, arrays, cfg):
     from gtos_tpu_torch.ops.relation_attention import _inline_fits
 
     route = resolve_attention_impl(impl, arrays)
+    if route == "block_sparse":
+        return route, B5
     if route != "pallas":
         return route, B1
     B, N = arrays["concept"].shape
@@ -1209,13 +1277,15 @@ def new_trainer(cfg, tcfg, seed, ckpt=None, log=None):
 def train_expect(impl, cfg, batches):
     """The launches a training run over `batches` must make: per step,
     enc_layers of the forward kernel its route and bank select and as
-    many of that route's backward (B2 or B4)."""
+    many of each of that route's backward kernels (B2, B4, or B6d, B6s and
+    B6b)."""
     expect = dict.fromkeys(KERNELS, 0)
     for batch in batches:
         kern = route_of(impl, batch.arrays(), cfg)[1]
-        fwd, bwd = (B1P, B2) if kern == B1 else (kern, B4)
-        expect[fwd] += cfg.enc_layers
-        expect[bwd] += cfg.enc_layers
+        fwd, bwd = {B1: (B1P, (B2,)), B5: (B5S, (B6D, B6S, B6B))}.get(
+            kern, (kern, (B4,)))
+        for name in (fwd, *bwd):
+            expect[name] += cfg.enc_layers
     return expect
 
 
@@ -1684,6 +1754,7 @@ def phase_auto():
                  "route's")
     del model, trainer
     torch.cuda.empty_cache()
+    phase_auto_tiles()
     phase_serve("auto")
 
 
@@ -1781,6 +1852,42 @@ def phase_work():
               f"order: {'yes' if ordered else 'no'}", flush=True)
         if not ordered or abs(bleu - 100.0) > 1e-6:
             fail("the work CLI does not write hypotheses in corpus order")
+
+        # the c5 model under the block-sparse tier, on one card
+        ckpt5, out5 = os.path.join(tmp, "ckpt5"), os.path.join(tmp, "h5.txt")
+        cmd = [sys.executable, "-m", "gtos_tpu_torch.train.train",
+               "--config", "configs/c5_scaled_synthetic.json",
+               "--attention_impl", "block_sparse", "--graph", "1", "--dp",
+               "0", "--synthetic", str(WORK_SYNTHETIC), "--total_steps",
+               str(WORK_STEPS), "--ckpt_dir", ckpt5]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            fail(f"the c5 train CLI failed:\n{res.stderr[-3000:]}")
+        print(f"[work] {' '.join(cmd[1:])}: "
+              f"{res.stderr.strip().splitlines()[-1]} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        cmd = [sys.executable, "-m", "gtos_tpu_torch.infer.work",
+               "--ckpt_dir", ckpt5, "--test_data", sembank, "--output", out5,
+               "--max_time_step", "32", "--eval_bleu", "--eval_chrf"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            fail(f"the work CLI on the c5 checkpoint failed:\n"
+                 f"{res.stderr[-3000:]}")
+        with open(out5) as f:
+            hyps = f.read().splitlines()
+        scores = dict(re.findall(r"^(BLEU|chrF) = ([0-9.]+)$", res.stderr,
+                                 re.M))
+        print(f"[work] {' '.join(cmd[1:])}: {len(hyps)} hypotheses for "
+              f"{len(graphs)} graphs, BLEU {scores.get('BLEU')}, chrF "
+              f"{scores.get('chrF')} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if len(hyps) != len(graphs) or set(scores) != {"BLEU", "chrF"}:
+            fail("the work CLI on the c5 checkpoint must write one "
+                 "hypothesis per graph and print BLEU and chrF")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1824,6 +1931,766 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local"):
               f"{e.count:6d}x {e.key[:90]}")
 
 
+# ------------------------------------- block-sparse kernels B5, B5s and B6
+
+
+def block_batch(n_graphs, seed, min_nodes, max_nodes, N, khop):
+    """A batch with the block-sparse tile layouts from the port's batchify
+    on the synthetic AMR corpus, at node bucket N and sparse_khop khop."""
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+
+    graphs, targets = synthetic_amr_corpus(
+        n_graphs, seed=seed, min_nodes=min_nodes, max_nodes=max_nodes)
+    spec = BucketSpec(**dict(C5_SPEC, nodes=(N,)))
+    return batchify(preprocess(graphs, targets),
+                    *build_vocabs(graphs, targets), batch_size_bucket=n_graphs,
+                    for_train=True, spec=spec, build_block_tiles=True,
+                    sparse_khop=khop)
+
+
+def block_inputs(batch, H, Dh, dtype, seed=0):
+    """Seeded q, k, v [B, H, N, Dh] and banks [P, H, Dh] on the card in
+    `dtype` with the batch's tile layouts: B5's arguments; the src-major
+    layout; and a cotangent of the input type."""
+    import torch
+
+    B, N = batch.concept_mask.shape
+    P = batch.rel_bank.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    dev = lambda x: x.to(device="cuda", dtype=dtype).contiguous()  # noqa
+    idx = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    return ((dev(rnd(B, H, N, Dh)), dev(rnd(B, H, N, Dh)),
+             dev(rnd(B, H, N, Dh)), dev(rnd(P, H, Dh) * 0.5),
+             dev(rnd(P, H, Dh) * 0.5), idx(batch.tile_src),
+             idx(batch.tile_rel)),
+            (idx(batch.tile_dst), idx(batch.tile_rel_src)),
+            dev(rnd(B, H, N, Dh)))
+
+
+def block_bound(kind, args, src_planes=None):
+    """(bound_ms, bound_by) on an H100 SXM of B5, B5s, B6d, B6s or B6b on
+    these inputs. Counted once each: q, k, v (B6: and gp) read and the
+    outputs written (B5: out; B5s: and m, l; B6d: dq and ge [H, E] f32; B6s:
+    dk, dv; B6b: the dense g_a, g_b [P, H, Dh]); the statistics and delta
+    (B6); the tile planes walked (B6s: the src-major ones; B6d: and
+    row_base); of the banks only the rows the kept pairs reference, with
+    their t4 (B6b: and ge, the three sorted pair arrays, and q, k once).
+    Operations per kept pair and head, in Dh multiply-adds (2 operations
+    each): q.k, q.b, k.a, p.v (B5); those and g.v, dq (B6d); and g.v, dk,
+    dv (B6s); g_a, g_b (B6b)."""
+    from gtos_tpu_torch.ops.block_sparse_attention import tile_pairs
+
+    q, P, ts, tr = args[0], args[3].shape[0], args[5], args[6]
+    B, H, N, Dh = q.shape
+    dtype_name = _dtype_name(q)
+    elt = 2 if dtype_name == "bfloat16" else 4
+    r = tile_pairs(ts, tr, N, P)[3]
+    E, R = r.numel(), len(r.unique())
+    node, stats = B * H * N * Dh * elt, B * H * N * 4
+    planes = (ts.numel() + tr.numel()) * 4
+    banks = R * H * (2 * Dh * elt + 4)
+    if kind == "B5":
+        nbytes, macs = 4 * node + planes + banks, 4
+    elif kind == "B5s":
+        nbytes, macs = 4 * node + 2 * stats + planes + banks, 4
+    elif kind == "B6d":
+        nbytes = (5 * node + 3 * stats + planes + tr.numel() // 128 * 4
+                  + banks + H * E * 4)
+        macs = 5
+    elif kind == "B6s":
+        nbytes = (6 * node + 3 * stats + banks
+                  + (src_planes[0].numel() + src_planes[1].numel()) * 4)
+        macs = 6
+    else:
+        nbytes = (H * E * 4 + 3 * E * 4 + 2 * node + R * H * 2 * Dh * elt
+                  + 2 * P * H * Dh * elt)
+        macs = 2
+    return _bound(nbytes, 2 * macs * E * H * Dh, dtype_name)
+
+
+def _block_line(kernel, label, q, P, E, dtype_name, err, bound, ms, plain_ms):
+    B, H, N, Dh = q.shape
+    print(f"[kernel] {kernel} {label} B={B} H={H} N={N} Dh={Dh} P={P} "
+          f"pairs={E} {dtype_name}: max_abs_err={err:.3e} (tol "
+          f"{KERNEL_TOL[dtype_name]}) bound={bound[0]:.6f} ms ({bound[1]}) "
+          f"kernel={ms:.6f} ms plain={plain_ms:.6f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+def check_b5(label, args, with_stats=False):
+    """B5's (with_stats: B5s's) wrapper against its plain version on the
+    same inputs (B5s: the statistics m, l at PROBS_TOL), then both timed;
+    returns its numbers."""
+    import torch
+
+    from gtos_tpu_torch.ops import block_sparse_attention as bsa
+
+    q, P = args[0], args[3].shape[0]
+    dtype_name = _dtype_name(q)
+    t4 = bsa.bank_t4(args[3], args[4])
+    kern = (bsa.block_sparse_attention_with_stats if with_stats
+            else bsa.block_sparse_attention)
+    plain = (bsa.block_sparse_attention_with_stats_reference if with_stats
+             else bsa.block_sparse_attention_reference)
+    got, ref = kern(*args, t4=t4), plain(*args, t4=t4)
+    torch.cuda.synchronize()
+    name = "B5s" if with_stats else "B5"
+    if with_stats:
+        for what, x, y in (("m", got[1], ref[1]), ("l", got[2], ref[2])):
+            try:
+                torch.testing.assert_close(x, y, **PROBS_TOL)
+            except AssertionError as e:
+                fail(f"{name} {label} {dtype_name}: {what} disagrees with its "
+                     f"plain version: {e}")
+        got, ref = got[0], ref[0]
+    err = _compare(name, label, dtype_name, [("out", got, ref)])
+    E = bsa.tile_pairs(args[5], args[6], q.shape[2], P)[3].numel()
+    ms = time_ms(lambda: kern(*args, t4=t4))
+    plain_ms = time_ms(lambda: plain(*args, t4=t4))
+    return _block_line(name, label, q, P, E, dtype_name, err,
+                       block_bound(name, args), ms, plain_ms)
+
+
+def b6_args(args, g):
+    """B6's inputs for B5's: t4, gp, the forward's m, l and delta (from
+    B5s's plain version), and the backward plan."""
+    from gtos_tpu_torch.ops import block_sparse_attention as bsa
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+        backward_plan, prep_bwd_invariants)
+
+    q, a, b = args[0], args[3], args[4]
+    t4 = bsa.bank_t4(a, b)
+    out, m, l = bsa.block_sparse_attention_with_stats_reference(*args, t4=t4)
+    gp, delta = prep_bwd_invariants(q, g, out)
+    plan = backward_plan(args[5], args[6], q.shape[2], a.shape[0])
+    return (*args[:5], t4, gp, m, l, delta), plan
+
+
+def check_b6(label, args, src, g=None, bwd=None):
+    """B6d, B6s and B6b against their plain versions on the same inputs
+    (dq and ge; dk and dv; g_a and g_b), each giving the same bits on a
+    second launch (no atomics), then each timed with its plain version;
+    returns the three kernels' numbers. bwd: (B6 inputs, plan) as a
+    training step gave them, else built from g."""
+    import torch
+
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
+
+    core, plan = bwd if bwd is not None else b6_args(args, g)
+    q, k, a, b = core[0], core[1], core[3], core[4]
+    ts, tr = args[5], args[6]
+    dtype_name = _dtype_name(q)
+    P, E = a.shape[0], plan["E"]
+    dst = lambda: bwd_mod.block_sparse_attention_bwd_dst(  # noqa: E731
+        *core, ts, tr, plan)
+    srcp = lambda: bwd_mod.block_sparse_attention_bwd_src(  # noqa: E731
+        *core, *src)
+    first, again = (dst(), srcp()), (dst(), srcp())
+    bank = lambda: bwd_mod.block_sparse_bank_grads(  # noqa: E731
+        q, k, a, b, first[0][1], plan)
+    banks = (bank(), bank())
+    ref_dst = bwd_mod.block_sparse_attention_bwd_dst_reference(*core, ts, tr)
+    ref_src = bwd_mod.block_sparse_attention_bwd_src_reference(*core, *src)
+    ref_bank = bwd_mod.block_sparse_bank_grads_reference(
+        q, k, a, b, ref_dst[1], plan["pairs"])
+    torch.cuda.synchronize()
+    rows = {}
+    for kernel, names, got, twice, ref, fn, plain in (
+            ("B6d", ("dq", "ge"), first[0], again[0], ref_dst, dst,
+             lambda: bwd_mod.block_sparse_attention_bwd_dst_reference(
+                 *core, ts, tr)),
+            ("B6s", ("dk", "dv"), first[1], again[1], ref_src, srcp,
+             lambda: bwd_mod.block_sparse_attention_bwd_src_reference(
+                 *core, *src)),
+            ("B6b", ("g_a", "g_b"), banks[0], banks[1], ref_bank, bank,
+             lambda: bwd_mod.block_sparse_bank_grads_reference(
+                 q, k, a, b, first[0][1], plan["pairs"]))):
+        for name, x, y, z in zip(names, got, twice, ref):
+            if x.dtype != z.dtype or x.shape != z.shape:
+                fail(f"{kernel} {label} {dtype_name}: {name} is {x.dtype} "
+                     f"{tuple(x.shape)}, the plain version's {z.dtype} "
+                     f"{tuple(z.shape)}")
+            if not torch.equal(x, y):
+                fail(f"{kernel} {label} {dtype_name}: {name} differs between "
+                     "two launches on the same inputs")
+        err = _compare(kernel, label, dtype_name, list(zip(names, got, ref)))
+        # a training step's gradients can be far below KERNEL_TOL's atol:
+        # each output also within its rtol of its own largest value
+        rel = max(((x.float() - y.float()).abs().max()
+                   / y.float().abs().max().clamp_min(1e-30)).item()
+                  for x, y in zip(got, ref))
+        if rel > KERNEL_TOL[dtype_name]["rtol"]:
+            fail(f"{kernel} {label} {dtype_name}: error {rel:.3e} of the "
+                 f"largest value, above {KERNEL_TOL[dtype_name]['rtol']}")
+        print(f"[kernel] {kernel} {label} {dtype_name}: largest error "
+              f"relative to the largest value {rel:.3e}")
+        rows[kernel] = _block_line(
+            kernel, label, q, P, E, dtype_name, err,
+            block_bound(kernel, args, src), time_ms(fn), time_ms(plain))
+    return rows
+
+
+BLOCK_CASES = {  # c5's sizes: graphs of 0.8N to N-2 nodes at bucket N
+    "N256_B4_khop4": (4, 3, 205, 254, 256, 4),
+    "N512_B2_khop4": (2, 5, 410, 510, 512, 4),
+    "N128_B8_khop0": (8, 7, 102, 126, 128, 0)}
+
+
+def phase_block_kernels():
+    """B5, B5s, B6d, B6s and B6b against their plain versions on the port's
+    batchify tile layouts at c5 widths (H=8, Dh=64), bf16 and f32, at the
+    three sizes of BLOCK_CASES; each timed beside its bound."""
+    import torch
+
+    H, Dh = 8, 64
+    for name, spec in BLOCK_CASES.items():
+        batch = block_batch(*spec)
+        print(f"[kernel] block-sparse case {name}: {describe(batch)} "
+              f"tile_src {tuple(batch.tile_src.shape)} tile_dst "
+              f"{tuple(batch.tile_dst.shape)}, "
+              f"{int((batch.tile_rel >= 0).sum())} kept pairs", flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            args, src, g = block_inputs(batch, H, Dh, dtype)
+            check_b5(name, args)
+            check_b5(name, args, with_stats=True)
+            check_b6(name, args, src, g)
+        torch.cuda.empty_cache()
+    print("[kernel] library_ms: none — no single PyTorch call computes the "
+          "block-sparse relation attention or its backward (each pair reads "
+          "its own bank rows), so there is no library yardstick")
+
+
+@functools.lru_cache(maxsize=None)
+def c5_corpus():
+    """C5_GRAPHS synthetic AMR graphs of C5_NODES nodes (seed 0),
+    preprocessed, with their vocabularies: the c5 model's data."""
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+
+    t0 = time.perf_counter()
+    graphs, targets = synthetic_amr_corpus(C5_GRAPHS, seed=0,
+                                           min_nodes=C5_NODES[0],
+                                           max_nodes=C5_NODES[1])
+    out = preprocess(graphs, targets), build_vocabs(graphs, targets)
+    print(f"[c5] corpus: {C5_GRAPHS} graphs of {C5_NODES[0]}-{C5_NODES[1]} "
+          f"nodes preprocessed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def c5_configs(impl="block_sparse"):
+    """The ModelConfig and TrainConfig of configs/c5_scaled_synthetic.json
+    (one card: its graph/dp split is not a field of either) with the c5
+    corpus's vocabulary sizes, under attention_impl `impl`."""
+    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    with open(os.path.join(ROOT, "configs", "c5_scaled_synthetic.json")) as f:
+        conf = json.load(f)
+    tv, cv, rv, chv, _ = c5_corpus()[1]
+    pick = lambda cls: {f.name: conf[f.name]  # noqa: E731
+                        for f in dataclasses.fields(cls) if f.name in conf}
+    cfg = ModelConfig(**pick(ModelConfig), token_vocab=len(tv),
+                      concept_vocab=len(cv), relation_vocab=len(rv),
+                      char_vocab=len(chv))
+    return (dataclasses.replace(cfg, attention_impl=impl),
+            TrainConfig(**pick(TrainConfig)))
+
+
+def c5_loader(for_train, seed=None, impl="block_sparse"):
+    """The c5 DataLoader as the CLIs build it (c5's 8192-token batches,
+    sparse_khop 4, edge cells and tiles), with C5_SPEC's widened bank and
+    edge-cell ladders; the loader bisects a batch whose bank overflows."""
+    from gtos_tpu_torch.data import BucketSpec, DataLoader
+    from gtos_tpu_torch.train.train import loader_flags
+
+    cfg, tcfg = c5_configs()
+    instances, vocabs = c5_corpus()
+    return DataLoader(instances, *vocabs,
+                      batch_size_tokens=tcfg.batch_size_tokens,
+                      spec=BucketSpec(**C5_SPEC).for_model_max_oov(
+                          cfg.max_oov),
+                      for_train=for_train,
+                      seed=tcfg.seed if seed is None else seed,
+                      **loader_flags(impl, cfg.sparse_khop))
+
+
+def c5_trainer(cfg, tcfg, seed, ckpt=None, log=None):
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.trainer import Trainer
+
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(seed))
+    example = next(iter(c5_loader(True)))
+    return Trainer(model, cfg, tcfg, example.arrays(), metrics_writer=log,
+                   checkpoint_manager=ckpt, device="cuda")
+
+
+@contextlib.contextmanager
+def b5_replaced(fn):
+    """Within the block, the graph transformer calls `fn` in place of B5's
+    wrapper (the serving path)."""
+    from gtos_tpu_torch.models import graph_transformer
+
+    real = graph_transformer.block_sparse_attention
+    graph_transformer.block_sparse_attention = fn
+    try:
+        yield
+    finally:
+        graph_transformer.block_sparse_attention = real
+
+
+def phase_c5_serve(cfg, model, tv):
+    """Serve the fullest batch of each c5 node bucket (N=128/256/512)
+    through decode_batch (beam BEAM, MAX_STEPS steps), after a warm-up
+    decode; B5 = enc_layers per batch, no other kernel. Returns the
+    batches, their seconds and the launches, and layer 0's B5 inputs of
+    each batch."""
+    import torch
+
+    from gtos_tpu_torch.infer.decode import decode_batch
+    from gtos_tpu_torch.ops.block_sparse_attention import (
+        block_sparse_attention)
+
+    fullest = {}
+    for batch, insts in c5_loader(False).iter_with_instances():
+        N = batch.concept_mask.shape[1]
+        if N not in fullest or len(insts) > len(fullest[N][1]):
+            fullest[N] = (batch, insts)
+    plan = [fullest[N] for N in sorted(fullest)]
+    decode_batch(model, plan[0][0], tv, beam_size=BEAM, max_steps=MAX_STEPS)
+    torch.cuda.synchronize()
+    zero_counts()
+    batches, seconds = [], []
+    for batch, insts in plan:
+        t0 = time.perf_counter()
+        hyps = decode_batch(model, batch, tv, beam_size=BEAM,
+                            max_steps=MAX_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if len(hyps) != len(insts):
+            fail("decode_batch must return one hypothesis per request")
+        print(f"[c5 serve] batch {len(batches)}: {len(insts)} requests "
+              f"({describe(batch)}, {int(batch.edge_mask.sum())} kept pairs)"
+              f" beam {BEAM}: {dt * 1e3:.3f} ms, "
+              f"{len(insts) / dt:.3f} requests/s", flush=True)
+        batches.append(batch)
+        seconds.append(dt)
+    launches = read_counts()
+    expect = dict.fromkeys(KERNELS, 0)
+    expect[B5] = cfg.enc_layers * len(batches)
+    if launches != expect or len(batches) < 3:
+        fail(f"c5 serving of {len(batches)} batches launched {launches}, "
+             f"expected {expect}")
+    print(f"[c5 serve] launches {launches[B5]} of B5 = {cfg.enc_layers} "
+          f"layers x {len(batches)} batches, no other kernel", flush=True)
+    seen, first = [], []
+
+    def record(*args, **kw):
+        seen.append(args)
+        return block_sparse_attention(*args, **kw)
+
+    with b5_replaced(record):
+        for batch in batches:
+            seen.clear()
+            encode(model.serving_copy(), batch)
+            first.append(seen[0])
+    return batches, seconds, launches, first
+
+
+def phase_c5_encoder(cfg, model, batch):
+    """Generator.encode of the c5 model on the card (B5), bf16 as served
+    and the same weights in f32, against f32 on the CPU (plain version),
+    over the real nodes of one batch, within C5_ENCODER_TOL."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+
+    weights = {k: v.float() for k, v in model.state_dict().items()}
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu = Generator(f32_cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    card32 = Generator(f32_cfg, device="cuda")
+    card32.load_state_dict(weights)
+    ref = encode(cpu, batch)
+    mask = torch.from_numpy(batch.concept_mask)
+    bad = []
+    for card, dtype_name in ((model, "bfloat16"), (card32, "float32")):
+        out = encode(card, batch)
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            fail("c5 encoder output not finite / wrong shape")
+        diff = (out - ref).abs()[mask]
+        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        tol = C5_ENCODER_TOL[dtype_name]
+        ok = max_abs <= tol["max_abs"] and mean_abs <= tol["mean_abs"]
+        print(f"[c5 encode] card {dtype_name} (B5) vs cpu f32 over "
+              f"{int(mask.sum())} real nodes ({describe(batch)}): "
+              f"max_abs={max_abs:.4e} mean_abs={mean_abs:.4e} (tol {tol}): "
+              + ("within" if ok else "outside"), flush=True)
+        if not ok:
+            bad.append(dtype_name)
+    if bad:
+        fail(f"the c5 encoder on the card ({bad}) disagrees with the f32 CPU "
+             "run")
+
+
+def c5_train_expect(cfg, steps):
+    expect = dict.fromkeys(KERNELS, 0)
+    for name in (B5S, B6D, B6S, B6B):
+        expect[name] = cfg.enc_layers * steps
+    return expect
+
+
+def phase_c5_train():
+    """Trainer.fit of the c5 model (bf16, dropout 0.1, the c5 schedule)
+    under "block_sparse" on C5_TRAIN_STEPS for_train=True loader batches:
+    B5s = B6d = B6s = B6b = enc_layers per step, no other kernel. Returns
+    the trainer and its batches."""
+    import torch
+
+    cfg, tcfg = c5_configs()
+    batches = [b for _, b in zip(range(C5_TRAIN_STEPS), c5_loader(True))]
+    log = StepLog("c5 train", every=1)
+    trainer = c5_trainer(cfg, dataclasses.replace(
+        tcfg, total_steps=C5_TRAIN_STEPS, checkpoint_every=10 ** 9), 0,
+        log=log)
+    for i, batch in enumerate(batches):
+        print(f"[c5 train] step {i + 1} batch: {describe(batch)}, "
+              f"{int(batch.edge_mask.sum())} kept pairs")
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(batches, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect = c5_train_expect(cfg, C5_TRAIN_STEPS)
+    if trainer.step != C5_TRAIN_STEPS or launches != expect:
+        fail(f"c5 training ran {trainer.step} steps with launches "
+             f"{launches}, expected {expect}")
+    if not all(np.isfinite(log.losses())):
+        fail(f"non-finite c5 training loss: {log.losses()}")
+    steady = [r["ms_per_step"] for r in log.records[1:]]
+    tokens = sum(int(b.token_mask.sum()) for b in batches)
+    print(f"[c5 train] {C5_TRAIN_STEPS} steps in {wall:.3f} s; "
+          f"{sum(steady) / len(steady):.3f} ms/step after step 1; "
+          f"{tokens / wall:.1f} target tokens/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = "
+          f"{cfg.enc_layers} layers x {C5_TRAIN_STEPS} steps", flush=True)
+    return trainer, batches, launches
+
+
+def planted_b6(kind):
+    """B6 made wrong on purpose, as a control for the gradient check: B6d's
+    dq without its b_r term ("no GT2.b term in dq"), or B6b's bank
+    gradients without the t4 redistribution ("no t4 redistribution").
+    Returns (the wrapper's name, the planted function)."""
+    import torch
+
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
+
+    if kind == "no GT2.b term in dq":
+        real = bwd_mod.block_sparse_attention_bwd_dst
+
+        def wrong(q, k, v, a, b, t4, gp, m, l, delta, ts, tr, plan=None,
+                  scale=None):
+            dq, ge = real(q, k, v, a, b, t4, gp, m, l, delta, ts, tr, plan,
+                          scale)
+            bi, i, _, r = plan["pairs"]
+            B, H, N, Dh = q.shape
+            w = ge.T.to(q.dtype).float()[..., None] * b[r].float()
+            part = torch.zeros(B * N, H, Dh, device=q.device).index_add_(
+                0, bi * N + i, w).view(B, N, H, Dh).transpose(1, 2)
+            return (dq.float() - part).to(dq.dtype), ge
+        return "block_sparse_attention_bwd_dst", wrong
+    real = bwd_mod.block_sparse_bank_grads
+
+    def wrong(q, k, a, b, ge, plan):
+        g_a, g_b = real(q, k, a, b, ge, plan)
+        r = plan["pairs"][3]
+        dt4 = torch.zeros(a.shape[:2], device=q.device).index_add_(
+            0, r, ge.T.to(q.dtype).float())[..., None]
+        return ((g_a.float() - dt4 * b.float()).to(g_a.dtype),
+                (g_b.float() - dt4 * a.float()).to(g_b.dtype))
+    return "block_sparse_bank_grads", wrong
+
+
+def c5_grad_batch():
+    """The c5 train batch of the gradient checks: the corpus's first two
+    graphs of the N=256 bucket (two node tiles), batched as the loader
+    batches them, small enough for the f32 reference on the CPU."""
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.train.train import loader_flags
+
+    cfg, _ = c5_configs()
+    instances, vocabs = c5_corpus()
+    pick = [i for i in instances if 128 <= len(i.concepts) < 256][:2]
+    spec = BucketSpec(**C5_SPEC).for_model_max_oov(cfg.max_oov)
+    return batchify(pick, *vocabs, spec=spec, for_train=True,
+                    **loader_flags("block_sparse", cfg.sparse_khop))
+
+
+def phase_c5_grads():
+    """The loss and every parameter gradient of one c5 train batch
+    (dropout 0) under "block_sparse" on the card (B5s and B6), the f32
+    model then the bf16 one, against the same f32 weights on the CPU (plain
+    versions), within GRAD_TOL; each planted wrong B6 must fail in one of
+    the two types. Then the same batch under "sparse" (the edge-list
+    attention, plain torch on the card) against "block_sparse" in f32,
+    within SPARSE_TOL, and launching none of the kernels."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+
+    cfg, _ = c5_configs()
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = c5_grad_batch()
+    arrays = batch.arrays()
+    weights = Generator(cfg, device="cpu",
+                        rng=torch.Generator().manual_seed(4)).state_dict()
+    models = {}
+    for name, c, dev in (("cpu", f32, "cpu"), ("float32", f32, "cuda"),
+                         ("bfloat16", cfg, "cuda")):
+        models[name] = Generator(c, device=dev)
+        models[name].load_state_dict(weights)
+    t0 = time.perf_counter()
+    ref = loss_and_grads(models["cpu"], arrays)
+    print(f"[c5 grads] batch {describe(batch)}, {int(batch.edge_mask.sum())}"
+          f" kept pairs; cpu f32 loss {ref[0]:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def check(dtype_name, what, ref=ref, tol=None, impl="block_sparse"):
+        zero_counts()
+        got = loss_and_grads(models[dtype_name], arrays)
+        launches = read_counts()
+        expect = (c5_train_expect(cfg, 1) if impl == "block_sparse"
+                  else dict.fromkeys(KERNELS, 0))
+        if launches != expect:
+            fail(f"the {dtype_name} {impl} gradient run launched {launches}, "
+                 f"expected {expect}")
+        dloss, rel, name = grad_gap(ref, got)
+        tol = tol or GRAD_TOL[dtype_name]
+        ok = dloss <= tol["loss"] and rel <= tol["rel"]
+        print(f"[c5 grads] card {dtype_name} with {what} vs "
+              f"{'cpu f32' if ref is refs[0] else 'card f32 block_sparse'}: "
+              f"loss gap {dloss:.4e}, largest relative gradient gap "
+              f"{rel:.4e} ({name}) (tol {tol}): "
+              + ("within" if ok else "outside"), flush=True)
+        return ok, got
+
+    refs = [ref]
+    sound = {}
+    for dtype_name in ("float32", "bfloat16"):
+        ok, sound[dtype_name] = check(dtype_name, "B5s/B6")
+        if not ok:
+            fail(f"the {dtype_name} c5 model's loss and gradients on the card"
+                 " disagree with the f32 CPU run")
+    for kind in ("no GT2.b term in dq", "no t4 redistribution"):
+        name, wrong = planted_b6(kind)
+        with wrapper_replaced(name, wrong):
+            passed = [check(dtype_name, f"planted B6 ({kind})")[0]
+                      for dtype_name in ("float32", "bfloat16")]
+        if all(passed):
+            fail(f"the c5 gradient check passes a B6 with {kind}")
+    models["float32"].cfg = dataclasses.replace(f32, attention_impl="sparse")
+    refs.append(sound["float32"])
+    ok, _ = check("float32", "sparse", ref=sound["float32"], tol=SPARSE_TOL,
+                  impl="sparse")
+    models["float32"].cfg = f32
+    if not ok:
+        fail("c5 under 'sparse' disagrees with 'block_sparse'")
+
+
+def phase_c5_resume():
+    """The c5 model trained C5_RESUME_AT steps, saved, restored into a
+    fresh model and trainer and trained C5_RESUME_MORE more, against the
+    unbroken run: the resumed steps' losses the same bits (B6 sums each
+    node's and each bank row's pairs in a fixed order; no atomics)."""
+    from gtos_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg, tcfg = c5_configs()
+    total = C5_RESUME_AT + C5_RESUME_MORE
+    tcfg = dataclasses.replace(tcfg, total_steps=total,
+                               checkpoint_every=C5_RESUME_AT)
+    whole = StepLog("c5 resume")
+    c5_trainer(cfg, tcfg, 5, log=whole).fit(c5_loader(True), log_every=1)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        ckpt = CheckpointManager(tmp, cfg, tcfg)
+        c5_trainer(cfg, dataclasses.replace(tcfg, total_steps=C5_RESUME_AT),
+                   5, ckpt=ckpt, log=StepLog("c5 resume")).fit(
+                       c5_loader(True), log_every=1)
+        cont = StepLog("c5 resume")
+        trainer = c5_trainer(cfg, tcfg, 6, ckpt=CheckpointManager(
+            tmp, cfg, tcfg), log=cont)
+        if trainer.restore_if_available() != C5_RESUME_AT:
+            fail(f"restore did not find the checkpoint of step {C5_RESUME_AT}")
+        trainer.fit(c5_loader(True), log_every=1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want, got = whole.losses()[C5_RESUME_AT:], cont.losses()
+    same = want == got
+    print(f"[c5 resume] steps {C5_RESUME_AT + 1}-{total}: unbroken {want}, "
+          f"resumed {got}: " + ("bit-identical" if same else "DIFFER"),
+          flush=True)
+    if not same:
+        fail("the resumed c5 run's losses differ from the unbroken run's")
+
+
+def capture_block_train_inputs(trainer, batches):
+    """The arguments the c5 training path hands B5s and B6: layer 0's (the
+    first forward call; the last calls of B6d, B6s and B6b) for each
+    batch, from one more forward and backward per batch through recording
+    shims. Returns (B5s args, src-major layout, (B6 inputs, plan)) per
+    batch."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.ops import block_sparse_attention as fwd_mod
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
+
+    real_fwd = fwd_mod.block_sparse_attention_with_stats
+    real_dst = bwd_mod.block_sparse_attention_bwd_dst
+    real_src = bwd_mod.block_sparse_attention_bwd_src
+    fwd, dst, src, out = [], [], [], []
+
+    def rec_fwd(*args, **kw):
+        fwd.append(tuple(a.detach() for a in args[:7]))
+        return real_fwd(*args, **kw)
+
+    def rec_dst(*args):
+        dst.append(args)
+        return real_dst(*args)
+
+    def rec_src(*args):
+        src.append(args)
+        return real_src(*args)
+
+    with wrapper_replaced("block_sparse_attention_with_stats", rec_fwd), \
+            wrapper_replaced("block_sparse_attention_bwd_dst", rec_dst), \
+            wrapper_replaced("block_sparse_attention_bwd_src", rec_src):
+        trainer.model.train()
+        for batch in batches:
+            fwd.clear()
+            dst.clear()
+            src.clear()
+            loss, _ = trainer.model(batch_to_device(batch.arrays(), "cuda"))
+            torch.autograd.grad(loss, trainer.params, allow_unused=True)
+            d = dst[-1]
+            out.append((fwd[0], src[-1][10:12], (d[:10], d[12])))
+    return out
+
+
+def phase_block_shapes(serve_inputs, serve_launches, train_inputs,
+                       train_launches):
+    """B5 on layer 0 of each c5 served batch, B5s and B6 on layer 0 of
+    the captured c5 train batches, against their plain versions and
+    timed: the table rows, with the serving run's (B5) and the training
+    run's (B5s, B6) launches."""
+    rows = {B5: [], B5S: [], B6D: [], B6S: [], B6B: []}
+    for i, args in enumerate(serve_inputs):
+        rows[B5].append(check_b5(f"serve{i}", args))
+    for i, (args, src, bwd) in enumerate(train_inputs):
+        rows[B5S].append(check_b5(f"train{i}", args, with_stats=True))
+        got = check_b6(f"train{i}", args, src, bwd=bwd)
+        for kernel, name in (("B6d", B6D), ("B6s", B6S), ("B6b", B6B)):
+            rows[name].append(got[kernel])
+    launches = {name: serve_launches[name] + train_launches[name]
+                for name in KERNELS}
+    return [table_row(name, found, launches) for name, found in rows.items()]
+
+
+def phase_block_sparse():
+    """The c5 model at full width under "block_sparse": serving, the
+    encoder check, training, the gradient check with planted B6s and
+    "sparse", a bit-identical resume, and the kernel table's rows on the
+    main path's own inputs."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+
+    cfg, _ = c5_configs()
+    tv = c5_corpus()[1][0]
+    print(f"[c5] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
+          f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
+          f"{cfg.attention_impl} sparse_khop={cfg.sparse_khop} dropout="
+          f"{cfg.dropout}; vocab token={cfg.token_vocab} concept="
+          f"{cfg.concept_vocab} relation={cfg.relation_vocab}", flush=True)
+    model = Generator(cfg, device="cuda", rng=torch.Generator().manual_seed(0))
+    batches, _, serve_launches, serve_inputs = phase_c5_serve(cfg, model, tv)
+    phase_c5_encoder(cfg, model, batches[0])
+    del model
+    torch.cuda.empty_cache()
+    trainer, train_batches, train_launches = phase_c5_train()
+    train_inputs = capture_block_train_inputs(
+        trainer, train_batches[:CAPTURE_BATCHES])
+    del trainer
+    torch.cuda.empty_cache()
+    phase_c5_grads()
+    torch.cuda.empty_cache()
+    phase_c5_resume()
+    torch.cuda.empty_cache()
+    return phase_block_shapes(serve_inputs, serve_launches, train_inputs,
+                              train_launches)
+
+
+def phase_auto_tiles():
+    """"auto" on a c2-model batch of N=128 graphs (102-126 nodes, no khop)
+    whose paths overflow the local-bank ladder: batchify falls back to the
+    tile layouts, the batch routes to "block_sparse" (B5s in a training
+    forward, enc_layers launches), and its loss under "auto" equals the
+    fixed route's to the last bit."""
+    import torch
+
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+
+    cfg, _ = c2_configs()
+    cfg = dataclasses.replace(cfg, attention_impl="auto", dropout=0.0)
+    graphs, targets = synthetic_amr_corpus(8, seed=2, min_nodes=102,
+                                           max_nodes=126)
+    spec = BucketSpec(nodes=(128,), bank=C5_SPEC["bank"]).for_model_max_oov(
+        cfg.max_oov)
+    batch = batchify(preprocess(graphs, targets), *corpus()[1], spec=spec,
+                     for_train=True, build_block_tiles="auto",
+                     build_local_banks="auto")
+    route = route_of("auto", batch.arrays(), cfg)[0]
+    if route != "block_sparse" or batch.bank_map is not None:
+        fail(f"an N=128 batch overflowing the local-bank ladder routed to "
+             f"{route} (bank_map built: {batch.bank_map is not None})")
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(7)).train()
+    arrays = batch_to_device(batch.arrays(), "cuda")
+    losses = []
+    for impl in ("auto", "block_sparse"):
+        model.cfg = dataclasses.replace(model.cfg, attention_impl=impl)
+        zero_counts()
+        losses.append(model(arrays)[0].item())
+        launches = read_counts()
+        expect = dict.fromkeys(KERNELS, 0)
+        expect[B5S] = cfg.enc_layers
+        if launches != expect:
+            fail(f"the {impl} forward of the tile batch launched {launches}, "
+                 f"expected {expect}")
+    same = losses[0] == losses[1]
+    print(f"[auto] tile fallback: {describe(batch)} "
+          f"tile_src {tuple(batch.tile_src.shape)} -> route {route}; loss "
+          f"auto {losses[0]!r}, fixed block_sparse {losses[1]!r}: "
+          + ("bit-identical" if same else "DIFFER"), flush=True)
+    if not same:
+        fail("the auto loss of the tile batch differs from the fixed route's")
+
+
 def main():
     import argparse
 
@@ -1848,6 +2715,7 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     phase_kernels()
+    phase_block_kernels()
     torch.cuda.empty_cache()   # free the plain versions' GBs before serving
     # "pallas_local": serving, encoder check, training, grads, resume
     cfg, model, tv, batches, seconds, serve_launches = phase_serve()
@@ -1882,6 +2750,11 @@ def main():
     phase_work()
     rows += phase_global_shapes(g_serve_inputs, g_serve_launches,
                                 g_train_inputs, g_train_launches)
+    if not args.profile:
+        del trainer, model
+    torch.cuda.empty_cache()
+    # "block_sparse": the c5 model and the kernels B5, B5s, B6d, B6s, B6b
+    rows += phase_block_sparse()
     if args.profile:
         phase_profile(model, tv, batches, seconds)
         phase_profile_train(trainer, ms_step)

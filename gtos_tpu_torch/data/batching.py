@@ -6,17 +6,25 @@ label sequences, `rel_index` [B, N, N] into it) and the same per-graph
 localized banks (`bank_map`, `rel_index_loc`, and for training batches the
 localize sort auxiliaries `loc_perm`/`loc_bnd`), array for array.
 
+The sparse tier's arrays are the JAX package's too: with build_edges the
+COO edge cells `edge_src/edge_dst/edge_rel/edge_mask` [B, 1, 1, Ec] of the
+kept pairs (every real ordered pair, or with sparse_khop = k > 0 the pairs
+whose path has at most k labels, self and global-node pairs always), and
+with build_block_tiles the 128x128 tile layouts `tile_src/tile_rel` and
+their src-major transpose `tile_dst/tile_rel_src` (ops/block_sparse.py).
+With sparse_khop > 0 a path longer than k labels maps to the NONE bank row,
+so pruned pairs do not grow the bank.
+
 The "auto" aux mode of attention_impl "auto" is the JAX package's:
 build_block_tiles="auto" builds no tiles and build_local_banks="auto"
 builds the local banks; a batch whose path diversity overflows the local
 bank ladder raises BatchCapacityError (the DataLoader bisects it), except
-at a tile-aligned node bucket, where the JAX package falls back to tiles.
+at a tile-aligned node bucket, where it falls back to the tile layouts
+(which resolve_attention_impl routes to "block_sparse").
 
-Not ported yet, and raising NotImplementedError when asked for:
-  * the sparse edge cells and block-sparse tile layouts (build_edges,
-    build_block_tiles=True, and the "auto" overflow fallback to tiles at
-    N % 128 == 0) — ROADMAP A8;
-  * multi-host row sharding (host_shard) — ROADMAP A9.
+Not ported yet, and raising NotImplementedError when asked for: the
+context-parallel cells (cp_shards > 1) and multi-host row sharding
+(host_shard) — ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -28,12 +36,15 @@ import numpy as np
 
 from gtos_tpu_torch.data.vocab import LexicalMap, Vocab
 from gtos_tpu_torch.graph.paths import GLOBAL_LABEL, PackedPaths
+from gtos_tpu_torch.ops.block_sparse import (
+    TILE, pack_block_sparse, pack_block_sparse_src,
+)
 from gtos_tpu_torch.ops.localize import build_localize_aux
 
 
 class BatchCapacityError(ValueError):
-    """A batch exceeds a static-shape bucket cap (relation bank, node
-    count); the DataLoader bisects the batch and retries."""
+    """A batch exceeds a static-shape bucket cap (relation bank, edge cell,
+    node count); the DataLoader bisects the batch and retries."""
 
 
 @dataclasses.dataclass
@@ -97,6 +108,18 @@ class GraphBatch:
     token_mask: np.ndarray    # [B, T] bool, True at real target positions
     cp_seq: np.ndarray        # [B, N] int32 extended id copying node n yields
     copy_mask: np.ndarray     # [B, N] bool, True where copying is allowed
+    # sparse edge cells (build_edges=True): [B, S, S, Ec], cell (d, s) holds
+    # the kept pairs with dst in node block d and src in node block s, ids
+    # block-local (S = cp_shards = 1 here: plain batched COO)
+    edge_src: Optional[np.ndarray] = None   # [B, S, S, Ec] int32
+    edge_dst: Optional[np.ndarray] = None   # [B, S, S, Ec] int32
+    edge_rel: Optional[np.ndarray] = None   # [B, S, S, Ec] int32 bank rows
+    edge_mask: Optional[np.ndarray] = None  # [B, S, S, Ec] bool
+    # block-sparse tile layouts (build_block_tiles=True; ops/block_sparse.py)
+    tile_src: Optional[np.ndarray] = None      # [B, Td, Smax] int32
+    tile_rel: Optional[np.ndarray] = None      # [B, Td, Smax, 128, 128] int32
+    tile_dst: Optional[np.ndarray] = None      # [B, Ts, Smax_s] int32
+    tile_rel_src: Optional[np.ndarray] = None  # [B, Ts, Smax_s, 128, 128]
     # per-graph LOCALIZED relation bank (build_local_banks=True): each graph
     # references only its own P_loc distinct paths
     bank_map: Optional[np.ndarray] = None       # [B, P_loc] int32 -> bank row
@@ -142,27 +165,35 @@ def batchify(
     batch_size_bucket: Optional[int] = None,
     for_train: bool = True,
     build_edges: bool = False,
+    cp_shards: int = 1,
+    sparse_khop: int = 0,
     build_block_tiles: Union[bool, str] = False,
     build_local_banks: Union[bool, str] = False,
     host_shard: Optional[Tuple[int, int]] = None,
 ) -> GraphBatch:
     """Assemble one static-shape GraphBatch from preprocessed instances.
 
-    Same arrays as gtos_tpu.data.batching.batchify for the options ported
-    so far (module docstring); the others raise NotImplementedError."""
-    # the "auto" aux mode: local banks at every bucket, no tiles
+    Same arrays as gtos_tpu.data.batching.batchify (module docstring).
+    sparse_khop: 0 keeps every real ordered pair; k > 0 keeps the pairs
+    whose shortest path has at most k labels (the sparse impls only).
+    cp_shards > 1 and host_shard raise NotImplementedError (ROADMAP A9)."""
+    # the "auto" aux mode: local banks at every bucket, tiles only as the
+    # overflow fallback below
     aux_auto = "auto" in (build_block_tiles, build_local_banks)
     if build_block_tiles == "auto":
         build_block_tiles = False
     if build_local_banks == "auto":
         build_local_banks = True
-    if build_edges or build_block_tiles:
+    if cp_shards != 1 or host_shard is not None:
         raise NotImplementedError(
-            "edge cells and block-sparse tiles are not ported yet "
-            "(ROADMAP A8, the sparse tier)")
-    if host_shard is not None:
-        raise NotImplementedError(
-            "multi-host row sharding is not ported yet (ROADMAP A9)")
+            "context-parallel edge cells (cp_shards > 1) and multi-host row "
+            "sharding are not ported yet (ROADMAP A9)")
+    # khop pruning is for the sparse consumers, which mask pruned pairs
+    # out; a dense impl would attend to them with the NONE path's vector
+    if sparse_khop > 0 and not (build_edges or build_block_tiles):
+        raise ValueError(
+            "sparse_khop > 0 requires build_edges/build_block_tiles (a "
+            "sparse attention_impl); dense impls must see the true paths")
     B = batch_size_bucket or len(instances)
     if B < len(instances):
         raise ValueError(f"batch bucket {B} < {len(instances)} instances")
@@ -188,6 +219,12 @@ def batchify(
     # derived maps AFTER the interns above (they may append rows)
     trim = interner.trim_map(L_cap)
     mapped = [trim[pp.uniq_gid] for pp in pps]
+    if sparse_khop > 0:
+        # pruned pairs are masked out of every sparse consumer: their paths
+        # map to the NONE row (interner id 0) instead of growing the bank
+        glens = interner.lengths()
+        mapped = [np.where(glens[m] > sparse_khop, np.int32(0), m)
+                  for m in mapped]
     stream = np.concatenate([np.array([g_pad, g_global], np.int32), *mapped])
     uniq_g, first_i, inv = np.unique(stream, return_index=True,
                                      return_inverse=True)
@@ -285,25 +322,46 @@ def batchify(
     rel_length = np.zeros((P,), dtype=np.int32)
     rel_bank[:n_rows] = enc[bank_gids]
     rel_length[:n_rows] = enc_len[bank_gids]
+    bank_none = np.zeros((P,), bool)
+    bank_none[:n_rows] = bank_gids == 0  # interner id 0 = the NONE path
+    bank_len_p = np.zeros((P,), np.int32)
+    bank_len_p[:n_rows] = bank_len
 
     local_arrays = {}
     if build_local_banks:
         try:
             local_arrays = _build_local_banks(rel_index, spec)
-        except BatchCapacityError as e:
-            # under "auto" the JAX package falls back to the block-sparse
-            # tile layouts at tile-aligned buckets; tiles are not ported
-            # yet. Elsewhere the overflow is the DataLoader's to bisect.
-            if aux_auto and N % 128 == 0:
-                raise NotImplementedError(
-                    "the 'auto' overflow fallback to block-sparse tiles is "
-                    "not ported yet (ROADMAP A8)") from e
-            raise
-        if for_train:
+        except BatchCapacityError:
+            # under "auto" a path-diverse batch falls back to the tile
+            # layouts at a tile-aligned bucket (routed to "block_sparse");
+            # elsewhere the overflow is the DataLoader's to bisect
+            if not (aux_auto and N % TILE == 0):
+                raise
+            build_local_banks, build_block_tiles = False, True
+        if build_local_banks and for_train:
             local_arrays["loc_perm"], local_arrays["loc_bnd"] = \
                 build_localize_aux(local_arrays["bank_map"], P)
 
+    edge_arrays = {}
+    if build_edges or build_block_tiles:
+        edge_arrays, keep = _build_edge_cells(
+            concept_mask, rel_index, bank_len_p, bank_none, spec, sparse_khop)
+        if build_block_tiles:
+            Np = -(-N // TILE) * TILE
+            keep_p = np.zeros((B, Np, Np), bool)
+            keep_p[:, :N, :N] = keep
+            rel_p = np.zeros((B, Np, Np), np.int32)
+            rel_p[:, :N, :N] = rel_index
+            ts, tr = pack_block_sparse(keep_p, rel_p)
+            td, trs = pack_block_sparse_src(keep_p, rel_p)
+            edge_arrays.update(tile_src=ts, tile_rel=tr, tile_dst=td,
+                               tile_rel_src=trs)
+        if not build_edges:
+            edge_arrays = {k: v for k, v in edge_arrays.items()
+                           if k.startswith("tile_")}
+
     return GraphBatch(
+        **edge_arrays,
         **local_arrays,
         concept=concept,
         concept_char=concept_char,
@@ -346,3 +404,38 @@ def _build_local_banks(rel_index, spec: BucketSpec):
     for b, rows in enumerate(maps):
         bank_map[b, : len(rows)] = rows
     return {"bank_map": bank_map, "rel_index_loc": np.stack(locs)}
+
+
+def _build_edge_cells(concept_mask, rel_index, bank_len, bank_none,
+                      spec: BucketSpec, sparse_khop: int):
+    """COO edge cells of the sparse encoder with one node block: returns
+    ({'edge_src', 'edge_dst', 'edge_rel', 'edge_mask'}, each [B, 1, 1, Ec],
+    the kept pairs (i = dst query, j = src key) of each graph in (i, j)
+    order; keep [B, N, N] bool)."""
+    B, N = concept_mask.shape
+    keep = concept_mask[:, :, None] & concept_mask[:, None, :]
+    if sparse_khop > 0:
+        within = (bank_len[rel_index] <= sparse_khop) & ~bank_none[rel_index]
+        always = np.eye(N, dtype=bool)          # self
+        always[0, :] = always[:, 0] = True      # global node row/col
+        keep &= within | always[None]
+    counts = keep.reshape(B, -1).sum(1)
+    max_cell = max(1, int(counts.max()))
+    Ec = BucketSpec.fit(spec.edge_cells, max_cell)
+    if max_cell > Ec:
+        raise BatchCapacityError(
+            f"edge cell overflow: {max_cell} edges in one (dst,src) block "
+            f"pair > cap {Ec}; raise spec.edge_cells or cp_shards")
+    esrc = np.zeros((B, 1, 1, Ec), dtype=np.int32)
+    edst = np.zeros((B, 1, 1, Ec), dtype=np.int32)
+    erel = np.zeros((B, 1, 1, Ec), dtype=np.int32)
+    emask = np.zeros((B, 1, 1, Ec), dtype=bool)
+    for b in range(B):
+        ii, jj = np.nonzero(keep[b])          # row-major: (i, j) order
+        n = len(ii)
+        esrc[b, 0, 0, :n] = jj
+        edst[b, 0, 0, :n] = ii
+        erel[b, 0, 0, :n] = rel_index[b, ii, jj]
+        emask[b, 0, 0, :n] = True
+    return (dict(edge_src=esrc, edge_dst=edst, edge_rel=erel,
+                 edge_mask=emask), keep)

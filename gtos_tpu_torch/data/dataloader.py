@@ -55,8 +55,9 @@ class DataLoader:
     """Iterates GraphBatches with token-count batch sizing.
 
     batch_size is measured in target tokens + nodes per batch; for_train
-    shuffles instance order and batch order each epoch. build_local_banks
-    goes to batchify ("auto" for attention_impl "auto")."""
+    shuffles instance order and batch order each epoch. build_edges,
+    cp_shards, sparse_khop, build_block_tiles and build_local_banks go to
+    batchify ("auto" for the last two under attention_impl "auto")."""
 
     def __init__(
         self,
@@ -70,6 +71,10 @@ class DataLoader:
         spec: BucketSpec = BucketSpec(),
         for_train: bool = True,
         seed: int = 19940117,
+        build_edges: bool = False,
+        cp_shards: int = 1,
+        sparse_khop: int = 0,
+        build_block_tiles: Union[bool, str] = False,
         build_local_banks: Union[bool, str] = False,
     ):
         self.instances = list(instances)
@@ -83,6 +88,10 @@ class DataLoader:
         self.for_train = for_train
         self.seed = seed
         self.epoch = 0
+        self.build_edges = build_edges
+        self.cp_shards = cp_shards
+        self.sparse_khop = sparse_khop
+        self.build_block_tiles = build_block_tiles
         self.build_local_banks = build_local_banks
 
     def _cost(self, inst: Instance) -> int:
@@ -133,6 +142,9 @@ class DataLoader:
                 self.vocabs["relation"], self.vocabs["char"],
                 self.lexical_map, spec=self.spec,
                 batch_size_bucket=bsz, for_train=self.for_train,
+                build_edges=self.build_edges, cp_shards=self.cp_shards,
+                sparse_khop=self.sparse_khop,
+                build_block_tiles=self.build_block_tiles,
                 build_local_banks=self.build_local_banks,
             ), group
         except BatchCapacityError:

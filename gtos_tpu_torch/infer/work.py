@@ -67,7 +67,8 @@ def main(argv=None):
                     batch_size_tokens=args.batch_size_tokens,
                     for_train=False,
                     spec=BucketSpec().for_model_max_oov(model_cfg.max_oov),
-                    **loader_flags(model_cfg.attention_impl))
+                    **loader_flags(model_cfg.attention_impl,
+                                   model_cfg.sparse_khop))
 
     # parameters only: the optimizer's moments stay on disk
     ckpt = CheckpointManager(args.ckpt_dir, model_cfg)

@@ -56,8 +56,9 @@ AUTO_LOCAL_RATIO = 4
 def resolve_attention_impl(impl: str, arrays) -> str:
     """attention_impl "auto" -> the route for THIS batch, from the arrays
     it carries (numpy or torch, GraphBatch.arrays() names), in the JAX
-    package's order: "block_sparse" when it carries tile layouts (never
-    built by the port's batchify: ROADMAP A8); "pallas_local" when it
+    package's order: "block_sparse" when it carries tile layouts (batchify
+    builds them under "auto" for a batch whose paths overflow the local
+    bank ladder at a tile-aligned bucket); "pallas_local" when it
     carries localized banks at least AUTO_LOCAL_RATIO times smaller than
     the global bank; "pallas" (the global-bank kernels) otherwise. Other
     impls pass through unchanged."""
@@ -108,10 +109,11 @@ class Generator(nn.Module):
     torch.Generator of the init (default: seeded with 0). Parameters are
     f32; activations in cfg.compute_dtype. `dropout_rng` is the
     torch.Generator (on `device`, seeded with 0) that every dropout draws
-    from in train mode; the model starts in eval mode."""
+    from in train mode; the model starts in eval mode. cp_mesh (the JAX
+    package's context-parallel mesh) raises: ROADMAP A9."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 rng: Optional[torch.Generator] = None):
+                 rng: Optional[torch.Generator] = None, cp_mesh=None):
         device = resolve_device(device)
         super().__init__()
         check_impl(cfg.attention_impl)
@@ -128,7 +130,7 @@ class Generator(nn.Module):
             cfg.dropout, dt)
         self.graph_transformer = GraphTransformer(
             cfg.enc_layers, cfg.d_model, cfg.d_ff, cfg.heads,
-            impl=cfg.attention_impl, dropout=cfg.dropout)
+            impl=cfg.attention_impl, dropout=cfg.dropout, cp_mesh=cp_mesh)
         self.decoder = Decoder(
             cfg.token_vocab, cfg.dec_layers, cfg.d_model, cfg.d_ff,
             cfg.heads, cfg.max_target_len, cfg.dropout, dt)
@@ -181,10 +183,10 @@ class Generator(nn.Module):
     def encode(self, concept, concept_char, concept_mask, rel_bank,
                rel_length, rel_index, edges=None, impl: Optional[str] = None):
         """-> concept representations [B, N, D] in the compute dtype.
-        edges: the localized-bank arrays (batch_edges) for the
-        "pallas_local" route. impl: the attention route of this batch
-        (default: cfg.attention_impl, with "auto" resolved from rel_bank
-        and edges)."""
+        edges: the auxiliary arrays of the batch (batch_edges): localized
+        banks, edge cells, tile layouts. impl: the attention route of this
+        batch (default: cfg.attention_impl, with "auto" resolved from
+        rel_bank and edges)."""
         if impl is None:
             impl = resolve_attention_impl(
                 self.cfg.attention_impl, dict(edges or {}, rel_bank=rel_bank))
@@ -283,11 +285,14 @@ class Generator(nn.Module):
 
 
 def batch_edges(batch: Dict[str, torch.Tensor]):
-    """The encoder's auxiliary arrays from a batch dict, if present (the
-    localized-bank arrays of the "pallas_local" route, and the localize
-    sort order of training batches)."""
-    out = {k: batch[k] for k in ("bank_map", "rel_index_loc", "loc_perm",
-                                 "loc_bnd") if k in batch}
+    """The encoder's auxiliary arrays from a batch dict, if present: the
+    edge cells of "sparse", the tile layouts of "block_sparse", the
+    localized-bank arrays of "pallas_local" and the localize sort order of
+    training batches."""
+    keys = ("edge_src", "edge_dst", "edge_rel", "edge_mask", "tile_src",
+            "tile_rel", "tile_dst", "tile_rel_src", "bank_map",
+            "rel_index_loc", "loc_perm", "loc_bnd")
+    out = {k: batch[k] for k in keys if k in batch}
     return out or None
 
 

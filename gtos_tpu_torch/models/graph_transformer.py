@@ -1,8 +1,9 @@
 """The graph-transformer encoder stack.
 
 Port of gtos_tpu/models/graph_transformer.py: post-LN layers of
-relation-aware multi-head attention + FFN over all node pairs. Three
-attention impls are ported, all with one set of parameters:
+relation-aware multi-head attention + FFN over all node pairs, or over the
+kept pairs of the sparse tier. Five attention impls are ported, all with
+one set of parameters:
 
   "xla"          the plain bank decomposition over the batch-global bank
                  (ops/attention.py);
@@ -20,14 +21,23 @@ attention impls are ported, all with one set of parameters:
                  gradients, and with them the trainable entry, whose
                  forward is B1p and backward B2. B2's slot order over each
                  graph's pairs is built once per stack, as the JAX package
-                 builds its sort auxiliaries once per step.
+                 builds its sort auxiliaries once per step;
+  "sparse"       the edge-list attention over batchify's COO edge cells
+                 (build_edges=True), plain torch as the JAX package leaves
+                 it to XLA (ops/sparse_relation.py);
+  "block_sparse" the block-sparse attention over batchify's 128x128 tile
+                 layouts (build_block_tiles=True;
+                 ops/block_sparse_attention.py): kernel B5 without
+                 gradients, and with them the trainable entry, whose
+                 forward is B5s and backward B6d, B6s and B6b. The
+                 backward's pair orders are built once per stack.
 
 "auto" is resolved per batch (models/generator.py resolve_attention_impl)
-into "pallas" or "pallas_local" and handed to `forward` as `impl`; the
-module is built once and runs either route. The sparse impls raise
-NotImplementedError naming ROADMAP A8. Dropout where the JAX package has
-it: on the attention and FFN outputs before each residual add, and after
-the FFN's ReLU.
+into "block_sparse", "pallas" or "pallas_local" and handed to `forward` as
+`impl`; the module is built once and runs any route. A context-parallel
+mesh (cp_mesh) raises NotImplementedError naming ROADMAP A9. Dropout where
+the JAX package has it: on the attention and FFN outputs before each
+residual add, and after the FFN's ReLU.
 """
 
 from __future__ import annotations
@@ -41,6 +51,10 @@ from gtos_tpu_torch.models.components import (
     Dense, FeedForward, PostLNResidual, merge_heads, split_heads,
 )
 from gtos_tpu_torch.ops.attention import bank_relation_attention
+from gtos_tpu_torch.ops.block_sparse_attention import (
+    block_sparse_attention, block_sparse_relation_attention_trainable,
+)
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import backward_plan
 from gtos_tpu_torch.ops.local_relation_attention import (
     local_relation_attention, local_relation_attention_trainable, slot_order,
 )
@@ -48,25 +62,23 @@ from gtos_tpu_torch.ops.localize import localize_bank
 from gtos_tpu_torch.ops.relation_attention import (
     pallas_relation_attention, relation_attention_trainable, walk_orders,
 )
+from gtos_tpu_torch.ops.sparse_relation import (
+    flatten_edge_cells, sparse_relation_attention,
+)
 
-ROUTES = ("xla", "pallas", "pallas_local")   # what a layer runs
-# ROADMAP item that ports each of the JAX package's other impls
-_NOT_PORTED = {"sparse": "A8", "block_sparse": "A8/B5-B6",
-               "block_sparse_interpret": "A8/B5-B6"}
+# what a layer runs
+ROUTES = ("xla", "pallas", "pallas_local", "sparse", "block_sparse")
 
 
 def check_impl(impl: str):
     if impl in ROUTES or impl == "auto":
         return
-    item = _NOT_PORTED.get(impl)
-    if item is None and impl.endswith("_interpret"):
+    if impl.endswith("_interpret"):
         raise ValueError(
             f"attention_impl {impl!r}: the port has no interpret mode; "
             f"use {impl[:-len('_interpret')]!r} (CPU tensors run the plain "
             "version)")
-    raise NotImplementedError(
-        f"attention_impl {impl!r} is not ported yet"
-        + (f" (ROADMAP {item})" if item else ""))
+    raise NotImplementedError(f"attention_impl {impl!r} is not ported yet")
 
 
 def _route(impl: str) -> str:
@@ -103,7 +115,10 @@ class RelationMultiheadAttention(nn.Module):
         "xla" and "pallas" (with edges["row_order"]/["col_order"] when
         gradients are taken), or pre-localized [B,P_loc,Dr] for
         "pallas_local" (with edges["rel_index_loc"], and
-        edges["pair_order"]/["slot_start"] when gradients are taken)."""
+        edges["pair_order"]/["slot_start"] when gradients are taken); the
+        global [P,Dr] for "sparse" (with edges["flat_edges"]) and
+        "block_sparse" (with the tile layouts, and edges["blk_plan"] when
+        gradients are taken)."""
         impl = _route(impl or self.impl)
         H, D = self.heads, self.d_model
         q = split_heads(self.q_proj(x), H)
@@ -132,6 +147,21 @@ class RelationMultiheadAttention(nn.Module):
                     *args, edges.get("row_order"), edges.get("col_order"))
             else:
                 out, _ = pallas_relation_attention(*args)
+        elif impl == "block_sparse":
+            args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                    a.contiguous(), b.contiguous(), edges["tile_src"],
+                    edges["tile_rel"])
+            if grad:
+                out = block_sparse_relation_attention_trainable(
+                    *args, *(edges.get("flat_edges") or (None,) * 4),
+                    tile_dst=edges.get("tile_dst"),
+                    tile_rel_src=edges.get("tile_rel_src"),
+                    plan=edges.get("blk_plan"))
+            else:
+                out = block_sparse_attention(*args)
+        elif impl == "sparse":
+            out = sparse_relation_attention(q, k, v, a, b,
+                                            *edges["flat_edges"])
         else:
             out, _ = bank_relation_attention(q, k, v, a, b, rel_index,
                                              node_mask)
@@ -156,9 +186,13 @@ class GraphTransformerLayer(nn.Module):
 
 class GraphTransformer(nn.Module):
     def __init__(self, layers: int, d_model: int, d_ff: int, heads: int,
-                 impl: str = "xla", dropout: float = 0.0):
+                 impl: str = "xla", dropout: float = 0.0, cp_mesh=None):
         super().__init__()
         check_impl(impl)
+        if cp_mesh is not None:
+            raise NotImplementedError(
+                "context parallelism over a mesh (the ring schedules) is not "
+                "ported yet (ROADMAP A9)")
         self.impl = impl
         for i in range(layers):
             self.add_module(f"layer{i}", GraphTransformerLayer(
@@ -185,6 +219,23 @@ class GraphTransformer(nn.Module):
         elif impl == "pallas" and torch.is_grad_enabled():
             rows, cols = walk_orders(rel_index)
             edges = dict(edges or {}, row_order=rows, col_order=cols)
+        elif impl in ("sparse", "block_sparse"):
+            edges = dict(edges or {})
+            need = "edge_src" if impl == "sparse" else "tile_src"
+            if need not in edges:
+                raise ValueError(
+                    f"attention_impl={impl!r} needs batchify "
+                    + ("build_edges=True" if impl == "sparse"
+                       else "build_block_tiles=True"))
+            if "edge_src" in edges:   # the COO form, flattened once
+                edges["flat_edges"] = flatten_edge_cells(
+                    edges["edge_src"], edges["edge_dst"], edges["edge_rel"],
+                    edges["edge_mask"], x.shape[1])
+            if (impl == "block_sparse" and torch.is_grad_enabled()
+                    and "tile_dst" in edges):
+                edges["blk_plan"] = backward_plan(
+                    edges["tile_src"], edges["tile_rel"], x.shape[1],
+                    rel_vecs.shape[0])
         for i in range(self.layers):
             x = getattr(self, f"layer{i}")(x, rel_vecs, rel_index,
                                            node_mask, edges, impl)

@@ -10,19 +10,27 @@
       --d_model 32 --d_ff 64 --heads 2 --enc_layers 2 --dec_layers 1 \\
       --total_steps 4 --ckpt_dir ckpt
 
+  # the c5 model (block-sparse attention over 4-hop pairs) on one card
+  python -m gtos_tpu_torch.train.train \
+      --config configs/c5_scaled_synthetic.json --attention_impl block_sparse \
+      --graph 1 --dp 0 --synthetic 256 --ckpt_dir ckpt
+
   # an AMR sembank (PENMAN, `# ::snt` or `# ::tok` targets)
   python -m gtos_tpu_torch.train.train --config configs/c2_amr2.json \\
       --train_data train.amr --dev_data dev.amr --ckpt_dir ckpt
 
 --attention_impl takes "xla", "pallas" (the global-bank kernels B3/B3'
-and B4), "pallas_local" (B1p/B2) and "auto" (per batch, one of the two).
-Training runs on the CUDA card unless `--device cpu` is given, and raises
-without a card. The configs and vocabs go into the checkpoint directory
-(the args-in-checkpoint contract), so inference rebuilds the model from it
-alone (`python -m gtos_tpu_torch.infer.work`). Options whose feature is
-not ported raise and name the ROADMAP item that ports it:
---dp/--mp/--graph/--coordinator and batchify worker pools (A9, A4), the
-sparse impls (A8), reading CoNLL files for the nmt task (A4:
+and B4), "pallas_local" (B1p/B2), "sparse" (the edge-list attention,
+plain torch), "block_sparse" (the tile kernels B5s and B6) and "auto" (per
+batch, "pallas_local" or "pallas", and "block_sparse" for a batch whose
+paths overflow the local-bank ladder); --sparse_khop k keeps, for the
+sparse impls, only the pairs within k hops. Training runs on the CUDA card
+unless `--device cpu` is given, and raises without a card. The configs and
+vocabs go into the checkpoint directory (the args-in-checkpoint contract),
+so inference rebuilds the model from it alone (`python -m
+gtos_tpu_torch.infer.work`). Options whose feature is not ported raise and
+name the ROADMAP item that ports it: --dp/--mp/--graph/--coordinator and
+batchify worker pools (A9, A4), reading CoNLL files for the nmt task (A4:
 graph/dependency.py).
 """
 
@@ -184,13 +192,19 @@ def load_corpus(task: str, data_path: str
     return graphs, targets
 
 
-def loader_flags(impl: str) -> dict:
-    """The DataLoader's batchify aux flag for an attention impl, as the
-    JAX package's CLIs set it: "auto" lets batchify pick per bucket (local
-    banks; the tile fallback on overflow raises ROADMAP A8), the others
-    build what their kernel reads. The sparse impls, whose tiles and edge
-    cells are not ported, are refused before a loader is built."""
-    return dict(build_local_banks="auto" if impl.startswith("auto")
+def loader_flags(impl: str, sparse_khop: int = 0) -> dict:
+    """The DataLoader's batchify flags for an attention impl, as the JAX
+    package's CLIs set them (one node block: cp_shards=1): "auto" lets
+    batchify pick per bucket (local banks, the tile layouts as the
+    overflow fallback); "sparse" and "block_sparse" build the edge cells
+    (and the latter the tiles), with the impl's sparse_khop; the others
+    build what their kernel reads."""
+    auto = impl.startswith("auto")
+    sparse = impl == "sparse" or impl.startswith("block_sparse")
+    return dict(build_edges=sparse, cp_shards=1, sparse_khop=sparse_khop,
+                build_block_tiles="auto" if auto
+                else impl.startswith("block_sparse"),
+                build_local_banks="auto" if auto
                 else impl.startswith("pallas_local"))
 
 
@@ -284,7 +298,8 @@ def main(argv=None):
 
     # spec.max_oov follows the model so extended target ids always fit
     spec = BucketSpec().for_model_max_oov(model_cfg.max_oov)
-    dl_kw = dict(spec=spec, **loader_flags(args.attention_impl))
+    dl_kw = dict(spec=spec, **loader_flags(args.attention_impl,
+                                           args.sparse_khop))
     instances = preprocess(graphs, targets, path_cfg)
     dev_instances = preprocess(dev_graphs, dev_targets, path_cfg)
     dl = DataLoader(instances, tv, cv, rv, chv, lm,

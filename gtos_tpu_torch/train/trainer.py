@@ -3,7 +3,7 @@
 Port of gtos_tpu/train/trainer.py: batchify -> forward -> backward ->
 clip -> scheduled Adam step -> periodic dev eval and checkpoint. PyTorch
 runs eagerly, so a step is the model's loss, its gradients by autograd
-(on the card the encoder attention's backward is kernel B2 or B4) and the
+(on the card the encoder attention's backward is kernel B2, B4 or B6) and the
 optimizer's foreach update; the host queues work for the card and reads a
 loss back only `max_inflight` steps later. Batches are packed and copied to the
 device `prefetch` ahead in a background thread. A non-finite loss stops
@@ -34,8 +34,10 @@ from gtos_tpu_torch.utils.profiling import StepTimer
 
 
 def _batch_edges_count(arrays) -> int:
-    """Node pairs scored by the encoder for one batch: B*N^2 (the dense
-    paths; the sparse tier's edge count comes with ROADMAP A8)."""
+    """Pairs scored by the encoder for one batch: the real edge-cell
+    entries in sparse mode, B*N^2 ordered pairs in dense mode."""
+    if "edge_mask" in arrays:
+        return int(np.asarray(arrays["edge_mask"]).sum())
     b, n = arrays["concept"].shape
     return b * n * n
 

@@ -1,0 +1,409 @@
+"""The PyTorch port's sparse tier against the JAX package's, on the CPU: the
+tile packing, the sparse batches (edge cells, tile layouts, k-hop pruning,
+"auto"'s tile fallback), the edge-list attention and its gradients, the
+plain versions of the block-sparse kernels B5/B5s and B6 against the Pallas
+kernels in interpret mode, and the whole model under "block_sparse" and
+"sparse". Inputs are seeded numpy arrays handed to both packages; each
+tolerance is stated where it is used."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gtos_tpu.data import DataLoader as JaxDataLoader
+from gtos_tpu.data.batching import BucketSpec as JaxBucketSpec
+from gtos_tpu.data.batching import batchify as jax_batchify
+from gtos_tpu.data.dataloader import preprocess as jax_preprocess
+from gtos_tpu.data.extract import build_vocabs as jax_build_vocabs
+from gtos_tpu.data.synthetic import synthetic_amr_corpus as jax_corpus
+from gtos_tpu.models import Generator as JaxGenerator
+from gtos_tpu.ops import segment as jax_segment
+from gtos_tpu.ops.block_sparse import pack_block_sparse as jax_pack
+from gtos_tpu.ops.block_sparse import pack_block_sparse_src as jax_pack_src
+from gtos_tpu.ops.pallas.block_sparse_attention import (
+    _blk_vjp_pallas, block_sparse_relation_attention as jax_blk,
+    block_sparse_relation_attention_trainable as jax_blk_trainable,
+)
+from gtos_tpu.ops.sparse_relation import (
+    flatten_edge_cells as jax_flatten,
+    sparse_relation_attention as jax_sparse_attention,
+)
+from gtos_tpu.utils.config import ModelConfig as JaxModelConfig
+from gtos_tpu_torch.convert import state_dict_from_flax
+from gtos_tpu_torch.data import BucketSpec, DataLoader, batchify
+from gtos_tpu_torch.data.dataloader import preprocess
+from gtos_tpu_torch.data.extract import build_vocabs
+from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+from gtos_tpu_torch.models import Generator
+from gtos_tpu_torch.models.generator import batch_to_device
+from gtos_tpu_torch.ops import segment
+from gtos_tpu_torch.ops.block_sparse import (
+    keep_from_edge_cells, pack_block_sparse, pack_block_sparse_src,
+)
+from gtos_tpu_torch.ops.block_sparse_attention import (
+    block_sparse_attention, block_sparse_attention_with_stats,
+    block_sparse_relation_attention_trainable,
+)
+from gtos_tpu_torch.ops.sparse_relation import (
+    flatten_edge_cells, sparse_relation_attention,
+)
+from gtos_tpu_torch.utils.config import ModelConfig
+from test_torch_cuda import make_block_case, port_block_args
+
+torch.set_num_threads(2)
+
+GRADS = ("q", "k", "v", "a_bank", "b_bank")
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _jax_args(c):
+    return (*(jnp.asarray(c[n]) for n in ("q", "k", "v", "a_bank",
+                                          "b_bank")),
+            jnp.asarray(c["tile_src"]), jnp.asarray(c["tile_rel"]))
+
+
+def _same_arrays(ja, pa, keys=None):
+    assert ja.keys() == pa.keys()
+    for k in keys or ja:
+        assert ja[k].dtype == pa[k].dtype, k
+        np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
+
+
+# ---------------------------------------------------------------- packing
+
+
+@pytest.mark.parametrize("N,p_pair,banded", [(256, 0.02, False),
+                                             (512, 0.1, True),
+                                             (128, 1.0, False)])
+def test_packing_equals_jax(N, p_pair, banded):
+    """pack_block_sparse and pack_block_sparse_src give the JAX package's
+    arrays, array for array; keep_from_edge_cells inverts batchify's
+    cells."""
+    c = make_block_case(2, 1, N, 8, 37, p_pair, banded, seed=N)
+    keep, rel = c["keep"], c["rel_index"]
+    for port, ref in ((pack_block_sparse, jax_pack),
+                      (pack_block_sparse_src, jax_pack_src)):
+        for a, b in zip(port(keep, rel), ref(keep, rel)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------- batches
+
+
+@pytest.fixture(scope="module")
+def corpora():
+    """The same synthetic AMR corpus in both packages, graphs of 30-140
+    nodes (node buckets 64 to 256), with vocabularies."""
+    jg, jt = jax_corpus(10, seed=11, min_nodes=30, max_nodes=140)
+    pg, pt = synthetic_amr_corpus(10, seed=11, min_nodes=30, max_nodes=140)
+    return ((jax_preprocess(jg, jt), jax_build_vocabs(jg, jt)),
+            (preprocess(pg, pt), build_vocabs(pg, pt)))
+
+
+SPEC = dict(nodes=(64, 128, 256), bank=(1024, 4096, 16384, 65536),
+            edge_cells=(1024, 4096, 16384, 65536))
+
+
+@pytest.mark.parametrize("khop", [0, 2, 4])
+@pytest.mark.parametrize("for_train", [False, True])
+def test_sparse_batches_equal_jax(corpora, khop, for_train):
+    """batchify with build_edges and build_block_tiles=True at sparse_khop
+    0, 2 and 4: every array equal to the JAX package's (edge cells, the
+    four tile arrays, the bank with pruned paths on the NONE row); the
+    edge cells describe the tile layout's kept pairs."""
+    (ji, jv), (pi, pv) = corpora
+    kw = dict(for_train=for_train, build_edges=True, build_block_tiles=True,
+              sparse_khop=khop)
+    for sl in (slice(0, 3), slice(5, 8)):
+        ja = jax_batchify(ji[sl], *jv, spec=JaxBucketSpec(**SPEC),
+                          **kw).arrays()
+        pb = batchify(pi[sl], *pv, spec=BucketSpec(**SPEC), **kw)
+        pa = pb.arrays()
+        assert {"edge_src", "tile_src", "tile_rel_src"} <= pa.keys()
+        _same_arrays(ja, pa)
+        N = pb.concept_mask.shape[1]
+        keep = keep_from_edge_cells(pb.edge_src, pb.edge_dst, pb.edge_mask, N)
+        assert int(keep.sum()) == int((pb.tile_rel >= 0).sum())
+
+
+def test_sparse_dataloader_equals_jax(corpora):
+    """The DataLoader passes build_edges, cp_shards, sparse_khop and
+    build_block_tiles to batchify: the same plan and arrays as the JAX
+    package's loader, over a training epoch with bank-overflow bisects."""
+    (ji, jv), (pi, pv) = corpora
+    kw = dict(batch_size_tokens=1024, for_train=True, seed=5,
+              build_edges=True, cp_shards=1, sparse_khop=4,
+              build_block_tiles=True)
+    jl = JaxDataLoader(ji, *jv, spec=JaxBucketSpec(
+        nodes=SPEC["nodes"], bank=(1024, 2048)), **kw)
+    pl = DataLoader(pi, *pv, spec=BucketSpec(nodes=SPEC["nodes"],
+                                             bank=(1024, 2048)), **kw)
+    jbs, pbs = list(jl.iter_with_instances()), list(pl.iter_with_instances())
+    assert len(jbs) == len(pbs) > 2
+    for (jb, jg), (pb, pg) in zip(jbs, pbs):
+        assert [i.orig_index for i in jg] == [i.orig_index for i in pg]
+        _same_arrays(jb.arrays(), pb.arrays())
+
+
+def test_sparse_khop_needs_a_sparse_consumer(corpora):
+    """sparse_khop > 0 without edge cells or tiles is refused, as in the
+    JAX package; more than one node block names ROADMAP A9."""
+    _, (pi, pv) = corpora
+    with pytest.raises(ValueError, match="sparse_khop"):
+        batchify(pi[:2], *pv, spec=BucketSpec(**SPEC), sparse_khop=2)
+    with pytest.raises(NotImplementedError, match="A9"):
+        batchify(pi[:2], *pv, spec=BucketSpec(**SPEC), build_edges=True,
+                 cp_shards=2)
+
+
+# ---------------------------------------------------- edge-list attention
+
+
+def _edge_case(seed=0, B=2, H=2, N=24, D=8, P=30, E=100):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v = (rng.standard_normal((B, H, N, D)).astype(f) for _ in range(3))
+    a, b = ((rng.standard_normal((P, H, D)) * 0.5).astype(f)
+            for _ in range(2))
+    src = rng.integers(0, N, (B, E)).astype(np.int32)
+    dst = rng.integers(0, N - 4, (B, E)).astype(np.int32)  # 4 empty rows
+    rel = rng.integers(0, P, (B, E)).astype(np.int32)
+    mask = rng.random((B, E)) < 0.8
+    return [q, k, v, a, b], [src, dst, rel, mask]
+
+
+def test_sparse_relation_attention_matches_jax():
+    """The edge-list attention and its gradients (q, k, v, banks) against
+    the JAX package's (XLA) on the same edges, in f32 to 1e-5 (sums in
+    another order); nodes without an incoming edge give 0."""
+    xs, edges = _edge_case()
+    g = np.random.default_rng(1).standard_normal(
+        xs[0].shape).astype(np.float32)
+    jedges = [jnp.asarray(e) for e in edges]
+    jout, jvjp = jax.vjp(lambda *x: jax_sparse_attention(*x, *jedges),
+                         *(jnp.asarray(x) for x in xs))
+    leaves = [_t(x).requires_grad_() for x in xs]
+    out = sparse_relation_attention(*leaves, *(_t(e) for e in edges))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    assert float(out[:, :, -4:].abs().max()) == 0.0
+    grads = torch.autograd.grad(out, leaves, _t(g))
+    for name, x, y in zip(GRADS, grads, jvjp(jnp.asarray(g))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    cells = [e.reshape(2, 1, 1, -1) for e in edges]
+    cells = [cells[0], cells[1], cells[2], cells[3]]
+    for x, y in zip(flatten_edge_cells(*(_t(c) for c in cells), 24),
+                    jax_flatten(*(jnp.asarray(c) for c in cells), 24)):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+def test_segment_ops_match_jax():
+    """SDDMM, segment softmax, SpMM and the pipeline of ops/segment.py
+    against the JAX package's on one dst-sorted edge list, f32 to 1e-6."""
+    rng = np.random.default_rng(2)
+    N, D, E = 12, 8, 40
+    q, k, v = (rng.standard_normal((N, D)).astype(np.float32)
+               for _ in range(3))
+    dst = np.sort(rng.integers(0, N - 2, E)).astype(np.int32)
+    src = rng.integers(0, N, E).astype(np.int32)
+    mask = rng.random(E) < 0.9
+    w = rng.random(E).astype(np.float32)
+    J = {n: jnp.asarray(x) for n, x in dict(q=q, k=k, v=v, src=src, dst=dst,
+                                            mask=mask, w=w).items()}
+    P = {n: _t(x) for n, x in dict(q=q, k=k, v=v, src=src, dst=dst,
+                                   mask=mask, w=w).items()}
+    pairs = [
+        (segment.sparse_sddmm(P["q"], P["k"], P["src"], P["dst"], P["mask"]),
+         jax_segment.sparse_sddmm(J["q"], J["k"], J["src"], J["dst"],
+                                  J["mask"])),
+        (segment.segment_softmax(P["w"], P["dst"], N),
+         jax_segment.segment_softmax(J["w"], J["dst"], N)),
+        (segment.sparse_spmm(P["w"], P["v"], P["src"], P["dst"], N),
+         jax_segment.sparse_spmm(J["w"], J["v"], J["src"], J["dst"], N)),
+        (segment.sparse_graph_attention(P["q"], P["k"], P["v"], P["src"],
+                                        P["dst"], P["mask"], N),
+         jax_segment.sparse_graph_attention(J["q"], J["k"], J["v"], J["src"],
+                                            J["dst"], J["mask"], N))]
+    for x, y in pairs:
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6,
+                                   atol=1e-6)
+
+
+# ------------------------------------------------ block-sparse B5, B5s, B6
+
+
+@pytest.mark.parametrize("N,p_pair,banded", [(128, 1.0, False),
+                                             (128, 0.3, False),
+                                             (256, 0.05, False),
+                                             (512, 0.2, True)])
+def test_b5_plain_matches_pallas_interpret(N, p_pair, banded):
+    """B5's and B5s's plain versions against the Pallas kernel in interpret
+    mode (B=2/1, H=2, Dh=32, P=200; the banded N=512 case has empty tiles),
+    f32 to 2e-4 (the JAX test's own); B5s's m and l agree with the Pallas
+    stats (laid out [B, Td, H, 128] there) at every row with a kept pair
+    to 1e-5."""
+    B = 1 if banded else 2
+    c = make_block_case(B, 2, N, 32, 200, p_pair, banded, seed=N)
+    args = port_block_args(c)[0]
+    jout, jm, jl = jax_blk(*_jax_args(c), interpret=True, with_stats=True)
+    out = block_sparse_attention(*args)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=2e-4,
+                               atol=2e-4)
+    out_s, m, l = block_sparse_attention_with_stats(*args)
+    assert torch.equal(out, out_s)
+    to_bhn = lambda x: np.asarray(x).transpose(0, 2, 1, 3).reshape(  # noqa
+        B, 2, -1)[:, :, :N]
+    jm, jl = to_bhn(jm), to_bhn(jl)
+    kept = jl > 0
+    np.testing.assert_array_equal(l.numpy() > 0, kept)
+    np.testing.assert_allclose(m.numpy()[kept], jm[kept], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(l.numpy()[kept], jl[kept], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("N,p_pair", [(128, 0.4), (256, 0.05)])
+def test_b6_plain_matches_pallas_vjp(N, p_pair):
+    """The trainable entry's backward (B6d, B6s, B6b's plain versions)
+    against jax.vjp of the Pallas forward and two-pass backward
+    (`_blk_vjp_pallas`, interpret mode) with the same cotangent: gradients
+    to q, k, v and both banks at rtol 2e-3, atol 2e-4 (the JAX test's
+    own)."""
+    c = make_block_case(2, 2, N, 32, 200, p_pair, seed=4)
+    args, (td, trs), g = port_block_args(c)
+    leaves = [x.clone().requires_grad_() for x in args[:5]]
+    out = block_sparse_relation_attention_trainable(
+        *leaves, *args[5:], tile_dst=td, tile_rel_src=trs)
+    grads = torch.autograd.grad(out, leaves, g)
+    ja = _jax_args(c)
+    _, vjp = jax.vjp(lambda *x: _blk_vjp_pallas(
+        True, *x, *ja[5:], jnp.asarray(c["tile_dst"]),
+        jnp.asarray(c["tile_rel_src"])), *ja[:5])
+    for name, x, y in zip(GRADS, grads, vjp(jnp.asarray(c["g"]))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=2e-3,
+                                   atol=2e-4, err_msg=name)
+
+
+def test_edge_list_backward_fallback_matches_jax():
+    """Without the src-major layout the trainable entry runs B5 forward and
+    autograd of the edge-list attention over the flat COO edges (the JAX
+    package's `_blk_vjp`): gradients against the JAX entry's, f32 to
+    1e-5."""
+    c = make_block_case(2, 2, 128, 16, 60, 0.3, seed=9)
+    keep, rel = c["keep"], c["rel_index"]
+    bi, ii, jj = np.nonzero(keep)
+    E = max(int((bi == b).sum()) for b in range(2))
+    edges = [np.zeros((2, E), np.int32) for _ in range(3)]
+    mask = np.zeros((2, E), bool)
+    for b in range(2):
+        s = bi == b
+        n = int(s.sum())
+        edges[0][b, :n], edges[1][b, :n] = jj[s], ii[s]
+        edges[2][b, :n], mask[b, :n] = rel[b, ii[s], jj[s]], True
+    args, _, g = port_block_args(c)
+    leaves = [x.clone().requires_grad_() for x in args[:5]]
+    out = block_sparse_relation_attention_trainable(
+        *leaves, *args[5:], *(_t(e) for e in edges), _t(mask))
+    grads = torch.autograd.grad(out, leaves, g)
+    ja = _jax_args(c)
+    jedges = [jnp.asarray(e) for e in (*edges, mask)]
+    _, vjp = jax.vjp(lambda *x: jax_blk_trainable(
+        *x, *ja[5:], *jedges, interpret=True), *ja[:5])
+    for name, x, y in zip(GRADS, grads, vjp(jnp.asarray(c["g"]))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_tile_layout_mismatch_is_rejected():
+    """A tile layout made for another node count is refused with the JAX
+    package's ValueError, before any work."""
+    c = make_block_case(1, 2, 128, 16, 32, 0.2, seed=5)
+    q, k, v, a, b, ts, tr = port_block_args(c)[0]
+    two = lambda x: torch.cat([x, x], dim=2)  # noqa: E731
+    with pytest.raises(ValueError, match="tile layout"):
+        block_sparse_attention(two(q), two(k), two(v), a, b, ts, tr)
+    with pytest.raises(ValueError, match="tile_rel shape"):
+        block_sparse_attention(q, k, v, a, b, ts, tr[..., :64, :])
+
+
+# ------------------------------------------------------- the whole model
+
+
+SMALL = dict(d_model=32, d_ff=64, heads=2, enc_layers=2, dec_layers=1,
+             char_dim=8, char_filters=16, rel_emb_dim=8, rel_hidden=16,
+             max_oov=16, max_target_len=32, dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Both packages' models under the block-sparse impl from one flax init
+    (f32, dropout 0), and one training batch with edge cells and tiles at
+    sparse_khop 2 in each."""
+    graphs, targets = jax_corpus(6, seed=3)
+    jv = jax_build_vocabs(graphs, targets)
+    kw = dict(batch_size_bucket=8, for_train=True, build_edges=True,
+              build_block_tiles=True, sparse_khop=2)
+    ja = jax_batchify(jax_preprocess(graphs, targets), *jv, **kw).arrays()
+    g2, t2 = synthetic_amr_corpus(6, seed=3)
+    pa = batchify(preprocess(g2, t2), *build_vocabs(g2, t2), **kw).arrays()
+    tv, cv, rv, chv, _ = jv
+    cfg = dict(SMALL, token_vocab=len(tv), concept_vocab=len(cv),
+               relation_vocab=len(rv), char_vocab=len(chv), sparse_khop=2)
+    # the parameter tree is the same under every impl: init without the
+    # interpreter, run with it
+    params = JaxGenerator(JaxModelConfig(**cfg, attention_impl="xla")).init(
+        {"params": jax.random.PRNGKey(0)}, ja, deterministic=True)
+    jm = JaxGenerator(JaxModelConfig(**cfg,
+                                     attention_impl="block_sparse_interpret"))
+    sd = state_dict_from_flax(jax.device_get(params))
+    ports = {}
+    for impl in ("block_sparse", "sparse"):
+        ports[impl] = Generator(ModelConfig(**cfg, attention_impl=impl),
+                                device="cpu")
+        ports[impl].load_state_dict(sd)
+    return jm, params, ja, ports, pa
+
+
+def _loss_and_grads(model, arrays):
+    model.train()
+    names, ps = zip(*model.named_parameters())
+    loss, _ = model(batch_to_device(arrays, "cpu"))
+    return loss, dict(zip(names, torch.autograd.grad(loss, ps)))
+
+
+def test_generator_block_sparse_matches_jax(models):
+    """The c1-scale Generator under "block_sparse" (B5s and B6's plain
+    versions in every encoder layer) against the JAX model under
+    "block_sparse_interpret" (the Pallas kernels in interpret mode): the
+    loss to 1e-5 and every parameter's gradient at rtol 2e-3, atol 2e-4
+    (the Pallas backward rounds through its one-hot matmuls)."""
+    jm, params, ja, ports, pa = models
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jm.apply(p, ja, deterministic=True)[0])(params)
+    loss, grads = _loss_and_grads(ports["block_sparse"], pa)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    ref = state_dict_from_flax(jax.device_get(jgrads))
+    assert set(ref) == set(grads)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), ref[name].numpy(), rtol=2e-3,
+                                   atol=2e-4, err_msg=name)
+
+
+def test_port_block_sparse_equals_sparse(models):
+    """In the port, "block_sparse" and "sparse" compute one function over
+    one pair set: the same loss to 1e-6 and every gradient to 1e-5 (as
+    tests/test_block_sparse.py asserts in the JAX package)."""
+    *_, ports, pa = models
+    lb, gb = _loss_and_grads(ports["block_sparse"], pa)
+    ls, gs = _loss_and_grads(ports["sparse"], pa)
+    np.testing.assert_allclose(lb.item(), ls.item(), rtol=1e-6)
+    for name in gb:
+        np.testing.assert_allclose(gb[name].numpy(), gs[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)

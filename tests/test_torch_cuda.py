@@ -20,6 +20,19 @@ from gtos_tpu_torch.ops.local_relation_attention import (
     local_relation_attention_with_probs,
     local_relation_attention_with_probs_reference,
 )
+from gtos_tpu_torch.ops.block_sparse import (
+    TILE, pack_block_sparse, pack_block_sparse_src,
+)
+from gtos_tpu_torch.ops.block_sparse_attention import (
+    bank_t4, block_sparse_attention, block_sparse_attention_with_stats,
+    block_sparse_attention_with_stats_reference,
+)
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+    backward_plan, block_sparse_attention_bwd_dst,
+    block_sparse_attention_bwd_dst_reference, block_sparse_attention_bwd_src,
+    block_sparse_attention_bwd_src_reference, block_sparse_bank_grads,
+    block_sparse_bank_grads_reference, prep_bwd_invariants,
+)
 from gtos_tpu_torch.ops.localize import localize_bank
 from gtos_tpu_torch.ops.relation_attention import (
     build_tables, fused_relation_attention, fused_relation_attention_bwd,
@@ -370,3 +383,174 @@ def test_cuda_pallas_train_step_goes_through_b3_and_b4(card):
     for name, grad in grads.items():
         torch.testing.assert_close(grad.cpu(), cpu_grads[name], rtol=1e-4,
                                    atol=1e-6, msg=name)
+
+
+# block-sparse cases (B, H, N, Dh, P, p_pair, banded): the shapes and
+# densities of tests/test_block_sparse.py, an N that is not a multiple of
+# the tile, and a c5 width (H=8, Dh=64)
+BLOCK_CASES = [(2, 2, 128, 32, 200, 1.0, False),
+               (2, 2, 256, 32, 200, 0.05, False),
+               (1, 2, 300, 16, 100, 0.2, False),
+               (1, 2, 512, 32, 150, 0.2, True),
+               (2, 8, 256, 64, 3000, 0.1, False)]
+
+
+def make_block_case(B, H, N, Dh, P, p_pair, banded=False, seed=0):
+    """Seeded numpy inputs of the block-sparse attention: q, k, v, an output
+    cotangent g, banks [P, H, Dh], rel_index [B, N, N] and the kept-pair
+    mask keep [B, N, N] (each pair with probability p_pair, the self pairs
+    always; with banded, only the blocks of the tile diagonal band, as
+    tests/test_block_sparse.py builds them; the last graph's last 20 rows
+    empty), and the packed tile layouts of the node bucket padded to the
+    tile (tile_src, tile_rel, tile_dst, tile_rel_src)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v, g = (rng.standard_normal((B, H, N, Dh)).astype(f)
+                  for _ in range(4))
+    a_bank, b_bank = ((rng.standard_normal((P, H, Dh)) * 0.5).astype(f)
+                      for _ in range(2))
+    rel_index = rng.integers(0, P, (B, N, N)).astype(np.int32)
+    keep = rng.random((B, N, N)) < p_pair
+    if banded:
+        t = np.arange(N) // TILE
+        keep &= np.abs(t[:, None] - t[None, :])[None] <= 1
+    keep[:, np.arange(N), np.arange(N)] = True
+    keep[-1, N - 20:] = False
+    Np = -(-N // TILE) * TILE
+    kp = np.zeros((B, Np, Np), bool)
+    kp[:, :N, :N] = keep
+    rp = np.zeros((B, Np, Np), np.int32)
+    rp[:, :N, :N] = rel_index
+    ts, tr = pack_block_sparse(kp, rp)
+    td, trs = pack_block_sparse_src(kp, rp)
+    return dict(q=q, k=k, v=v, g=g, a_bank=a_bank, b_bank=b_bank,
+                rel_index=rel_index, keep=keep, tile_src=ts, tile_rel=tr,
+                tile_dst=td, tile_rel_src=trs)
+
+
+def port_block_args(c, dtype=torch.float32, device="cpu"):
+    """A block-sparse case as the kernels' arguments: (q, k, v, a_bank,
+    b_bank, tile_src, tile_rel) in `dtype` on `device`, and the src-major
+    layout (tile_dst, tile_rel_src) and the cotangent g."""
+    dev = lambda x: torch.from_numpy(x).to(device=device, dtype=dtype)  # noqa
+    idx = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return ((*(dev(c[n]) for n in ("q", "k", "v", "a_bank", "b_bank")),
+             idx(c["tile_src"]), idx(c["tile_rel"])),
+            (idx(c["tile_dst"]), idx(c["tile_rel_src"])), dev(c["g"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=1e-4, atol=1e-4)),
+    (torch.bfloat16, dict(rtol=2e-2, atol=3e-2)),
+])
+@pytest.mark.parametrize("B,H,N,Dh,P,p_pair,banded", BLOCK_CASES)
+def test_cuda_block_sparse_kernels_match_plain_versions(
+        card, B, H, N, Dh, P, p_pair, banded, dtype, tol):
+    """B5, B5s, B6d, B6s and B6b against their plain versions on the same
+    card inputs: outputs and gradients to 1e-4 in f32 and 3e-2 in bf16
+    (sums in another order; the online softmax rounds its probabilities
+    to bf16 against a running max), the statistics m, l to 1e-5 (f32 sums
+    of the same f32 scores); the backward kernels give the same bits on a
+    second launch (no atomics)."""
+    args, (td, trs), g = port_block_args(
+        make_block_case(B, H, N, Dh, P, p_pair, banded), dtype, card)
+    q, k, v, a, b, ts, tr = args
+    t4 = bank_t4(a, b)
+    counts = [w.launches for w in (
+        block_sparse_attention, block_sparse_attention_with_stats,
+        block_sparse_attention_bwd_dst, block_sparse_attention_bwd_src,
+        block_sparse_bank_grads)]
+    out = block_sparse_attention(*args)
+    out_s, m, l = block_sparse_attention_with_stats(*args)
+    ref, m_ref, l_ref = block_sparse_attention_with_stats_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(out, out_s)
+    torch.testing.assert_close(m, m_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
+    gp, delta = prep_bwd_invariants(q, g, out)
+    plan = backward_plan(ts, tr, N, P)
+    bwd = (q, k, v, a, b, t4, gp, m, l, delta)
+    runs = [(block_sparse_attention_bwd_dst(*bwd, ts, tr, plan),
+             block_sparse_attention_bwd_src(*bwd, td, trs))
+            for _ in range(2)]
+    banks = [block_sparse_bank_grads(q, k, a, b, dst[1], plan)
+             for dst, _ in runs]
+    (dq, ge), (dk, dv) = runs[0]
+    dq_ref, ge_ref = block_sparse_attention_bwd_dst_reference(*bwd, ts, tr)
+    dk_ref, dv_ref = block_sparse_attention_bwd_src_reference(*bwd, td, trs)
+    ga_ref, gb_ref = block_sparse_bank_grads_reference(q, k, a, b, ge_ref,
+                                                       plan["pairs"])
+    torch.cuda.synchronize()
+    assert ge.shape == (H, plan["E"])
+    for x, y in zip((dq, ge, dk, dv, *banks[0]),
+                    (dq_ref, ge_ref, dk_ref, dv_ref, ga_ref, gb_ref)):
+        assert x.dtype == y.dtype
+        torch.testing.assert_close(x.float(), y.float(), **tol)
+    for x, y in zip((*runs[0][0], *runs[0][1], *banks[0]),
+                    (*runs[1][0], *runs[1][1], *banks[1])):
+        assert torch.equal(x, y)
+    after = [w.launches for w in (
+        block_sparse_attention, block_sparse_attention_with_stats,
+        block_sparse_attention_bwd_dst, block_sparse_attention_bwd_src,
+        block_sparse_bank_grads)]
+    assert [x - y for x, y in zip(after, counts)] == [1, 1, 2, 2, 2]
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_train_step_and_serving(card):
+    """A small f32 model under attention_impl "block_sparse" (4-hop pairs,
+    dropout 0) on the card: a training forward and backward launches B5s,
+    B6d, B6s and B6b once per encoder layer and B5 not at all, and its loss
+    and every parameter gradient agree with the same weights on the CPU
+    (plain versions) to 1e-4 relative, 1e-6 absolute; an encode without
+    gradients launches B5 once per layer and nothing else."""
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_edges, batch_to_device
+    from gtos_tpu_torch.utils.config import ModelConfig
+
+    g, t = synthetic_amr_corpus(4, seed=5, min_nodes=100, max_nodes=140)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    batch = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
+                     spec=BucketSpec(nodes=(128, 256), bank=(4096, 8192)),
+                     build_edges=True, build_block_tiles=True, sparse_khop=4)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=64, d_ff=128, heads=4, enc_layers=2,
+                      dec_layers=2, max_target_len=128, dropout=0.0,
+                      label_smoothing=0.1, attention_impl="block_sparse",
+                      sparse_khop=4)
+    wrappers = (block_sparse_attention, block_sparse_attention_with_stats,
+                block_sparse_attention_bwd_dst, block_sparse_attention_bwd_src,
+                block_sparse_bank_grads)
+    counts = [w.launches for w in wrappers]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Generator(cfg, device=dev).train()
+        names, params = zip(*model.named_parameters())
+        loss, _ = model(batch_to_device(batch.arrays(), dev))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        out[dev] = loss, dict(zip(names, grads))
+    torch.cuda.synchronize()
+    L = cfg.enc_layers
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [0, L, L, L,
+                                                                  L]
+    (cpu_loss, cpu_grads), (loss, grads) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-4, atol=1e-6)
+    for name, grad in grads.items():
+        torch.testing.assert_close(grad.cpu(), cpu_grads[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)
+    counts = [w.launches for w in wrappers]
+    arrays = batch_to_device(batch.arrays(), "cuda")
+    with torch.inference_mode():
+        model.encode(arrays["concept"], arrays["concept_char"],
+                     arrays["concept_mask"], arrays["rel_bank"],
+                     arrays["rel_length"], arrays["rel_index"],
+                     edges=batch_edges(arrays))
+    torch.cuda.synchronize()
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [L, 0, 0, 0,
+                                                                  0]

@@ -152,12 +152,26 @@ def test_long_targets_truncated_like_the_reference():
     dict(build_local_banks=True, for_train=True, host_shard=(0, 2)),
 ])
 def test_unported_batch_options_raise(flag):
-    """Options whose port comes in a later slice raise and name the
-    ROADMAP item; they never drop the request silently."""
+    """Options whose port comes in a later slice (host_shard: ROADMAP A9)
+    raise and name the ROADMAP item; they never drop the request silently.
+    The sparse tier's options, ported since (A8), give the JAX package's
+    arrays: the edge cells, or the four tile arrays."""
     g, t = synthetic_amr_corpus(2, seed=0)
     kw = dict(dict(for_train=False), **flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batchify(preprocess(g, t), *build_vocabs(g, t), **kw)
+    if "host_shard" in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            batchify(preprocess(g, t), *build_vocabs(g, t), **kw)
+        return
+    pa = batchify(preprocess(g, t), *build_vocabs(g, t), **kw).arrays()
+    jg, jt = jax_amr(2, seed=0)
+    ja = jax_batchify(jax_preprocess(jg, jt), *jax_build_vocabs(jg, jt),
+                      **kw).arrays()
+    assert ja.keys() == pa.keys()
+    assert ("edge_src" in pa) == ("build_edges" in flag)
+    assert ("tile_rel_src" in pa) == ("build_block_tiles" in flag)
+    for k in ja:
+        assert ja[k].dtype == pa[k].dtype, k
+        np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
 
 
 def test_batchify_takes_preprocessed_instances_only():
@@ -209,8 +223,8 @@ def test_auto_aux_batches_equal(amr2_200, for_train):
 def test_auto_local_bank_overflow():
     """Under "auto", a batch whose per-graph paths overflow the local-bank
     ladder re-raises BatchCapacityError below a tile-aligned bucket (the
-    DataLoader bisects it) and, at N % 128 == 0, names ROADMAP A8 (the JAX
-    package falls back to tile layouts there)."""
+    DataLoader bisects it) and, at N % 128 == 0, falls back to the tile
+    layouts (no local banks), with arrays equal to the JAX package's."""
     g, t = synthetic_amr_corpus(2, seed=4, min_nodes=20, max_nodes=24)
     vocabs = build_vocabs(g, t)
     kw = dict(for_train=False, build_block_tiles="auto",
@@ -218,9 +232,17 @@ def test_auto_local_bank_overflow():
     with pytest.raises(BatchCapacityError, match="local bank"):
         batchify(preprocess(g, t), *vocabs,
                  spec=BucketSpec(local_bank=(16,)), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        batchify(preprocess(g, t), *vocabs,
-                 spec=BucketSpec(nodes=(128,), local_bank=(16,)), **kw)
+    pa = batchify(preprocess(g, t), *vocabs,
+                  spec=BucketSpec(nodes=(128,), local_bank=(16,)),
+                  **kw).arrays()
+    jg, jt = jax_amr(2, seed=4, min_nodes=20, max_nodes=24)
+    ja = jax_batchify(jax_preprocess(jg, jt), *jax_build_vocabs(jg, jt),
+                      spec=JaxBucketSpec(nodes=(128,), local_bank=(16,)),
+                      **kw).arrays()
+    assert "tile_src" in pa and "bank_map" not in pa and "edge_src" not in pa
+    assert ja.keys() == pa.keys()
+    for k in ja:
+        np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
 
 
 PENMAN = """# ::id a.1 ::date 2024 ::snt The boy wants to go .

@@ -178,13 +178,16 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     # ported since (ROADMAP A7): these train
     pytest.param(["--attention_impl", "auto"], None, id="flags3-A7"),
     pytest.param(["--attention_impl", "pallas"], None, id="flags4-A7"),
-    (["--attention_impl", "sparse"], "A8"),
-    (["--attention_impl", "block_sparse"], "A8"),
+    # ported since (ROADMAP A8): these train, the second over 2-hop pairs
+    pytest.param(["--attention_impl", "sparse"], None, id="flags5-A8"),
+    pytest.param(["--attention_impl", "block_sparse", "--sparse_khop", "2"],
+                 None, id="flags6-A8"),
 ])
 def test_train_cli_refuses_unported_options(flags, item, tmp_path):
     """The train CLI's options whose feature is not ported raise and name
     the ROADMAP item that ports it, before any work; the options ported
-    since (item None: "auto" and "pallas") train a step on the CPU."""
+    since (item None: "auto", "pallas", "sparse" and "block_sparse") train
+    a step on the CPU."""
     argv = ["--synthetic", "8", "--device", "cpu", "--ckpt_dir",
             str(tmp_path), *flags]
     if item is None:
@@ -233,18 +236,18 @@ def test_model_config_json_loads_in_both_packages():
 @pytest.mark.parametrize("impl", ["pallas", "auto", "sparse",
                                   "block_sparse"])
 def test_unported_attention_impls_raise(impl):
-    """The JAX package's sparse encoder impls raise and name their ROADMAP
-    item; "pallas" and "auto", ported since, build."""
+    """Every attention impl of the JAX package is ported now ("pallas" and
+    "auto" since ROADMAP A7, the sparse ones since A8) and builds; a
+    context-parallel mesh still raises naming A9."""
     cfg = ModelConfig(**dict(TINY, attention_impl=impl))
-    if impl in ("pallas", "auto"):
-        assert Generator(cfg, device="cpu").cfg.attention_impl == impl
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Generator(cfg, device="cpu")
+    assert Generator(cfg, device="cpu").cfg.attention_impl == impl
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        Generator(cfg, device="cpu", cp_mesh=object())
 
 
 @pytest.mark.parametrize("impl", ["pallas_interpret", "auto_interpret",
-                                  "pallas_local_interpret"])
+                                  "pallas_local_interpret",
+                                  "block_sparse_interpret"])
 def test_interpret_impls_raise_value_error(impl):
     """The port has no interpret mode: the JAX package's "*_interpret"
     impls raise ValueError naming the impl to use (CPU tensors run the
@@ -263,6 +266,21 @@ def test_global_bank_train_step_imports_no_jax(impl):
         'attention_impl="pallas_local"', f'attention_impl="{impl}"').replace(
         "build_local_banks=True", 'build_local_banks="auto"')
     assert f'"{impl}"' in script
+    report = _run_port_script(script)
+    assert report["step"] == 1 and report["loss"] > 0
+    assert report["imported"] == []
+
+
+def test_block_sparse_train_step_imports_no_jax():
+    """In a fresh interpreter, a train step on the CPU under
+    "block_sparse" (edge cells and tiles at sparse_khop 2; the plain
+    versions of B5s and B6) leaves jax, flax and gtos_tpu out of
+    sys.modules."""
+    script = NO_JAX_TRAIN_SCRIPT.replace(
+        'attention_impl="pallas_local"', 'attention_impl="block_sparse"'
+    ).replace("build_local_banks=True", "build_edges=True, "
+              "build_block_tiles=True, sparse_khop=2")
+    assert "sparse_khop=2" in script and '"block_sparse"' in script
     report = _run_port_script(script)
     assert report["step"] == 1 and report["loss"] > 0
     assert report["imported"] == []

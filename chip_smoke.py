@@ -78,17 +78,18 @@ Phases, each of which exits non-zero on failure:
                enc_layers per batch, no other kernel), the encoder on the
                card against f32 on the CPU, C5_TRAIN_STEPS training steps
                (B5s = B6d = B6s = B6b = enc_layers per step), the loss and
-               every gradient against f32 on the CPU with two planted wrong
-               B6s, "sparse" against "block_sparse" on one batch, and a
-               bit-identical resume;
+               every gradient against f32 on the CPU with three planted
+               wrong B6s (B6d, B6s, B6b), "sparse" against "block_sparse"
+               on one batch, and a bit-identical resume;
   13. shapes — each kernel again, on the very inputs the serving runs (B1;
                B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
                B5s, B6d, B6s, B6b) gave it, against its plain version and
                timed: the table rows;
   14. profile — with --profile only: torch.profiler over each served batch
-               ("pallas_local") and over one train step ("pallas_local"
-               and "pallas"), the device busy time, idle share and top
-               kernels.
+               ("pallas_local"), over one train step ("pallas_local" and
+               "pallas") and over one c5 train step on each captured
+               batch ("block_sparse"), the device busy time, idle share,
+               top kernels and each block-sparse kernel's share.
 The last three lines are the kernel table (JSON), the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -1892,18 +1893,21 @@ def phase_work():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_profile_train(trainer, ms_step, impl="pallas_local"):
+def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
+                        label=None):
     """Where a train step's time goes (--profile): torch.profiler over one
-    more step on a train batch of the `impl` loader, its device busy time,
-    the idle share against the unprofiled mean step time of the train
-    phase, and the busiest kernels."""
+    more step on `batch` (default: a train batch of the `impl` loader), its
+    device busy time, the idle share against the unprofiled mean step time
+    of the train phase, the busiest kernels, and the share of device time
+    of each hand-written block-sparse kernel that ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gtos_tpu_torch.models.generator import batch_to_device
 
-    batch = next(iter(train_loader(impl=impl)))
+    if batch is None:
+        batch = next(iter(train_loader(impl=impl)))
     arrays = batch_to_device(batch.arrays(), "cuda")
     trainer.train_step(arrays)                      # warm
     torch.cuda.synchronize()
@@ -1920,7 +1924,8 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local"):
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if busy_ms <= 0:
         fail("the profiler recorded no device time")
-    print(f"[profile] {impl} train step (B={batch.concept_mask.shape[0]} "
+    label = label or f"{impl} train step"
+    print(f"[profile] {label} (B={batch.concept_mask.shape[0]} "
           f"N={batch.concept_mask.shape[1]} T={batch.token_in.shape[1]}): "
           f"device busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall:.4f}"
           f" of this step's {wall:.3f} ms wall, {1 - busy_ms / ms_step:.4f} "
@@ -1929,6 +1934,12 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local"):
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:90]}")
+    for e in dev:
+        if "blk_" in e.key:
+            print(f"[profile]   block-sparse kernel "
+                  f"{e.self_device_time_total / 1e3:.3f} ms "
+                  f"({e.self_device_time_total / 1e3 / busy_ms:.4f} of "
+                  f"device busy) {e.count}x {e.key[:110]}")
 
 
 # ------------------------------------- block-sparse kernels B5, B5s and B6
@@ -1973,15 +1984,16 @@ def block_inputs(batch, H, Dh, dtype, seed=0):
 
 def block_bound(kind, args, src_planes=None):
     """(bound_ms, bound_by) on an H100 SXM of B5, B5s, B6d, B6s or B6b on
-    these inputs. Counted once each: q, k, v (B6: and gp) read and the
-    outputs written (B5: out; B5s: and m, l; B6d: dq and ge [H, E] f32; B6s:
-    dk, dv; B6b: the dense g_a, g_b [P, H, Dh]); the statistics and delta
-    (B6); the tile planes walked (B6s: the src-major ones; B6d: and
-    row_base); of the banks only the rows the kept pairs reference, with
-    their t4 (B6b: and ge, the three sorted pair arrays, and q, k once).
+    these inputs. Counted once each: the inputs read and the outputs
+    written (B5: q, k, v, out; B5s: and m, l; B6d: q, k, v, gp, the
+    statistics and delta, dq, ge and pair_s [H, E, 2] f32, dst2src; B6s:
+    q, gp, pair_s, dk, dv; B6b: ge, the three sorted pair arrays, q, k and
+    the dense g_a, g_b [P, H, Dh]); the tile planes walked (B6s: the
+    src-major ones) and B6's row bases; of the banks only the rows the kept
+    pairs reference (B6s: of a only), with their t4 (B5, B5s, B6d).
     Operations per kept pair and head, in Dh multiply-adds (2 operations
-    each): q.k, q.b, k.a, p.v (B5); those and g.v, dq (B6d); and g.v, dk,
-    dv (B6s); g_a, g_b (B6b)."""
+    each): q.k, q.b, k.a, p.v (B5); q.k, q.b, k.a, g.v, dq (B6d); dk (two)
+    and dv (B6s); g_a, g_b (B6b)."""
     from gtos_tpu_torch.ops.block_sparse_attention import tile_pairs
 
     q, P, ts, tr = args[0], args[3].shape[0], args[5], args[6]
@@ -1999,12 +2011,13 @@ def block_bound(kind, args, src_planes=None):
         nbytes, macs = 4 * node + 2 * stats + planes + banks, 4
     elif kind == "B6d":
         nbytes = (5 * node + 3 * stats + planes + tr.numel() // 128 * 4
-                  + banks + H * E * 4)
+                  + banks + H * E * 12 + E * 4)
         macs = 5
     elif kind == "B6s":
-        nbytes = (6 * node + 3 * stats + banks
-                  + (src_planes[0].numel() + src_planes[1].numel()) * 4)
-        macs = 6
+        ts_, trs = src_planes
+        nbytes = (4 * node + R * H * Dh * elt + H * E * 8
+                  + (ts_.numel() + trs.numel() + trs.numel() // 128) * 4)
+        macs = 3
     else:
         nbytes = (H * E * 4 + 3 * E * 4 + 2 * node + R * H * 2 * Dh * elt
                   + 2 * P * H * Dh * elt)
@@ -2056,9 +2069,10 @@ def check_b5(label, args, with_stats=False):
                        block_bound(name, args), ms, plain_ms)
 
 
-def b6_args(args, g):
+def b6_args(args, src, g):
     """B6's inputs for B5's: t4, gp, the forward's m, l and delta (from
-    B5s's plain version), and the backward plan."""
+    B5s's plain version), and the backward plan (src: the src-major
+    layout)."""
     from gtos_tpu_torch.ops import block_sparse_attention as bsa
     from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
         backward_plan, prep_bwd_invariants)
@@ -2067,30 +2081,37 @@ def b6_args(args, g):
     t4 = bsa.bank_t4(a, b)
     out, m, l = bsa.block_sparse_attention_with_stats_reference(*args, t4=t4)
     gp, delta = prep_bwd_invariants(q, g, out)
-    plan = backward_plan(args[5], args[6], q.shape[2], a.shape[0])
+    plan = backward_plan(args[5], args[6], *src, q.shape[2], a.shape[0])
     return (*args[:5], t4, gp, m, l, delta), plan
 
 
 def check_b6(label, args, src, g=None, bwd=None):
     """B6d, B6s and B6b against their plain versions on the same inputs
     (dq and ge; dk and dv; g_a and g_b), each giving the same bits on a
-    second launch (no atomics), then each timed with its plain version;
-    returns the three kernels' numbers. bwd: (B6 inputs, plan) as a
-    training step gave them, else built from g."""
+    second launch (no atomics; B6d's pair_s too), then each timed with its
+    plain version (B6s reading the first B6d launch's pair_s); returns the
+    three kernels' numbers. bwd: (B6 inputs, plan) as a training step gave
+    them, else built from g."""
     import torch
 
     from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
 
-    core, plan = bwd if bwd is not None else b6_args(args, g)
+    core, plan = bwd if bwd is not None else b6_args(args, src, g)
     q, k, a, b = core[0], core[1], core[3], core[4]
     ts, tr = args[5], args[6]
     dtype_name = _dtype_name(q)
     P, E = a.shape[0], plan["E"]
     dst = lambda: bwd_mod.block_sparse_attention_bwd_dst(  # noqa: E731
         *core, ts, tr, plan)
-    srcp = lambda: bwd_mod.block_sparse_attention_bwd_src(  # noqa: E731
-        *core, *src)
-    first, again = (dst(), srcp()), (dst(), srcp())
+    srcp = lambda pair_s: bwd_mod.block_sparse_attention_bwd_src(  # noqa
+        *core, *src, plan, pair_s)
+    first, again = [], []
+    for run in (first, again):
+        run.append(dst())
+        run.append(srcp(run[0][2]))
+    if not torch.equal(first[0][2], again[0][2]):
+        fail(f"B6d {label} {dtype_name}: pair_s differs between two launches "
+             "on the same inputs")
     bank = lambda: bwd_mod.block_sparse_bank_grads(  # noqa: E731
         q, k, a, b, first[0][1], plan)
     banks = (bank(), bank())
@@ -2104,7 +2125,8 @@ def check_b6(label, args, src, g=None, bwd=None):
             ("B6d", ("dq", "ge"), first[0], again[0], ref_dst, dst,
              lambda: bwd_mod.block_sparse_attention_bwd_dst_reference(
                  *core, ts, tr)),
-            ("B6s", ("dk", "dv"), first[1], again[1], ref_src, srcp,
+            ("B6s", ("dk", "dv"), first[1], again[1], ref_src,
+             lambda: srcp(first[0][2]),
              lambda: bwd_mod.block_sparse_attention_bwd_src_reference(
                  *core, *src)),
             ("B6b", ("g_a", "g_b"), banks[0], banks[1], ref_bank, bank,
@@ -2378,37 +2400,59 @@ def phase_c5_train():
         fail(f"non-finite c5 training loss: {log.losses()}")
     steady = [r["ms_per_step"] for r in log.records[1:]]
     tokens = sum(int(b.token_mask.sum()) for b in batches)
+    ms_step = sum(steady) / len(steady)
     print(f"[c5 train] {C5_TRAIN_STEPS} steps in {wall:.3f} s; "
-          f"{sum(steady) / len(steady):.3f} ms/step after step 1; "
+          f"{ms_step:.3f} ms/step after step 1; "
           f"{tokens / wall:.1f} target tokens/s; launches "
           f"{ {k: v for k, v in launches.items() if v} } = "
           f"{cfg.enc_layers} layers x {C5_TRAIN_STEPS} steps", flush=True)
-    return trainer, batches, launches
+    return trainer, batches, launches, ms_step
 
 
 def planted_b6(kind):
     """B6 made wrong on purpose, as a control for the gradient check: B6d's
-    dq without its b_r term ("no GT2.b term in dq"), or B6b's bank
+    dq without its b_r term ("no GT2.b term in dq"), B6s's dk without its
+    a_r term ("no GT3.a term in dk": the wrapper's dk less each kept
+    pair's ge' a_r, with ge from the plain pair gradients), or B6b's bank
     gradients without the t4 redistribution ("no t4 redistribution").
     Returns (the wrapper's name, the planted function)."""
     import torch
 
     from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
+    from gtos_tpu_torch.ops.block_sparse_attention import tile_pairs
+    from gtos_tpu_torch.ops.relation_attention import _default_scale
 
     if kind == "no GT2.b term in dq":
         real = bwd_mod.block_sparse_attention_bwd_dst
 
         def wrong(q, k, v, a, b, t4, gp, m, l, delta, ts, tr, plan=None,
                   scale=None):
-            dq, ge = real(q, k, v, a, b, t4, gp, m, l, delta, ts, tr, plan,
-                          scale)
+            dq, ge, pair_s = real(q, k, v, a, b, t4, gp, m, l, delta, ts, tr,
+                                  plan, scale)
             bi, i, _, r = plan["pairs"]
             B, H, N, Dh = q.shape
             w = ge.T.to(q.dtype).float()[..., None] * b[r].float()
             part = torch.zeros(B * N, H, Dh, device=q.device).index_add_(
                 0, bi * N + i, w).view(B, N, H, Dh).transpose(1, 2)
-            return (dq.float() - part).to(dq.dtype), ge
+            return (dq.float() - part).to(dq.dtype), ge, pair_s
         return "block_sparse_attention_bwd_dst", wrong
+    if kind == "no GT3.a term in dk":
+        real_src = bwd_mod.block_sparse_attention_bwd_src
+
+        def wrong_src(q, k, v, a, b, t4, gp, m, l, delta, td, trs,
+                      plan=None, pair_s=None, scale=None):
+            dk, dv = real_src(q, k, v, a, b, t4, gp, m, l, delta, td, trs,
+                              plan, pair_s, scale)
+            B, H, N, Dh = q.shape
+            bi, j, i, r, _ = tile_pairs(td, trs, N, a.shape[0])
+            ge, _ = bwd_mod._pair_grads(
+                q, k, v, a, b, t4, gp, m, l, delta, bi, i, j, r,
+                _default_scale(q, scale))
+            w = ge.to(q.dtype).float()[..., None] * a[r].float()
+            part = torch.zeros(B * N, H, Dh, device=q.device).index_add_(
+                0, bi * N + j, w).view(B, N, H, Dh).transpose(1, 2)
+            return (dk.float() - part).to(dk.dtype), dv
+        return "block_sparse_attention_bwd_src", wrong_src
     real = bwd_mod.block_sparse_bank_grads
 
     def wrong(q, k, a, b, ge, plan):
@@ -2492,7 +2536,8 @@ def phase_c5_grads():
         if not ok:
             fail(f"the {dtype_name} c5 model's loss and gradients on the card"
                  " disagree with the f32 CPU run")
-    for kind in ("no GT2.b term in dq", "no t4 redistribution"):
+    for kind in ("no GT2.b term in dq", "no GT3.a term in dk",
+                 "no t4 redistribution"):
         name, wrong = planted_b6(kind)
         with wrapper_replaced(name, wrong):
             passed = [check(dtype_name, f"planted B6 ({kind})")[0]
@@ -2607,11 +2652,12 @@ def phase_block_shapes(serve_inputs, serve_launches, train_inputs,
     return [table_row(name, found, launches) for name, found in rows.items()]
 
 
-def phase_block_sparse():
+def phase_block_sparse(profile=False):
     """The c5 model at full width under "block_sparse": serving, the
-    encoder check, training, the gradient check with planted B6s and
-    "sparse", a bit-identical resume, and the kernel table's rows on the
-    main path's own inputs."""
+    encoder check, training (with `profile`, one more profiled step on
+    each of the captured train batches), the gradient check with planted
+    B6s and "sparse", a bit-identical resume, and the kernel table's rows
+    on the main path's own inputs."""
     import torch
 
     from gtos_tpu_torch.models import Generator
@@ -2628,9 +2674,13 @@ def phase_block_sparse():
     phase_c5_encoder(cfg, model, batches[0])
     del model
     torch.cuda.empty_cache()
-    trainer, train_batches, train_launches = phase_c5_train()
+    trainer, train_batches, train_launches, ms_step = phase_c5_train()
     train_inputs = capture_block_train_inputs(
         trainer, train_batches[:CAPTURE_BATCHES])
+    if profile:
+        for i, batch in enumerate(train_batches[:CAPTURE_BATCHES]):
+            phase_profile_train(trainer, ms_step, batch=batch,
+                                label=f"c5 block_sparse train step {i + 1}")
     del trainer
     torch.cuda.empty_cache()
     phase_c5_grads()
@@ -2754,7 +2804,7 @@ def main():
         del trainer, model
     torch.cuda.empty_cache()
     # "block_sparse": the c5 model and the kernels B5, B5s, B6d, B6s, B6b
-    rows += phase_block_sparse()
+    rows += phase_block_sparse(args.profile)
     if args.profile:
         phase_profile(model, tv, batches, seconds)
         phase_profile_train(trainer, ms_step)

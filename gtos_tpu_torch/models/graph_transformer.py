@@ -234,8 +234,8 @@ class GraphTransformer(nn.Module):
             if (impl == "block_sparse" and torch.is_grad_enabled()
                     and "tile_dst" in edges):
                 edges["blk_plan"] = backward_plan(
-                    edges["tile_src"], edges["tile_rel"], x.shape[1],
-                    rel_vecs.shape[0])
+                    edges["tile_src"], edges["tile_rel"], edges["tile_dst"],
+                    edges["tile_rel_src"], x.shape[1], rel_vecs.shape[0])
         for i in range(self.layers):
             x = getattr(self, f"layer{i}")(x, rel_vecs, rel_index,
                                            node_mask, edges, impl)

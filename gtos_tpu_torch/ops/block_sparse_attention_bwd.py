@@ -22,15 +22,20 @@ bwd.cu), each with a wrapper that launches it for CUDA tensors, runs its
 plain torch version for CPU tensors and counts its launches:
 
   B6d `block_sparse_attention_bwd_dst`  dst-major over tile_src/tile_rel:
-      dq and ge [H, E] (f32, per kept pair, E pairs in the planes' order);
+      dq, ge [H, E] (f32, per kept pair, E pairs in the planes' order) and
+      pair_s [H, E, 2] (f32, each pair's ge and p at its src-major place);
   B6s `block_sparse_attention_bwd_src`  src-major over tile_dst/
-      tile_rel_src: dk and dv;
+      tile_rel_src: dk and dv from B6d's pair_s, with no score;
+      both a block per own node whose warps, a head each, share one read
+      of the plane rows and walk the kept pairs 8 lanes a pair, 16 bytes
+      a lane, each row read once;
   B6b `block_sparse_bank_grads`         g_a and g_b from ge, summed over
       the pairs of each bank row in a fixed order.
 
-`backward_plan` builds, from the tile layout, what B6d and B6b walk: each
-plane row's first pair id and the pairs sorted by bank row. It depends on
-the batch only, so the encoder stack builds it once for all its layers.
+`backward_plan` builds, from the two tile layouts, what B6d, B6s and B6b
+walk: each plane row's first pair id in both orders, each pair's src-major
+place and the pairs sorted by bank row. It depends on the batch only, so
+the encoder stack builds it once for all its layers.
 """
 
 from __future__ import annotations
@@ -62,19 +67,38 @@ def prep_bwd_invariants(q, g, out):
             (g.float() * out.float()).sum(-1).contiguous())
 
 
-def backward_plan(tile_src, tile_rel, N: int, P: int) -> Dict:
-    """The pair orders of the backward for one batch (torch, on the
-    layout's device): `row_base` [B, Td, Smax, 128] int32, the id of each
-    plane row's first kept pair, pair ids running in the planes' order;
-    `E`, the number of kept pairs; and in bank-row order (stable) `pid`,
-    `qrow` (b*N + i) and `krow` (b*N + j) [E] int32, the runs of one bank
-    row `run_r` [R] and `run_start` [R + 1], split into `long_runs` (more
-    than LONG_RUN pairs) and `short_runs`; `pairs`, (b, i, j, r) int64 in
-    pair-id order, for the plain versions."""
-    bi, i, j, r, valid = tile_pairs(tile_src, tile_rel, N, P)
+def _row_base(valid):
+    """[B, Tn, S, 128] int32: the place of each plane row's first kept
+    pair, the pairs counted in the planes' order."""
     counts = valid.sum(-1, dtype=torch.int32)
-    row_base = (torch.cumsum(counts.flatten(), 0, dtype=torch.int32)
-                - counts.flatten()).view(counts.shape)
+    return (torch.cumsum(counts.flatten(), 0, dtype=torch.int32)
+            - counts.flatten()).view(counts.shape).contiguous()
+
+
+def backward_plan(tile_src, tile_rel, tile_dst, tile_rel_src, N: int,
+                  P: int) -> Dict:
+    """The pair orders of the backward for one batch (torch, on the
+    layouts' device): `row_base` [B, Td, Smax, 128] int32, the id of each
+    plane row's first kept pair, pair ids running in the dst-major planes'
+    order; `E`, the number of kept pairs; `src_row_base` [B, Ts, Smax_s,
+    128] int32, the same over the src-major planes, whose order gives each
+    pair its src-major place, and `dst2src` [E] int32, the src-major place
+    of each pair id; in bank-row order (stable) `pid`, `qrow` (b*N + i)
+    and `krow` (b*N + j) [E] int32, the runs of one bank row `run_r` [R]
+    and `run_start` [R + 1], split into `long_runs` (more than LONG_RUN
+    pairs) and `short_runs`; `pairs`, (b, i, j, r) int64 in pair-id order,
+    for the plain versions. Raises ValueError when the two layouts do not
+    hold the same pairs."""
+    bi, i, j, r, valid = tile_pairs(tile_src, tile_rel, N, P)
+    sb, sj, si, sr, svalid = tile_pairs(tile_dst, tile_rel_src, N, P)
+    key = (bi * N + i) * N + j
+    skey = (sb * N + si) * N + sj
+    sorted_skey, by_key = torch.sort(skey)
+    at = torch.searchsorted(sorted_skey, key).clamp_max(max(len(skey) - 1, 0))
+    if len(skey) != len(key) or not bool(
+            (sorted_skey[at] == key).all() and (sr[by_key[at]] == r).all()):
+        raise ValueError("the src-major tile layout does not hold the "
+                         "dst-major layout's pairs")
     order = torch.argsort(r, stable=True)
     run_r, run_len = torch.unique_consecutive(r[order], return_counts=True)
     run_start = torch.zeros(len(run_len) + 1, dtype=torch.int64,
@@ -82,7 +106,8 @@ def backward_plan(tile_src, tile_rel, N: int, P: int) -> Dict:
     torch.cumsum(run_len, 0, out=run_start[1:])
     long = run_len > LONG_RUN
     i32 = torch.int32
-    return dict(row_base=row_base.contiguous(), E=int(r.numel()),
+    return dict(row_base=_row_base(valid), E=int(r.numel()),
+                src_row_base=_row_base(svalid), dst2src=by_key[at].to(i32),
                 pid=order.to(i32), qrow=(bi * N + i)[order].to(i32),
                 krow=(bi * N + j)[order].to(i32), run_r=run_r.to(i32),
                 run_start=run_start.to(i32),
@@ -170,19 +195,27 @@ def block_sparse_bank_grads_reference(q, k, a_bank, b_bank, ge, pairs):
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels():
     """B6d's, B6s's and B6b's C entry points, with argument types."""
-    lib = build.load(BWD_SOURCE)
-    dst, src, bank = (lib.gtos_blk_attn_bwd_dst, lib.gtos_blk_attn_bwd_src,
-                      lib.gtos_blk_bank_grads)
+    return kernel_entries(build.load(BWD_SOURCE))
+
+
+def kernel_entries(lib):
+    """(B6d, B6s, B6b, variant) entry points of a library built from
+    BWD_SOURCE, with argument types; variant(v) forces B6d's and B6s's
+    bf16 variant v (-1: their own) and returns the number of variants, 0
+    unless the library was built with GTOS_B6_VARIANTS."""
+    dst, src, bank, variant = (
+        lib.gtos_blk_attn_bwd_dst, lib.gtos_blk_attn_bwd_src,
+        lib.gtos_blk_bank_grads, lib.gtos_blk_attn_bwd_variant)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    dst.argtypes = ([i32] + [ptr] * 15 + [i32] * 8
+    dst.argtypes = ([i32] + [ptr] * 17 + [i32] * 8
                     + [ctypes.c_float, ptr])
-    src.argtypes = ([i32] + [ptr] * 14 + [i32] * 7
-                    + [ctypes.c_float, ptr])
+    src.argtypes = [i32] + [ptr] * 9 + [i32] * 8 + [ptr]
     bank.argtypes = ([i32] + [ptr] * 11 + [i32, ptr, i32, ptr, ptr]
                      + [i32] * 4 + [ptr])
-    for fn in (dst, src, bank):
+    variant.argtypes = [i32]
+    for fn in (dst, src, bank, variant):
         fn.restype = ctypes.c_int
-    return dst, src, bank
+    return dst, src, bank, variant
 
 
 def _check_bwd(q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tiles, rels):
@@ -194,49 +227,62 @@ def _check_bwd(q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tiles, rels):
         _check(name, t, (B, H, N), torch.float32, q.device)
 
 
+def _check_plan(plan, q, tiles, key):
+    """The plan's row bases for this layout and its pair count."""
+    if plan is None or key not in plan:
+        raise ValueError("the block-sparse backward kernels need "
+                         "backward_plan(tile_src, tile_rel, tile_dst, "
+                         "tile_rel_src, N, P)")
+    B, Tn, Smax = tiles.shape
+    _check(key, plan[key], (B, Tn, Smax, 128), torch.int32, q.device)
+    return plan["E"]
+
+
 def block_sparse_attention_bwd_dst(q, k, v, a_bank, b_bank, t4, gp, m, l,
                                    delta, tile_src, tile_rel, plan=None,
                                    scale=None):
-    """B6d: (dq [B, H, N, Dh] in q's type, ge [H, E] f32). t4: bank_t4;
-    gp: the cotangent in q's type; m, l: B5s's statistics; delta [B, H, N]
-    f32 (prep_bwd_invariants); plan: backward_plan(tile_src, tile_rel, N,
-    P), built here when not given (the CPU's plain version needs none).
-    Same limits as B5."""
+    """B6d: (dq [B, H, N, Dh] in q's type, ge [H, E] f32, pair_s [H, E, 2]
+    f32: each pair's ge and p at its src-major place, for B6s; None for
+    CPU tensors, whose B6s recomputes them). t4: bank_t4; gp: the
+    cotangent in q's type; m, l: B5s's statistics; delta [B, H, N] f32
+    (prep_bwd_invariants); plan: backward_plan (on the card; the CPU's
+    plain version needs none). Same limits as B5."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
-        return block_sparse_attention_bwd_dst_reference(
+        return (*block_sparse_attention_bwd_dst_reference(
             q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tile_src, tile_rel,
-            scale)
+            scale), None)
     check_layout(q, tile_src, tile_rel)
     _check_bwd(q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tile_src,
                tile_rel)
     B, H, N, Dh = q.shape
     Td, Smax = tile_src.shape[1:]
-    if plan is None:
-        plan = backward_plan(tile_src, tile_rel, N, a_bank.shape[0])
-    _check("row_base", plan["row_base"], (B, Td, Smax, 128), torch.int32,
-           q.device)
-    E = plan["E"]
+    E = _check_plan(plan, q, tile_src, "row_base")
+    _check("dst2src", plan["dst2src"], (E,), torch.int32, q.device)
     dq = torch.empty_like(q)
     ge = torch.empty(H, E, dtype=torch.float32, device=q.device)
+    pair_s = torch.empty(H, E, 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_kernels()[0](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             a_bank.data_ptr(), b_bank.data_ptr(), t4.data_ptr(),
             gp.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
             tile_src.data_ptr(), tile_rel.data_ptr(),
-            plan["row_base"].data_ptr(), dq.data_ptr(), ge.data_ptr(), B, H,
-            N, Dh, a_bank.shape[0], Td, Smax, E, float(scale), _stream(q))
+            plan["row_base"].data_ptr(), plan["dst2src"].data_ptr(),
+            dq.data_ptr(), ge.data_ptr(), pair_s.data_ptr(), B, H, N, Dh,
+            a_bank.shape[0], Td, Smax, E, float(scale), _stream(q))
     _raise_on(err, "block-sparse attention backward (dst pass)")
     block_sparse_attention_bwd_dst.launches += 1
-    return dq, ge
+    return dq, ge, pair_s
 
 
 def block_sparse_attention_bwd_src(q, k, v, a_bank, b_bank, t4, gp, m, l,
-                                   delta, tile_dst, tile_rel_src,
-                                   scale=None):
+                                   delta, tile_dst, tile_rel_src, plan=None,
+                                   pair_s=None, scale=None):
     """B6s: (dk, dv) [B, H, N, Dh] in the input types, from the src-major
-    layout. Arguments as B6d's; same limits."""
+    layout. Arguments as B6d's, and on the card B6d's pair_s for the same
+    inputs: the kernel reads each pair's ge and p there and gathers only
+    q_i, gp_i and a_r. Same limits."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
         return block_sparse_attention_bwd_src_reference(
@@ -247,15 +293,18 @@ def block_sparse_attention_bwd_src(q, k, v, a_bank, b_bank, t4, gp, m, l,
                tile_rel_src)
     B, H, N, Dh = q.shape
     Ts, Smax = tile_dst.shape[1:]
+    E = _check_plan(plan, q, tile_dst, "src_row_base")
+    if pair_s is None:
+        raise ValueError("B6s on the card reads B6d's pair_s")
+    _check("pair_s", pair_s, (H, E, 2), torch.float32, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _bwd_kernels()[1](
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            a_bank.data_ptr(), b_bank.data_ptr(), t4.data_ptr(),
-            gp.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-            tile_dst.data_ptr(), tile_rel_src.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, N, Dh, a_bank.shape[0], Ts, Smax,
-            float(scale), _stream(q))
+            _DTYPES[q.dtype], q.data_ptr(), gp.data_ptr(), a_bank.data_ptr(),
+            tile_dst.data_ptr(), tile_rel_src.data_ptr(),
+            plan["src_row_base"].data_ptr(), pair_s.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, N, Dh, a_bank.shape[0], Ts,
+            Smax, E, _stream(q))
     _raise_on(err, "block-sparse attention backward (src pass)")
     block_sparse_attention_bwd_src.launches += 1
     return dk, dv
@@ -309,13 +358,14 @@ def block_sparse_attention_bwd(q, k, v, a_bank, b_bank, tile_src, tile_rel,
     scale = _default_scale(q, scale)
     t4 = bank_t4(a_bank, b_bank) if t4 is None else t4
     if plan is None:
-        plan = backward_plan(tile_src, tile_rel, q.shape[2], a_bank.shape[0])
+        plan = backward_plan(tile_src, tile_rel, tile_dst, tile_rel_src,
+                             q.shape[2], a_bank.shape[0])
     gp, delta = prep_bwd_invariants(q, g, out)
-    dq, ge = mod.block_sparse_attention_bwd_dst(
+    dq, ge, pair_s = mod.block_sparse_attention_bwd_dst(
         q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tile_src, tile_rel,
         plan, scale)
     dk, dv = mod.block_sparse_attention_bwd_src(
         q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tile_dst, tile_rel_src,
-        scale)
+        plan, pair_s, scale)
     g_a, g_b = mod.block_sparse_bank_grads(q, k, a_bank, b_bank, ge, plan)
     return dq, dk, dv, g_a, g_b

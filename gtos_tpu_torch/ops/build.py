@@ -22,18 +22,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
-def library_path(source: str) -> Path:
-    """Where the library of `source` (a file name in csrc/) is built."""
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(source: str, defines=()) -> Path:
+    """Where the library of `source` (a file name in csrc/) is built, with
+    the preprocessor macros `defines`."""
     text = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        text + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 
-def build(source: str) -> str:
-    """Compile `source` unless its library exists. Returns nvcc's output
-    (ptxas's register and spill report), "" if nothing was compiled.
-    Raises RuntimeError with that output if the compile fails."""
-    out = library_path(source)
+def build(source: str, defines=()) -> str:
+    """Compile `source` (with the macros `defines`) unless its library
+    exists. Returns nvcc's output (ptxas's register and spill report), ""
+    if nothing was compiled. Raises RuntimeError with that output if the
+    compile fails."""
+    out = library_path(source, defines)
     if out.exists():
         return ""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -42,8 +49,8 @@ def build(source: str) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
-         str(CSRC_DIR / source)],
+        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *_flags(defines), "-o",
+         str(tmp), str(CSRC_DIR / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
@@ -52,7 +59,8 @@ def build(source: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of `source`, built first if missing."""
-    build(source)
-    return ctypes.CDLL(str(library_path(source)))
+def load(source: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of `source` (with the macros `defines`, a
+    tuple), built first if missing."""
+    build(source, defines)
+    return ctypes.CDLL(str(library_path(source, defines)))

@@ -27,22 +27,49 @@
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s f32): per
 // kept pair and head about 12 Dh multiply-adds over the three kernels,
 // against the bytes of q, k, v, gp, the statistics, the tile planes, the
-// referenced bank rows, ge and the outputs: the bytes bound it.
+// referenced bank rows, ge and the outputs: the bytes bound it. What holds
+// B6d and B6s above it is the latency of their gathers: each kept pair
+// reads its partner's rows and its bank rows from L2, rows that differ
+// from pair to pair, and a 128x128 block keeps 2-10% of its pairs at the
+// c5 model's 4 hops, too few to reuse a staged partner row.
 //
-// Design: the TPU kernels scatter ge into dense [T, H, P_pad] GT2/GT3 rows
-// with one-hot matmuls and keep the bank gradients resident across the
-// sequential grid; neither carries over to 132 SMs running blocks in no
-// order. Here the dst-major pass (B6d, one warp per dst node, the forward's
-// walk) accumulates dq in registers and writes each kept pair's ge (f32) at
-// the pair's id: its rank in the dst-major order of the tile planes, from
-// `row_base`. The src-major pass (B6s, one warp per src node) walks
-// tile_dst/tile_rel_src the same way, recomputes p and ge and accumulates
-// dk and dv. The bank pass (B6b) reads the pairs sorted by bank row (a
-// stable order built once per encoder stack): a warp per (bank row, head)
-// for rows with few pairs, and for rows with many (the global node's, the
-// self path's) a block of 32 warps that split the row's pairs in 32
-// contiguous parts and add the parts in a fixed order. No atomics: the same
-// bits on every run.
+// B6d and B6s: one template, `blk_attn_bwd_pass`. The "own" node is the
+// one whose gradient the pass writes (B6d: the dst node i; B6s: the src
+// node j), the "partner" the other end of each pair (B6d: rows k and v;
+// B6s: q and gp). A block per own node and up to 8 heads, a warp a head:
+//   - the planes are read once for all heads: each warp reads the tile id
+//     and the plane row of one slot (8 slots in one round trip), compacts
+//     its kept pairs by ballot into a list in shared memory (partner,
+//     bank row, pair id), and after a barrier every warp walks the whole
+//     list for its head;
+//   - a warp takes the list in rounds: 4 groups of 8 lanes, a group
+//     holding kGu pairs and each lane reading its 16-byte chunks of a
+//     pair's rows all at once, so a round costs one round trip; the rows
+//     stay in registers for all their uses; the 4 groups' sums add in a
+//     fixed butterfly at the end;
+//   - B6d scores each pair (q.k + q.b + k.a + t4, gp.v: its own rows q
+//     and gp in registers), adds ge' (k_j + b_r) into dq, writes ge at the
+//     pair's dst-major id (row_base + rank in the plane row, the order B6b
+//     reads) and (ge, p) at its src-major place (dst2src[id]);
+//   - B6s reads (ge, p) at its own pairs' places, which follow the src-
+//     major planes (row_base there + rank), and only gathers q_i, gp_i and
+//     a_r: ge' (q_i + a_r) into dk, p' gp_i into dv. No score, no softmax
+//     statistics, no b_r.
+// kGu and the registers a thread may hold trade the round trips in flight
+// per warp against the warps per SM.
+// The design that stages each slot's partner tile in shared memory and
+// runs the block's content products on the tensor cores (mma.sync) was
+// built and measured on the H100 and was slower at every density tried
+// (2-99% of a block's pairs kept; PERF.md, Findings): at the c5
+// model's 2-10% a staged partner row serves one or two pairs, and the
+// block's barrier-separated phases, each a round trip, set the time.
+//
+// B6b reads the pairs sorted by bank row (a stable order built once per
+// encoder stack): a warp per (bank row, head) for rows with few pairs, and
+// for rows with many (the global node's, the self path's) a block of 32
+// warps that split the row's pairs in 32 contiguous parts and add the parts
+// in a fixed order. No atomics in any of the three: the same bits on every
+// run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,10 +79,10 @@
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kWarps = 8;             // nodes per block in B6d / B6s
+constexpr int kThreads = 256;         // a B6d / B6s block: 8 warps
+constexpr int kPassWarps = kThreads / 32;
 constexpr int kMaxDh = 128;
-constexpr int kMaxDPL = kMaxDh / 32;  // head dims per lane
-constexpr int kBuf = 64;              // compacted pairs per warp
+constexpr int kMaxDPL = kMaxDh / 32;  // head dims per lane (B6b)
 constexpr int kBankWarps = 32;        // warps of a B6b block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -76,202 +103,274 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+// 8 values of a row as read (16 bytes of bf16, 32 bytes of f32)
+template <typename T> struct Chunk;
+template <> struct Chunk<__nv_bfloat16> { uint4 u; };
+template <> struct Chunk<float> { float4 a, b; };
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           Chunk<__nv_bfloat16>& c) {
+  c.u = __ldg(reinterpret_cast<const uint4*>(p));
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ void load_chunk(const float* p, Chunk<float>& c) {
+  c.a = __ldg(reinterpret_cast<const float4*>(p));
+  c.b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+}
+__device__ __forceinline__ void unpack(const Chunk<__nv_bfloat16>& c,
+                                       float* o) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&c.u);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float2 f = __bfloat1622float2(h[c]);
-    o[2 * c] = f.x;
-    o[2 * c + 1] = f.y;
+  for (int x = 0; x < 4; ++x) {
+    const float2 f = __bfloat1622float2(h[x]);
+    o[2 * x] = f.x;
+    o[2 * x + 1] = f.y;
   }
 }
-
-// (e_ij / scale, dp_ij) of one pair. kDst: the warp's own node is the dst
-// i, so `own_a` = q_i and `own_b` = gp_i (f32, shared memory) and the rows
-// are x = k_j, y = v_j; otherwise the own node is the src j (own_a = k_j,
-// own_b = v_j) and x = q_i, y = gp_i. a_r, b_r: the pair's bank rows.
-template <typename T, bool kDst>
-__device__ __forceinline__ float2 pair_terms(const float* __restrict__ own_a,
-                                             const float* __restrict__ own_b,
-                                             const T* __restrict__ xrow,
-                                             const T* __restrict__ yrow,
-                                             const T* __restrict__ arow,
-                                             const T* __restrict__ brow,
-                                             float t4, int Dh) {
-  float t1 = 0.f, qb = 0.f, ka = 0.f, dp = 0.f;
-  for (int d0 = 0; d0 < Dh; d0 += 8) {
-    float x[8], y[8], ar[8], br[8];
-    load8(xrow + d0, x);
-    load8(yrow + d0, y);
-    load8(arow + d0, ar);
-    load8(brow + d0, br);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float oa = own_a[d0 + c], ob = own_b[d0 + c];
-      const float qd = kDst ? oa : x[c];
-      const float kd = kDst ? x[c] : oa;
-      t1 += qd * kd;
-      qb += qd * br[c];
-      ka += kd * ar[c];
-      dp += ob * y[c];
-    }
-  }
-  return make_float2(t1 + qb + t4 + ka, dp);
+__device__ __forceinline__ void unpack(const Chunk<float>& c, float* o) {
+  o[0] = c.a.x; o[1] = c.a.y; o[2] = c.a.z; o[3] = c.a.w;
+  o[4] = c.b.x; o[5] = c.b.y; o[6] = c.b.z; o[7] = c.b.w;
 }
 
-// One pass: a warp per node n (dst for B6d, src for B6s) of graph b, head
-// h, walking the kept pairs of its row of the tile planes 32 at a time.
-//   B6d (kDst): tiles = tile_src / tile_rel, writes dq [B, H, N, Dh] and
-//        ge [H, E] at each pair's id (row_base + rank in the row);
-//   B6s: tiles = tile_dst / tile_rel_src, writes dk and dv.
-template <typename T, bool kDst>
-__global__ void __launch_bounds__(kWarps * 32)
-blk_attn_bwd_pass(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ a_bank,
-                  const T* __restrict__ b_bank, const float* __restrict__ t4,
-                  const T* __restrict__ gp, const float* __restrict__ m_in,
-                  const float* __restrict__ l_in,
-                  const float* __restrict__ delta,
-                  const int32_t* __restrict__ tiles,
-                  const int32_t* __restrict__ rels,
-                  const int32_t* __restrict__ row_base, T* __restrict__ out1,
-                  T* __restrict__ out2, float* __restrict__ ge_out, int H,
-                  int N, int Dh, int P, int Tn, int Smax, int E,
-                  float scale) {
-  __shared__ __align__(16) float own_all[kWarps][2][kMaxDh];
-  __shared__ int buf_o[kWarps][kBuf];
-  __shared__ int buf_r[kWarps][kBuf];
-  __shared__ int buf_p[kWarps][kBuf];
+// The arrays of one pass. B6d: own1/own2 = q/gp, x1/x2 = k/v, own_bank =
+// b_bank, part_bank = a_bank, tiles/rels = tile_src/tile_rel, row_base the
+// first dst-major pair id of each plane row, dst2src each id's src-major
+// place; it writes out1 = dq, ge [H, E] and pair_s [H, E, 2]. B6s: x1/x2 =
+// q/gp, own_bank = a_bank, tiles/rels = tile_dst/tile_rel_src, row_base the
+// first src-major place of each plane row; it reads pair_s and writes out1
+// = dk, out2 = dv. The pointers a pass does not use are null.
+template <typename T> struct PassArgs {
+  const T* own1; const T* own2; const T* x1; const T* x2;
+  const T* own_bank; const T* part_bank;
+  const float* t4; const float* m; const float* l; const float* delta;
+  const int32_t* tiles; const int32_t* rels; const int32_t* row_base;
+  const int32_t* dst2src;
+  float* pair_s;
+  T* out1; T* out2; float* ge;
+  int H, N, Dh, P, Tn, Smax, E;
+  float scale;
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= N) return;  // no block-wide barrier in this kernel
-  const size_t bh = static_cast<size_t>(b) * H + h;
+// One pass (B6d: kDst; B6s: !kDst): the block of own node blockIdx.x of
+// graph blockIdx.z, warp w the head blockIdx.y * 8 + w (warps past H only
+// help read the planes); a lane holds kCpl 16-byte chunks of a row (Dh up
+// to 64 kCpl).
+template <typename T, bool kDst, int kCpl, int kGu, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+blk_attn_bwd_pass(const PassArgs<T> a) {
+  constexpr int kGl = 8;                       // lanes per pair
+  constexpr int kGroups = 32 / kGl;
+  constexpr int kRound = kGroups * kGu;        // pairs a warp holds
+  constexpr int kList = kPassWarps * kTile;    // pairs of 8 plane rows
+  __shared__ int list_o[kList];    // partner node
+  __shared__ int list_r[kList];    // bank row
+  __shared__ int list_id[kList];   // B6d: dst-major id; B6s: place
+  __shared__ int counts[kPassWarps];
+
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x, b = blockIdx.z;
+  const int H = a.H, N = a.N, Dh = a.Dh, E = a.E;
+  const int h = blockIdx.y * kPassWarps + warp;
+  const bool active = h < H;
+  const int grp = lane / kGl, li = lane % kGl;
+  const int C = Dh / 8;
+  const size_t bh = static_cast<size_t>(b) * H + (active ? h : 0);
   const size_t head = bh * N * Dh;
-  float* own_a = own_all[warp][0];
-  float* own_b = own_all[warp][1];
-  int* bo = buf_o[warp];
-  int* br = buf_r[warp];
-  int* bp = buf_p[warp];
   const size_t own_row = head + static_cast<size_t>(n) * Dh;
-  for (int d = lane; d < Dh; d += 32) {
-    own_a[d] = to_f32((kDst ? q : k)[own_row + d]);
-    own_b[d] = to_f32((kDst ? gp : v)[own_row + d]);
-  }
-  __syncwarp();
-  // the dst node's statistics: the warp's own in B6d
+
+  Chunk<T> o1[kCpl], o2[kCpl];
   float m_own = 0.f, l_own = 1.f, d_own = 0.f;
-  if (kDst) {
-    m_own = m_in[bh * N + n];
-    l_own = l_in[bh * N + n] > 0.f ? l_in[bh * N + n] : 1.f;
-    d_own = delta[bh * N + n];
-  }
-
-  const int t = n / kTile, nl = n - t * kTile;
-  const size_t tile_row = static_cast<size_t>(b) * Tn + t;
-  const unsigned lt = (1u << lane) - 1u;
-  float acc1[kMaxDPL] = {0.f, 0.f, 0.f, 0.f};
-  float acc2[kMaxDPL] = {0.f, 0.f, 0.f, 0.f};
-  int cnt = 0;
-
-  auto take = [&](int cnt_now) {
-    int o = 0, r = 0;
-    float w1 = 0.f, w2 = 0.f;  // B6d: ge'; B6s: ge', p'
-    if (lane < cnt_now) {
-      o = bo[lane];
-      r = br[lane];
-      const size_t orow = head + static_cast<size_t>(o) * Dh;
-      const size_t row = (static_cast<size_t>(r) * H + h) * Dh;
-      const float2 ed = pair_terms<T, kDst>(
-          own_a, own_b, (kDst ? k : q) + orow, (kDst ? v : gp) + orow,
-          a_bank + row, b_bank + row,
-          __ldg(t4 + static_cast<size_t>(r) * H + h), Dh);
-      float mi = m_own, li = l_own, di = d_own;
-      if (!kDst) {
-        mi = m_in[bh * N + o];
-        li = l_in[bh * N + o] > 0.f ? l_in[bh * N + o] : 1.f;
-        di = delta[bh * N + o];
-      }
-      const float p = expf(ed.x * scale - mi) / li;
-      const float ge = p * (ed.y - di) * scale;
-      if (kDst) ge_out[static_cast<size_t>(h) * E + bp[lane]] = ge;
-      w1 = round_to<T>(ge);
-      w2 = round_to<T>(p);
-    }
-    for (int c = 0; c < cnt_now; ++c) {
-      const float g1 = __shfl_sync(0xffffffffu, w1, c);
-      const float g2 = __shfl_sync(0xffffffffu, w2, c);
-      const int oc = __shfl_sync(0xffffffffu, o, c);
-      const int rc = __shfl_sync(0xffffffffu, r, c);
-      const size_t orow = head + static_cast<size_t>(oc) * Dh;
-      // dq: k_j + b_r; dk: q_i + a_r (and dv: gp_i)
-      const T* xrow = (kDst ? k : q) + orow;
-      const T* zrow = (kDst ? b_bank : a_bank) +
-                      (static_cast<size_t>(rc) * H + h) * Dh;
+  if constexpr (kDst) {
+    if (active) {
 #pragma unroll
-      for (int tt = 0; tt < kMaxDPL; ++tt) {
-        const int d = lane + 32 * tt;
-        if (d < Dh) {
-          acc1[tt] += g1 * (to_f32(xrow[d]) + to_f32(zrow[d]));
-          if (!kDst) acc2[tt] += g2 * to_f32(gp[orow + d]);
+      for (int cc = 0; cc < kCpl; ++cc) {
+        const int c = li + kGl * cc;
+        if (c < C) {
+          load_chunk(a.own1 + own_row + c * 8, o1[cc]);
+          load_chunk(a.own2 + own_row + c * 8, o2[cc]);
+        }
+      }
+      m_own = a.m[bh * N + n];
+      l_own = a.l[bh * N + n] > 0.f ? a.l[bh * N + n] : 1.f;
+      d_own = a.delta[bh * N + n];
+    }
+  }
+  float acc1[kCpl * 8], acc2[kCpl * 8];
+#pragma unroll
+  for (int x = 0; x < kCpl * 8; ++x) acc1[x] = acc2[x] = 0.f;
+
+  // pairs [x0, x0 + cnt) of the list, kGu a group
+  auto take = [&](int x0, int cnt) {
+    Chunk<T> xa[kGu][kCpl], ya[kGu][kCpl], ob[kGu][kCpl], pb[kGu][kCpl];
+    float t4v[kGu], gev[kGu], pv[kGu];
+    int id[kGu], sid[kGu];
+#pragma unroll
+    for (int uu = 0; uu < kGu; ++uu) {
+      const int x = grp + kGroups * uu;
+      t4v[uu] = gev[uu] = pv[uu] = 0.f;
+      id[uu] = sid[uu] = 0;
+      if (x < cnt) {
+        const int o = list_o[x0 + x], r = list_r[x0 + x];
+        id[uu] = list_id[x0 + x];
+        const size_t orow = head + static_cast<size_t>(o) * Dh;
+        const size_t row = (static_cast<size_t>(r) * H + h) * Dh;
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          const int c = li + kGl * cc;
+          if (c < C) {
+            load_chunk(a.x1 + orow + c * 8, xa[uu][cc]);
+            load_chunk(a.x2 + orow + c * 8, ya[uu][cc]);
+            load_chunk(a.own_bank + row + c * 8, ob[uu][cc]);
+            if constexpr (kDst)
+              load_chunk(a.part_bank + row + c * 8, pb[uu][cc]);
+          }
+        }
+        if constexpr (kDst) {
+          t4v[uu] = __ldg(a.t4 + static_cast<size_t>(r) * H + h);
+          sid[uu] = __ldg(a.dst2src + id[uu]);
+        } else {
+          const float2 s = __ldg(reinterpret_cast<const float2*>(a.pair_s) +
+                                 static_cast<size_t>(h) * E + id[uu]);
+          gev[uu] = s.x;
+          pv[uu] = s.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int uu = 0; uu < kGu; ++uu) {
+      const bool ok = grp + kGroups * uu < cnt;
+      if constexpr (kDst) {
+        float s1 = 0.f, dp = 0.f;
+        if (ok) {
+#pragma unroll
+          for (int cc = 0; cc < kCpl; ++cc) {
+            if (li + kGl * cc < C) {
+              float w1[8], w2[8], x8[8], y8[8], a8[8], b8[8];
+              unpack(o1[cc], w1);
+              unpack(o2[cc], w2);
+              unpack(xa[uu][cc], x8);
+              unpack(ya[uu][cc], y8);
+              unpack(ob[uu][cc], a8);
+              unpack(pb[uu][cc], b8);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                s1 += w1[e] * (x8[e] + a8[e]) + x8[e] * b8[e];
+                dp += w2[e] * y8[e];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < kGl; off <<= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          dp += __shfl_xor_sync(0xffffffffu, dp, off);
+        }
+        pv[uu] = expf((s1 + t4v[uu]) * a.scale - m_own) / l_own;
+        gev[uu] = pv[uu] * (dp - d_own) * a.scale;
+        if (ok && li == 0) {
+          a.ge[static_cast<size_t>(h) * E + id[uu]] = gev[uu];
+          reinterpret_cast<float2*>(a.pair_s)[static_cast<size_t>(h) * E +
+                                              sid[uu]] =
+              make_float2(gev[uu], pv[uu]);
+        }
+      }
+      if (ok) {
+        const float gq = round_to<T>(gev[uu]), pq = round_to<T>(pv[uu]);
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          if (li + kGl * cc < C) {
+            float x8[8], y8[8], a8[8];
+            unpack(xa[uu][cc], x8);
+            unpack(ya[uu][cc], y8);
+            unpack(ob[uu][cc], a8);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              acc1[cc * 8 + e] += gq * (x8[e] + a8[e]);
+              if constexpr (!kDst) acc2[cc * 8 + e] += pq * y8[e];
+            }
+          }
         }
       }
     }
   };
 
-  for (int s = 0; s < Smax; ++s) {
-    const int other_tile = __ldg(tiles + tile_row * Smax + s);
-    if (other_tile < 0) continue;
-    const size_t plane_row = (tile_row * Smax + s) * kTile + nl;
-    const int32_t* rel_row = rels + plane_row * kTile;
-    int rank = kDst ? __ldg(row_base + plane_row) : 0;
+  const int t = n / kTile, nl = n - t * kTile;
+  const size_t tile_row = static_cast<size_t>(b) * a.Tn + t;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int s0 = 0; s0 < a.Smax; s0 += warps) {
+    // warp w: slot s0 + w, its tile id, plane row and first id at once
+    const int s = s0 + warp;
+    int other = -1, rank0 = 0;
+    int4 rv = make_int4(-1, -1, -1, -1);
+    if (s < a.Smax) {
+      const size_t plane_row = (tile_row * a.Smax + s) * kTile + nl;
+      other = __ldg(a.tiles + tile_row * a.Smax + s);
+      rv = __ldg(reinterpret_cast<const int4*>(a.rels + plane_row * kTile) +
+                 lane);
+      rank0 = __ldg(a.row_base + plane_row);
+    }
+    const int rs[4] = {rv.x, rv.y, rv.z, rv.w};
+    unsigned bits = 0;
 #pragma unroll
-    for (int u = 0; u < kTile / 32; ++u) {
-      const int c = lane + 32 * u;
-      const int r = __ldg(rel_row + c);
-      const int o = other_tile * kTile + c;
-      const bool keep = r >= 0 && r < P && o < N;
-      const unsigned mask = __ballot_sync(0xffffffffu, keep);
-      if (keep) {
-        const int pos = cnt + __popc(mask & lt);
-        bo[pos] = o;
-        br[pos] = r;
-        bp[pos] = rank + __popc(mask & lt);
-      }
-      cnt += __popc(mask);
-      rank += __popc(mask);
-      __syncwarp();
-      if (cnt >= 32) {
-        take(32);
-        __syncwarp();
-        cnt -= 32;
-        if (lane < cnt) {
-          bo[lane] = bo[32 + lane];
-          br[lane] = br[32 + lane];
-          bp[lane] = bp[32 + lane];
-        }
-        __syncwarp();
+    for (int u = 0; u < 4; ++u) {
+      const bool keep = other >= 0 && rs[u] >= 0 && rs[u] < a.P &&
+                        other * kTile + 4 * lane + u < N;
+      bits |= static_cast<unsigned>(keep) << u;
+    }
+    int pos = 0, total = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned m = __ballot_sync(0xffffffffu, (bits >> u) & 1u);
+      pos += __popc(m & lt);
+      total += __popc(m);
+    }
+    if (lane == 0) counts[warp] = total;
+    __syncthreads();
+    // the slots' lists one after the other, in slot order
+    int off = 0, all = 0;
+    for (int w = 0; w < warps; ++w) {
+      const int c = counts[w];
+      off += w < warp ? c : 0;
+      all += c;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if ((bits >> u) & 1u) {
+        list_o[off + pos] = other * kTile + 4 * lane + u;
+        list_r[off + pos] = rs[u];
+        list_id[off + pos] = rank0 + pos;
+        ++pos;
       }
     }
+    __syncthreads();
+    if (active)
+      for (int x0 = 0; x0 < all; x0 += kRound) take(x0, min(kRound, all - x0));
+    __syncthreads();  // the list is rewritten for the next slots
   }
-  if (cnt > 0) take(cnt);
+  if (!active) return;
 
+  // the 4 groups' sums, in a fixed butterfly; group 0 writes the row
 #pragma unroll
-  for (int tt = 0; tt < kMaxDPL; ++tt) {
-    const int d = lane + 32 * tt;
-    if (d < Dh) {
-      out1[own_row + d] = from_f32<T>(acc1[tt]);
-      if (!kDst) out2[own_row + d] = from_f32<T>(acc2[tt]);
+  for (int x = 0; x < kCpl * 8; ++x) {
+#pragma unroll
+    for (int off = kGl; off < 32; off <<= 1) {
+      acc1[x] += __shfl_xor_sync(0xffffffffu, acc1[x], off);
+      if constexpr (!kDst)
+        acc2[x] += __shfl_xor_sync(0xffffffffu, acc2[x], off);
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int cc = 0; cc < kCpl; ++cc) {
+      const int c = li + kGl * cc;
+      if (c < C) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          a.out1[own_row + c * 8 + e] = from_f32<T>(acc1[cc * 8 + e]);
+          if constexpr (!kDst)
+            a.out2[own_row + c * 8 + e] = from_f32<T>(acc2[cc * 8 + e]);
+        }
+      }
     }
   }
 }
@@ -396,28 +495,43 @@ bool bad_sizes(int B, int H, int N, int Dh, int P, int Tn, int Smax) {
          Dh > kMaxDh || Dh % 8 != 0 || P < 1 || Smax < 1;
 }
 
-template <typename T, bool kDst>
-int launch_pass(const void* q, const void* k, const void* v,
-                const void* a_bank, const void* b_bank, const void* t4,
-                const void* gp, const void* m, const void* l,
-                const void* delta,
-                const void* tiles, const void* rels, const void* row_base,
-                void* out1, void* out2, void* ge, int B, int H, int N, int Dh,
-                int P, int Tn, int Smax, int E, float scale,
-                cudaStream_t stream) {
-  const dim3 grid((N + kWarps - 1) / kWarps, H, B);
-  blk_attn_bwd_pass<T, kDst><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(a_bank),
-      static_cast<const T*>(b_bank), static_cast<const float*>(t4),
-      static_cast<const T*>(gp),
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(delta), static_cast<const int32_t*>(tiles),
-      static_cast<const int32_t*>(rels),
-      static_cast<const int32_t*>(row_base), static_cast<T*>(out1),
-      static_cast<T*>(out2), static_cast<float*>(ge), H, N, Dh, P, Tn, Smax,
-      E, scale);
+#ifdef GTOS_B6_VARIANTS
+constexpr int kVariants = 4;
+#else
+constexpr int kVariants = 0;
+#endif
+int g_forced_variant = -1;
+
+template <typename T, bool kDst, int kCpl, int kGu, int kMinBlocks>
+int launch_one(const PassArgs<T>& a, int B, cudaStream_t stream) {
+  const dim3 grid(a.N, (a.H + kPassWarps - 1) / kPassWarps, B);
+  const int threads = 32 * (a.H < kPassWarps ? a.H : kPassWarps);
+  blk_attn_bwd_pass<T, kDst, kCpl, kGu, kMinBlocks>
+      <<<grid, threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 pass for rows up to 64 wide: B6d 1 pair a group at 3 blocks an
+// SM, B6s 2 pairs a group at 3 blocks an SM, the fastest on the H100 of
+// four (kGu, kMinBlocks) variants over the c5 model's train batches.
+// Built with GTOS_B6_VARIANTS, the source also holds the four, and
+// gtos_blk_attn_bwd_variant forces one (chip_b6_variants.py --variants).
+template <typename T, bool kDst>
+int launch_pass(const PassArgs<T>& a, int B, cudaStream_t stream) {
+  if (a.Dh > 64) return launch_one<T, kDst, 2, 1, 1>(a, B, stream);
+  if constexpr (sizeof(T) != 2) {
+    return launch_one<T, kDst, 1, 2, 1>(a, B, stream);
+  } else {
+#ifdef GTOS_B6_VARIANTS
+    switch (g_forced_variant) {
+      case 0: return launch_one<T, kDst, 1, 1, 3>(a, B, stream);
+      case 1: return launch_one<T, kDst, 1, 2, 2>(a, B, stream);
+      case 2: return launch_one<T, kDst, 1, 2, 3>(a, B, stream);
+      case 3: return launch_one<T, kDst, 1, 4, 2>(a, B, stream);
+    }
+#endif
+    return launch_one<T, kDst, 1, kDst ? 1 : 2, 3>(a, B, stream);
+  }
 }
 
 template <typename T>
@@ -449,64 +563,82 @@ int launch_bank(const void* q, const void* k, const void* a_bank,
 // gradients). All tensors contiguous on one device: q, k, v, gp [B, H, N,
 // Dh] (16-byte aligned); a_bank, b_bank [P, H, Dh] (16-byte aligned); t4
 // [P, H] float32 (a_r.b_r rounded to the bank type); m, l, delta [B, H, N]
-// float32; Dh a multiple of 8, at most 128. Each returns the
-// CUDA error code of its launch (0 = launched).
+// float32; pair_s [H, E, 2] float32, each kept pair's (ge, p) at its
+// src-major place; Dh a multiple of 8, at most 128. Each returns the CUDA
+// error code of its launch (0 = launched).
 
 // B6d: tile_src [B, Td, Smax], tile_rel [B, Td, Smax, 128, 128] int32;
 // row_base [B, Td, Smax, 128] int32, the id of each plane row's first kept
-// pair (E kept pairs in all); writes dq [B, H, N, Dh] and ge [H, E] float32.
-extern "C" int gtos_blk_attn_bwd_dst(int dtype, const void* q, const void* k,
-                                     const void* v, const void* a_bank,
-                                     const void* b_bank, const void* t4,
-                                     const void* gp, const void* m,
-                                     const void* l, const void* delta,
-                                     const void* tile_src,
-                                     const void* tile_rel,
-                                     const void* row_base, void* dq, void* ge,
-                                     int B, int H, int N, int Dh, int P,
-                                     int Td, int Smax, int E, float scale,
-                                     void* stream) {
+// pair (E kept pairs in all); dst2src [E] int32, each id's src-major place;
+// writes dq [B, H, N, Dh], ge [H, E] float32 and pair_s.
+extern "C" int gtos_blk_attn_bwd_dst(
+    int dtype, const void* q, const void* k, const void* v,
+    const void* a_bank, const void* b_bank, const void* t4, const void* gp,
+    const void* m, const void* l, const void* delta, const void* tile_src,
+    const void* tile_rel, const void* row_base, const void* dst2src,
+    void* dq, void* ge, void* pair_s, int B, int H, int N, int Dh, int P,
+    int Td, int Smax, int E, float scale, void* stream) {
   if (bad_sizes(B, H, N, Dh, P, Td, Smax) || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_pass<float, true>(q, k, v, a_bank, b_bank, t4, gp, m, l,
-                                    delta, tile_src, tile_rel, row_base, dq,
-                                    nullptr, ge, B, H, N, Dh, P, Td, Smax, E,
-                                    scale, s);
-  if (dtype == 1)
-    return launch_pass<__nv_bfloat16, true>(
-        q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tile_src, tile_rel,
-        row_base, dq, nullptr, ge, B, H, N, Dh, P, Td, Smax, E, scale, s);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    const PassArgs<T> a{
+        static_cast<const T*>(q), static_cast<const T*>(gp),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(b_bank), static_cast<const T*>(a_bank),
+        static_cast<const float*>(t4), static_cast<const float*>(m),
+        static_cast<const float*>(l), static_cast<const float*>(delta),
+        static_cast<const int32_t*>(tile_src),
+        static_cast<const int32_t*>(tile_rel),
+        static_cast<const int32_t*>(row_base),
+        static_cast<const int32_t*>(dst2src), static_cast<float*>(pair_s),
+        static_cast<T*>(dq), nullptr, static_cast<float*>(ge),
+        H, N, Dh, P, Td, Smax, E, scale};
+    return launch_pass<T, true>(a, B, s);
+  };
+  if (dtype == 0) return run(0.f);
+  if (dtype == 1) return run(__nv_bfloat16());
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // B6s: tile_dst [B, Ts, Smax_s], tile_rel_src [B, Ts, Smax_s, 128, 128]
-// int32 (blocks transposed: [src-local, dst-local]); writes dk, dv
-// [B, H, N, Dh].
-extern "C" int gtos_blk_attn_bwd_src(int dtype, const void* q, const void* k,
-                                     const void* v, const void* a_bank,
-                                     const void* b_bank, const void* t4,
-                                     const void* gp, const void* m,
-                                     const void* l, const void* delta,
-                                     const void* tile_dst,
-                                     const void* tile_rel_src, void* dk,
-                                     void* dv, int B, int H, int N, int Dh,
-                                     int P, int Ts, int Smax, float scale,
-                                     void* stream) {
-  if (bad_sizes(B, H, N, Dh, P, Ts, Smax))
+// int32 (blocks transposed: [src-local, dst-local]); row_base [B, Ts,
+// Smax_s, 128] int32, the src-major place of each plane row's first kept
+// pair; pair_s from B6d; writes dk, dv [B, H, N, Dh].
+extern "C" int gtos_blk_attn_bwd_src(
+    int dtype, const void* q, const void* gp, const void* a_bank,
+    const void* tile_dst, const void* tile_rel_src, const void* row_base,
+    const void* pair_s, void* dk, void* dv, int B, int H, int N, int Dh,
+    int P, int Ts, int Smax, int E, void* stream) {
+  if (bad_sizes(B, H, N, Dh, P, Ts, Smax) || E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_pass<float, false>(q, k, v, a_bank, b_bank, t4, gp, m, l,
-                                     delta, tile_dst, tile_rel_src, nullptr,
-                                     dk, dv, nullptr, B, H, N, Dh, P, Ts,
-                                     Smax, 0, scale, s);
-  if (dtype == 1)
-    return launch_pass<__nv_bfloat16, false>(
-        q, k, v, a_bank, b_bank, t4, gp, m, l, delta, tile_dst, tile_rel_src,
-        nullptr, dk, dv, nullptr, B, H, N, Dh, P, Ts, Smax, 0, scale, s);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    const PassArgs<T> a{
+        nullptr, nullptr, static_cast<const T*>(q),
+        static_cast<const T*>(gp), static_cast<const T*>(a_bank), nullptr,
+        nullptr, nullptr, nullptr, nullptr,
+        static_cast<const int32_t*>(tile_dst),
+        static_cast<const int32_t*>(tile_rel_src),
+        static_cast<const int32_t*>(row_base), nullptr,
+        const_cast<float*>(static_cast<const float*>(pair_s)),
+        static_cast<T*>(dk), static_cast<T*>(dv), nullptr,
+        H, N, Dh, P, Ts, Smax, E, 0.f};
+    return launch_pass<T, false>(a, B, s);
+  };
+  if (dtype == 0) return run(0.f);
+  if (dtype == 1) return run(__nv_bfloat16());
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Forces the bf16 variant v in [0, kVariants) of B6d and B6s for rows up to
+// 64 wide (any other v: each kernel's own); returns kVariants (0 unless
+// built with GTOS_B6_VARIANTS).
+extern "C" int gtos_blk_attn_bwd_variant(int v) {
+  g_forced_variant = v >= 0 && v < kVariants ? v : -1;
+  return kVariants;
 }
 
 // B6b: ge [H, E] float32 from B6d; pid, qrow, krow [E] int32 (the pairs in

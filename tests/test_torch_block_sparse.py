@@ -44,8 +44,9 @@ from gtos_tpu_torch.ops.block_sparse import (
 )
 from gtos_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_with_stats,
-    block_sparse_relation_attention_trainable,
+    block_sparse_relation_attention_trainable, tile_pairs,
 )
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import backward_plan
 from gtos_tpu_torch.ops.sparse_relation import (
     flatten_edge_cells, sparse_relation_attention,
 )
@@ -331,6 +332,42 @@ def test_tile_layout_mismatch_is_rejected():
         block_sparse_attention(two(q), two(k), two(v), a, b, ts, tr)
     with pytest.raises(ValueError, match="tile_rel shape"):
         block_sparse_attention(q, k, v, a, b, ts, tr[..., :64, :])
+
+
+def test_backward_plan_src_major_order():
+    """backward_plan's src-major order on N=200 layouts with -1 slots (the
+    second graph keeps no pair outside its diagonal blocks): dst2src is a
+    permutation that takes every dst-major pair id to the place of the same
+    (graph, i, j, r) among tile_pairs of the transposed planes, and each
+    plane row's base in both orders is the count of the kept pairs before
+    it; layouts that hold different pairs are refused."""
+    c = make_block_case(2, 1, 200, 8, 37, 0.05, seed=11)
+    keep, rel = c["keep"], c["rel_index"]
+    keep[1, :128, 128:] = keep[1, 128:, :128] = False
+    kp = np.zeros((2, 256, 256), bool)
+    kp[:, :200, :200] = keep
+    rp = np.zeros((2, 256, 256), np.int32)
+    rp[:, :200, :200] = rel
+    ts, tr = (_t(x) for x in pack_block_sparse(kp, rp))
+    td, trs = (_t(x) for x in pack_block_sparse_src(kp, rp))
+    assert bool((ts < 0).any()) and bool((td < 0).any())
+    plan = backward_plan(ts, tr, td, trs, 200, 37)
+    *dst, valid = tile_pairs(ts, tr, 200, 37)
+    sb, sj, si, sr, svalid = tile_pairs(td, trs, 200, 37)
+    d2s = plan["dst2src"].long()
+    assert plan["E"] == int(keep.sum())
+    assert torch.equal(torch.sort(d2s)[0], torch.arange(plan["E"]))
+    for x, y in zip(dst, (sb, si, sj, sr)):
+        assert torch.equal(x, y[d2s])
+    for key, v in (("row_base", valid), ("src_row_base", svalid)):
+        counts = v.sum(-1).flatten()
+        assert plan[key].dtype == torch.int32
+        assert plan[key].shape == v.shape[:-1]
+        assert torch.equal(plan[key].flatten().long(),
+                           torch.cumsum(counts, 0) - counts)
+    trs[trs >= 0] = -1
+    with pytest.raises(ValueError, match="src-major"):
+        backward_plan(ts, tr, td, trs, 200, 37)
 
 
 # ------------------------------------------------------- the whole model

@@ -387,12 +387,55 @@ def test_cuda_pallas_train_step_goes_through_b3_and_b4(card):
 
 # block-sparse cases (B, H, N, Dh, P, p_pair, banded): the shapes and
 # densities of tests/test_block_sparse.py, an N that is not a multiple of
-# the tile, and a c5 width (H=8, Dh=64)
+# the tile, and a c5 width (H=8, Dh=64); then the backward kernels' edges
+# (every case's last 20 rows keep no pair, so their slots' plane rows are
+# empty): N=200 with Dh=64; Dh=128 (two 16-byte chunks a lane); Dh=24 at
+# N=130 (three chunks a row, a last tile of 2 nodes); 32 graphs of 512
+# nodes (16384 B6d/B6s blocks); H=12 (a B6d/B6s block covers 8 heads: a
+# second block of heads, half its warps idle); and one graph of a real
+# batch at khop 4 (p_pair "khop4": the port's batchify tile layout of a
+# 410-510 node synthetic AMR graph)
 BLOCK_CASES = [(2, 2, 128, 32, 200, 1.0, False),
                (2, 2, 256, 32, 200, 0.05, False),
                (1, 2, 300, 16, 100, 0.2, False),
                (1, 2, 512, 32, 150, 0.2, True),
-               (2, 8, 256, 64, 3000, 0.1, False)]
+               (2, 8, 256, 64, 3000, 0.1, False),
+               (2, 2, 200, 64, 300, 0.1, False),
+               (2, 4, 256, 128, 500, 0.1, False),
+               (1, 2, 130, 24, 100, 0.3, False),
+               (32, 8, 512, 64, 3000, 0.02, False),
+               (1, 12, 256, 32, 300, 0.1, False),
+               (1, 8, 512, 64, None, "khop4", False)]
+
+
+def khop_block_case(H, Dh, seed=0):
+    """make_block_case's arrays for one synthetic AMR graph of 410-510
+    nodes batched by the port's batchify at node bucket 512 with
+    sparse_khop 4 (the c5 tiles of a one-graph batch); P is its bank."""
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+
+    graphs, targets = synthetic_amr_corpus(1, seed=seed, min_nodes=410,
+                                           max_nodes=510)
+    spec = BucketSpec(nodes=(512,), bank=(4096, 8192, 16384, 32768, 65536),
+                      edge_cells=(16384, 65536))
+    batch = batchify(preprocess(graphs, targets),
+                     *build_vocabs(graphs, targets), batch_size_bucket=1,
+                     for_train=True, spec=spec, build_block_tiles=True,
+                     sparse_khop=4)
+    B, N = batch.concept_mask.shape
+    P = batch.rel_bank.shape[0]
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v, g = (rng.standard_normal((B, H, N, Dh)).astype(f)
+                  for _ in range(4))
+    a_bank, b_bank = ((rng.standard_normal((P, H, Dh)) * 0.5).astype(f)
+                      for _ in range(2))
+    return dict(q=q, k=k, v=v, g=g, a_bank=a_bank, b_bank=b_bank,
+                tile_src=batch.tile_src, tile_rel=batch.tile_rel,
+                tile_dst=batch.tile_dst, tile_rel_src=batch.tile_rel_src)
 
 
 def make_block_case(B, H, N, Dh, P, p_pair, banded=False, seed=0):
@@ -453,9 +496,11 @@ def test_cuda_block_sparse_kernels_match_plain_versions(
     to bf16 against a running max), the statistics m, l to 1e-5 (f32 sums
     of the same f32 scores); the backward kernels give the same bits on a
     second launch (no atomics)."""
-    args, (td, trs), g = port_block_args(
-        make_block_case(B, H, N, Dh, P, p_pair, banded), dtype, card)
+    case = (khop_block_case(H, Dh) if p_pair == "khop4"
+            else make_block_case(B, H, N, Dh, P, p_pair, banded))
+    args, (td, trs), g = port_block_args(case, dtype, card)
     q, k, v, a, b, ts, tr = args
+    N, P = q.shape[2], a.shape[0]
     t4 = bank_t4(a, b)
     counts = [w.launches for w in (
         block_sparse_attention, block_sparse_attention_with_stats,
@@ -469,14 +514,16 @@ def test_cuda_block_sparse_kernels_match_plain_versions(
     torch.testing.assert_close(m, m_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
     gp, delta = prep_bwd_invariants(q, g, out)
-    plan = backward_plan(ts, tr, N, P)
+    plan = backward_plan(ts, tr, td, trs, N, P)
     bwd = (q, k, v, a, b, t4, gp, m, l, delta)
-    runs = [(block_sparse_attention_bwd_dst(*bwd, ts, tr, plan),
-             block_sparse_attention_bwd_src(*bwd, td, trs))
-            for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        dst = block_sparse_attention_bwd_dst(*bwd, ts, tr, plan)
+        runs.append((dst, block_sparse_attention_bwd_src(
+            *bwd, td, trs, plan, dst[2])))
     banks = [block_sparse_bank_grads(q, k, a, b, dst[1], plan)
              for dst, _ in runs]
-    (dq, ge), (dk, dv) = runs[0]
+    (dq, ge, _), (dk, dv) = runs[0]
     dq_ref, ge_ref = block_sparse_attention_bwd_dst_reference(*bwd, ts, tr)
     dk_ref, dv_ref = block_sparse_attention_bwd_src_reference(*bwd, td, trs)
     ga_ref, gb_ref = block_sparse_bank_grads_reference(q, k, a, b, ge_ref,

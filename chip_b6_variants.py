@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
-"""Times B6d and B6s of one checkout on one NVIDIA GPU.
+"""Times the block-sparse kernels B5, B5s, B6d, B6s and B6b of one checkout
+on one NVIDIA GPU.
 
     python3 chip_b6_variants.py [--checkout DIR] [--profile] [--variants]
 
 From the repo root, on a machine with a card. DIR (default: this
 checkout) is any checkout of the repo, such as an earlier commit unpacked
-with `git archive`; its own chip_smoke.py and gtos_tpu_torch are imported,
-so its kernels run with its own wrappers. The script trains the c5 model
-as chip_smoke's c5 phase does and captures the main path's B6 inputs
-(layer 0 of CAPTURE_BATCHES train batches), then runs chip_smoke's
-check_b6 on them and on BLOCK_CASES in f32 and bf16: each kernel against
-its plain version, the same bits twice, timed (CUDA events, L2 flushed,
-mean of 30 after 3 warm-ups) beside its bound. With --profile (a
-checkout whose chip_smoke profiles a given batch), torch.profiler over
-one more c5 train step on each captured batch first: device busy time,
-idle share, each block-sparse kernel's share. With --variants (this
-checkout's kernels only), the backward source is built once more with
-GTOS_B6_VARIANTS, which adds four (pairs a lane group holds, blocks an
-SM) variants of B6d's and B6s's bf16 pass for rows up to 64 wide; each is
-forced in turn and timed on the bf16 inputs, each result held against
-the plain versions; the last line gives the mean over the main-path
-batches per variant.
+with `git archive` into the git-ignored `_archive/`; its own chip_smoke.py
+and gtos_tpu_torch are imported, so its kernels run with its own wrappers,
+and two checkouts are compared by running the script on each in one call
+on the card (parent, this tree, this tree, parent). The script serves the
+fullest c5 batch of each node bucket and trains the c5 model as
+chip_smoke's c5 phase does, and captures the main path's inputs: layer 0's
+B5 inputs of each served batch, and layer 0's B5s and B6 inputs of
+CAPTURE_BATCHES train batches. It runs chip_smoke's check_b5 (B5 on the
+served inputs, B5s on the train inputs) and check_b6 on them, and all of
+them on BLOCK_CASES in f32 and bf16: each kernel against its plain
+version (B6: the same bits twice), timed (CUDA events, L2 flushed, mean
+of 30 after 3 warm-ups) beside its bound. It prints one JSON line: each
+kernel's mean ms over the main-path inputs and its ms on each BLOCK_CASES
+shape. With --profile (a checkout whose chip_smoke profiles a given
+batch), torch.profiler over one more c5 train step on each captured batch
+first: device busy time, idle share and each block-sparse (`blk_*`)
+kernel's share of device time. With --variants (this checkout's kernels
+only), the sources are built once more with GTOS_B5_VARIANTS and
+GTOS_B6_VARIANTS, which add four (pairs a lane group holds, blocks an SM)
+variants of the bf16 kernels for rows up to 64 wide (B5/B5s; B6d, B6s and
+B6b); each is forced in turn and timed on the bf16 inputs, each result
+held against the plain versions; the last line gives each variant's mean
+over the main-path inputs.
 """
 
 import argparse
 import json
 import sys
 from pathlib import Path
+
+KERNELS = ("B5", "B5s", "B6d", "B6s", "B6b")
 
 
 def main():
@@ -40,13 +50,19 @@ def main():
     import torch
 
     import chip_smoke as cs
-    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bm
+    from gtos_tpu_torch.models import Generator
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this script needs a "
                 "card")
+    checkout = str(Path(cs.__file__).resolve().parent)
     print(cs.card_line(), flush=True)
-    print(f"[b6] checkout {Path(cs.__file__).resolve().parent}", flush=True)
+    print(f"[b6] checkout {checkout}", flush=True)
+    cfg, _ = cs.c5_configs()
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    serve_inputs = cs.phase_c5_serve(cfg, model, cs.c5_corpus()[1][0])[3]
+    del model
     trained = cs.phase_c5_train()
     trainer, batches = trained[:2]
     inputs = cs.capture_block_train_inputs(trainer,
@@ -57,66 +73,117 @@ def main():
                                    label=f"c5 block_sparse train step {i + 1}")
     del trainer
     torch.cuda.empty_cache()
-    cases = []
+    main_ms = {name: [] for name in KERNELS}
+    variant_cases = []
+    for i, fwd_args in enumerate(serve_inputs):
+        main_ms["B5"].append(cs.check_b5(f"serve{i}", fwd_args)["ms"])
+        variant_cases.append((f"serve{i}", fwd_args, None, None))
     for i, (fwd_args, src, bwd) in enumerate(inputs):
-        cases.append((f"train{i}", fwd_args, src, bwd))
-        cs.check_b6(f"train{i}", fwd_args, src, bwd=bwd)
+        main_ms["B5s"].append(
+            cs.check_b5(f"train{i}", fwd_args, with_stats=True)["ms"])
+        rows = cs.check_b6(f"train{i}", fwd_args, src, bwd=bwd)
+        for name in ("B6d", "B6s", "B6b"):
+            main_ms[name].append(rows[name]["ms"])
+        variant_cases.append((f"train{i}", fwd_args, src, bwd))
+    cases_ms = {}
     for name, spec in cs.BLOCK_CASES.items():
         batch = cs.block_batch(*spec)
         for dtype in (torch.float32, torch.bfloat16):
             fwd_args, src, g = cs.block_inputs(batch, 8, 64, dtype)
-            cs.check_b6(name, fwd_args, src, g)
-            if args.variants and dtype == torch.bfloat16:
-                cases.append((name, fwd_args, src,
-                              cs.b6_args(fwd_args, src, g)))
+            row = {"B5": cs.check_b5(name, fwd_args)["ms"],
+                   "B5s": cs.check_b5(name, fwd_args, with_stats=True)["ms"]}
+            row.update({k: v["ms"] for k, v in
+                        cs.check_b6(name, fwd_args, src, g).items()})
+            cases_ms[f"{name} {cs._dtype_name(fwd_args[0])}"] = row
+            if dtype == torch.bfloat16:
+                variant_cases.append((name, fwd_args, src,
+                                      cs.b6_args(fwd_args, src, g)))
+        torch.cuda.empty_cache()
+    print(json.dumps({"checkout": checkout, "main_path_mean_ms": {
+        name: sum(ms) / len(ms) for name, ms in main_ms.items()},
+        "cases_ms": cases_ms}), flush=True)
     if args.variants:
-        time_variants(cs, bm, cases)
+        time_variants(cs, variant_cases)
 
 
-def time_variants(cs, bm, cases):
-    """B6d and B6s under each forced bf16 variant on the bf16 cases, each
-    result against the plain versions; prints the per-variant means over
-    the main-path batches as JSON."""
+def time_variants(cs, cases):
+    """Each forced bf16 variant of B5/B5s and of B6d/B6s/B6b on the bf16
+    cases (serving inputs: B5 only), each result against the plain
+    versions; prints the per-variant means over the main-path inputs as
+    JSON."""
     import torch
 
+    from gtos_tpu_torch.ops import block_sparse_attention as bsa
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bm
     from gtos_tpu_torch.ops import build
 
+    fwd, fwd_variant = bsa.fwd_entries(
+        build.load(bsa.FWD_SOURCE, ("GTOS_B5_VARIANTS",)))
     entries = bm.kernel_entries(build.load(bm.BWD_SOURCE,
                                            ("GTOS_B6_VARIANTS",)))
-    variant, real = entries[3], bm._bwd_kernels
-    bm._bwd_kernels = lambda: entries
-    n = variant(-1)
+    real = bsa._fwd_kernel, bm._bwd_kernels
+    bsa._fwd_kernel, bm._bwd_kernels = (lambda: fwd), (lambda: entries)
+    n = fwd_variant(-1)
+    if n != entries[3](-1):
+        cs.fail("the forward and backward sources hold different numbers "
+                "of variants")
     means = {}
     try:
-        for label, fwd_args, src, (core, plan) in cases:
-            ts, tr = fwd_args[5], fwd_args[6]
-            ref_d = bm.block_sparse_attention_bwd_dst_reference(*core, ts, tr)
-            ref_s = bm.block_sparse_attention_bwd_src_reference(*core, *src)
-            for v in range(n):
-                variant(v)
+        for label, fwd_args, src, bwd in cases:
+            t4 = bsa.bank_t4(fwd_args[3], fwd_args[4])
+            kernels = {}
+            if bwd is None:
+                kernels["B5"] = (
+                    lambda: bsa.block_sparse_attention(*fwd_args, t4=t4),
+                    bsa.block_sparse_attention_reference(*fwd_args, t4=t4))
+            else:
+                (core, plan), ts, tr = bwd, fwd_args[5], fwd_args[6]
+                ref_d = bm.block_sparse_attention_bwd_dst_reference(*core,
+                                                                    ts, tr)
+                kernels["B5s"] = (
+                    lambda: bsa.block_sparse_attention_with_stats(
+                        *fwd_args, t4=t4),
+                    bsa.block_sparse_attention_with_stats_reference(
+                        *fwd_args, t4=t4))
                 dst = lambda: bm.block_sparse_attention_bwd_dst(  # noqa
                     *core, ts, tr, plan)
-                d = dst()
-                srcp = lambda: bm.block_sparse_attention_bwd_src(  # noqa
-                    *core, *src, plan, d[2])
-                dtype_name = cs._dtype_name(core[0])
-                cs._compare("B6d", f"{label} variant {v}", dtype_name,
-                            list(zip(("dq", "ge"), d, ref_d)))
-                cs._compare("B6s", f"{label} variant {v}", dtype_name,
-                            list(zip(("dk", "dv"), srcp(), ref_s)))
-                ms = (cs.time_ms(dst), cs.time_ms(srcp))
-                print(f"[variant] {label} variant {v}: B6d {ms[0]:.6f} ms, "
-                      f"B6s {ms[1]:.6f} ms", flush=True)
-                if label.startswith("train"):
-                    means.setdefault(v, []).append(ms)
+                kernels["B6d"] = (lambda: dst()[:2], ref_d)
+                pair_s = dst()[2]   # the same values under every variant
+                kernels["B6s"] = (
+                    lambda: bm.block_sparse_attention_bwd_src(
+                        *core, *src, plan, pair_s),
+                    bm.block_sparse_attention_bwd_src_reference(*core, *src))
+                q, k, a, b = core[0], core[1], core[3], core[4]
+                kernels["B6b"] = (
+                    lambda: bm.block_sparse_bank_grads(q, k, a, b, ref_d[1],
+                                                       plan),
+                    bm.block_sparse_bank_grads_reference(q, k, a, b,
+                                                         ref_d[1],
+                                                         plan["pairs"]))
+            for v in range(n):
+                fwd_variant(v)
+                entries[3](v)
+                for name, (fn, ref) in kernels.items():
+                    got = fn()
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    cs._compare(name, f"{label} variant {v}", "bfloat16",
+                                [(f"out{x}", y, z)
+                                 for x, (y, z) in enumerate(zip(got, ref))])
+                    ms = cs.time_ms(fn)
+                    print(f"[variant] {label} variant {v}: {name} "
+                          f"{ms:.6f} ms", flush=True)
+                    if not label.startswith("N"):
+                        means.setdefault(v, {}).setdefault(name, []).append(
+                            ms)
             torch.cuda.empty_cache()
     finally:
-        variant(-1)
-        bm._bwd_kernels = real
+        fwd_variant(-1)
+        entries[3](-1)
+        bsa._fwd_kernel, bm._bwd_kernels = real
     print(json.dumps({"main_path_mean_ms": {
-        v: {"B6d": sum(m[0] for m in ms) / len(ms),
-            "B6s": sum(m[1] for m in ms) / len(ms)}
-        for v, ms in means.items()}}))
+        v: {name: sum(ms) / len(ms) for name, ms in by.items()}
+        for v, by in means.items()}}))
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ Phases, each of which exits non-zero on failure:
                (block-sparse forward), B5s (with the softmax statistics),
                B6d, B6s and B6b (its backward: dst pass, src pass, bank
                gradients) at c5 widths on batchify tile layouts of N=256
-               (B=4) and N=512 (B=2) at khop 4 and N=128 (B=8) at khop 0;
+               (B=4) and N=512 (B=2) at khop 4 and N=128 (B=8) at khop 0,
+               with each layout's bank-row run lengths and B6b's library
+               yardstick (its per-row sums as one torch.sparse.mm);
   4. serve   — builds the model with seeded random weights and serves the
                fullest batch of each of three node buckets with
                decode_batch (beam 8), counting the kernel launches of that
@@ -79,7 +81,8 @@ Phases, each of which exits non-zero on failure:
                card against f32 on the CPU, C5_TRAIN_STEPS training steps
                (B5s = B6d = B6s = B6b = enc_layers per step), the loss and
                every gradient against f32 on the CPU with three planted
-               wrong B6s (B6d, B6s, B6b), "sparse" against "block_sparse"
+               wrong B6s (B6d, B6s, B6b) and a planted wrong B5s (no k.a
+               term), "sparse" against "block_sparse"
                on one batch, and a bit-identical resume;
   13. shapes — each kernel again, on the very inputs the serving runs (B1;
                B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
@@ -811,6 +814,8 @@ def table_row(name, rows, launches):
     _, source, replaces = KERNELS[name]
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=launches[name], library_ms=None)
+    if all("library_ms" in r for r in rows):
+        row["library_ms"] = sum(r["library_ms"] for r in rows) / len(rows)
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     for key in ("ms", "plain_ms", "bound_ms"):
         row[key] = sum(r[key] for r in rows) / len(rows)
@@ -2085,6 +2090,73 @@ def b6_args(args, src, g):
     return (*args[:5], t4, gp, m, l, delta), plan
 
 
+RUN_BINS = ((1, 1), (2, 8), (9, 32), (33, 128), (129, 1024), (1025, None))
+
+
+def run_histogram(plan, P):
+    """The bank-row runs of a backward plan: per length bin, the runs and
+    their pairs, and the distinct rows R against P (what sets B6b's
+    time)."""
+    import torch
+
+    r = plan["pairs"][3]
+    lens = torch.unique(r, return_counts=True)[1].cpu().numpy()
+    bins = []
+    for lo, hi in RUN_BINS:
+        sel = (lens >= lo) & (lens <= (hi or lens.max(initial=0)))
+        bins.append(f"{lo}-{hi or 'inf'}: {int(sel.sum())} runs "
+                    f"{int(lens[sel].sum())} pairs")
+    return (f"R={len(lens)} of P={P} rows, E={int(lens.sum())} pairs, "
+            f"longest {int(lens.max(initial=0))}; " + "; ".join(bins))
+
+
+def b6b_library(q, k, a, ge, plan):
+    """B6b's yardstick: one torch.sparse.mm that computes its per-row sums.
+    A COO [P*H, 2*B*H*N] matrix holds two entries ge' per (pair, head), at
+    q_i's row in the first half of the columns and at k_j's in the second;
+    times the block-diagonal [[q, 0], [0, k]] [2*B*H*N, 2*Dh], its row
+    (r, h) is (sum ge' q_i, sum ge' k_j). The elementwise dt4 term is not
+    in it. Built here, outside any timing, in the input type, or in f32
+    where the card's sparse product refuses it. Returns (fn, its type's
+    name, the largest error of its sums against the plain version's)."""
+    import torch
+
+    B, H, N, Dh = q.shape
+    P = a.shape[0]
+    bi, i, j, r = plan["pairs"]
+    h = torch.arange(H, device=q.device)
+    rows = (r[:, None] * H + h).flatten()
+    cq = ((bi[:, None] * H + h) * N + i[:, None]).flatten()
+    ck = ((bi[:, None] * H + h) * N + j[:, None]).flatten() + B * H * N
+    idx = torch.stack([torch.cat([rows, rows]), torch.cat([cq, ck])])
+    for dtype in dict.fromkeys((q.dtype, torch.float32)):
+        w = ge.T.to(q.dtype).to(dtype).flatten()
+        mat = torch.sparse_coo_tensor(idx, torch.cat([w, w]),
+                                      (P * H, 2 * B * H * N),
+                                      check_invariants=True).coalesce()
+        dense = torch.zeros(2 * B * H * N, 2 * Dh, dtype=dtype,
+                            device=q.device)
+        dense[:B * H * N, :Dh] = q.reshape(-1, Dh)
+        dense[B * H * N:, Dh:] = k.reshape(-1, Dh)
+        fn = lambda: torch.sparse.mm(mat, dense)  # noqa: E731
+        try:
+            got = fn().float().view(P, H, 2 * Dh)
+        except RuntimeError as e:
+            print(f"[kernel] B6b yardstick: torch.sparse.mm refuses {dtype}"
+                  f" ({str(e).splitlines()[0][:120]}); timed in float32",
+                  flush=True)
+            continue
+        geq = ge.T.to(q.dtype).float()
+        sq = torch.zeros(P, H, Dh, device=q.device).index_add_(
+            0, r, geq[..., None] * q[bi, :, i].float())
+        sk = torch.zeros(P, H, Dh, device=q.device).index_add_(
+            0, r, geq[..., None] * k[bi, :, j].float())
+        err = max((got[..., :Dh] - sq).abs().max().item(),
+                  (got[..., Dh:] - sk).abs().max().item())
+        return fn, _dtype_name(dense), err
+    fail("torch.sparse.mm refuses B6b's yardstick in every type")
+
+
 def check_b6(label, args, src, g=None, bwd=None):
     """B6d, B6s and B6b against their plain versions on the same inputs
     (dq and ge; dk and dv; g_a and g_b), each giving the same bits on a
@@ -2120,6 +2192,8 @@ def check_b6(label, args, src, g=None, bwd=None):
     ref_bank = bwd_mod.block_sparse_bank_grads_reference(
         q, k, a, b, ref_dst[1], plan["pairs"])
     torch.cuda.synchronize()
+    print(f"[kernel] B6b {label} bank-row runs: {run_histogram(plan, P)}",
+          flush=True)
     rows = {}
     for kernel, names, got, twice, ref, fn, plain in (
             ("B6d", ("dq", "ge"), first[0], again[0], ref_dst, dst,
@@ -2154,6 +2228,12 @@ def check_b6(label, args, src, g=None, bwd=None):
         rows[kernel] = _block_line(
             kernel, label, q, P, E, dtype_name, err,
             block_bound(kernel, args, src), time_ms(fn), time_ms(plain))
+    lib, lib_type, lib_err = b6b_library(q, k, a, first[0][1], plan)
+    rows["B6b"]["library_ms"] = time_ms(lib)
+    print(f"[kernel] B6b {label} {dtype_name}: library torch.sparse.mm "
+          f"({lib_type}; its sums without the dt4 term, max_abs_err "
+          f"{lib_err:.3e} against the plain version's) "
+          f"{rows['B6b']['library_ms']:.6f} ms", flush=True)
     return rows
 
 
@@ -2182,9 +2262,11 @@ def phase_block_kernels():
             check_b5(name, args, with_stats=True)
             check_b6(name, args, src, g)
         torch.cuda.empty_cache()
-    print("[kernel] library_ms: none — no single PyTorch call computes the "
-          "block-sparse relation attention or its backward (each pair reads "
-          "its own bank rows), so there is no library yardstick")
+    print("[kernel] library_ms: none for B5, B5s, B6d and B6s — no single "
+          "PyTorch call computes the block-sparse relation attention or its "
+          "dq, dk, dv (each pair reads its own bank rows); B6b's per-row "
+          "sums are one torch.sparse.mm, timed beside it (without the dt4 "
+          "term)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -2465,6 +2547,23 @@ def planted_b6(kind):
     return "block_sparse_bank_grads", wrong
 
 
+def planted_b5s():
+    """B5s made wrong on purpose, as a control for the c5 gradient check:
+    its scores without the relation term k_j.a_r ("no k.a term"; the real
+    kernel given a zero a bank, with the true t4). Returns (the wrapper's
+    name, the planted function)."""
+    import torch
+
+    from gtos_tpu_torch.ops import block_sparse_attention as fwd_mod
+
+    real = fwd_mod.block_sparse_attention_with_stats
+
+    def wrong(q, k, v, a, b, ts, tr, scale=None, t4=None):
+        t4 = fwd_mod.bank_t4(a, b) if t4 is None else t4
+        return real(q, k, v, torch.zeros_like(a), b, ts, tr, scale, t4)
+    return "block_sparse_attention_with_stats", wrong
+
+
 def c5_grad_batch():
     """The c5 train batch of the gradient checks: the corpus's first two
     graphs of the N=256 bucket (two node tiles), batched as the loader
@@ -2484,8 +2583,8 @@ def phase_c5_grads():
     """The loss and every parameter gradient of one c5 train batch
     (dropout 0) under "block_sparse" on the card (B5s and B6), the f32
     model then the bf16 one, against the same f32 weights on the CPU (plain
-    versions), within GRAD_TOL; each planted wrong B6 must fail in one of
-    the two types. Then the same batch under "sparse" (the edge-list
+    versions), within GRAD_TOL; each planted wrong B6, and a B5s without
+    its k.a term, must fail in one of the two types. Then the same batch under "sparse" (the edge-list
     attention, plain torch on the card) against "block_sparse" in f32,
     within SPARSE_TOL, and launching none of the kernels."""
     import torch
@@ -2544,6 +2643,12 @@ def phase_c5_grads():
                       for dtype_name in ("float32", "bfloat16")]
         if all(passed):
             fail(f"the c5 gradient check passes a B6 with {kind}")
+    name, wrong = planted_b5s()
+    with wrapper_replaced(name, wrong):
+        passed = [check(dtype_name, "planted B5s (no k.a term)")[0]
+                  for dtype_name in ("float32", "bfloat16")]
+    if all(passed):
+        fail("the c5 gradient check passes a B5s with no k.a term")
     models["float32"].cfg = dataclasses.replace(f32, attention_impl="sparse")
     refs.append(sound["float32"])
     ok, _ = check("float32", "sparse", ref=sound["float32"], tol=SPARSE_TOL,

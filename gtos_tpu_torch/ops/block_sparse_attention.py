@@ -196,11 +196,20 @@ def check_args(q, k, v, a_bank, b_bank, tiles, rels):
 def _fwd_kernel():
     """B5's (and B5s's) C entry point in the built library, with argument
     types."""
-    fn = build.load(FWD_SOURCE).gtos_blk_attn_fwd
+    return fwd_entries(build.load(FWD_SOURCE))[0]
+
+
+def fwd_entries(lib):
+    """(B5/B5s, variant) entry points of a library built from FWD_SOURCE,
+    with argument types; variant(v) forces the bf16 variant v (-1: the
+    kernel's own) and returns the number of variants, 0 unless the library
+    was built with GTOS_B5_VARIANTS."""
+    fn, variant = lib.gtos_blk_attn_fwd, lib.gtos_blk_attn_fwd_variant
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    variant.argtypes = [ctypes.c_int]
+    fn.restype = variant.restype = ctypes.c_int
+    return fn, variant
 
 
 def _launch_fwd(q, k, v, a_bank, b_bank, tile_src, tile_rel, scale, t4,

@@ -30,12 +30,15 @@ plain torch version for CPU tensors and counts its launches:
       of the plane rows and walk the kept pairs 8 lanes a pair, 16 bytes
       a lane, each row read once;
   B6b `block_sparse_bank_grads`         g_a and g_b from ge, summed over
-      the pairs of each bank row in a fixed order.
+      the pairs of each bank row in a fixed order: a run of at most
+      SHORT_RUN pairs a lane group, a longer one cut into chunks of
+      BANK_CHUNK pairs a block, whose sums a second launch adds in chunk
+      order; every bank row written once, the unreferenced ones as 0.
 
 `backward_plan` builds, from the two tile layouts, what B6d, B6s and B6b
 walk: each plane row's first pair id in both orders, each pair's src-major
-place and the pairs sorted by bank row. It depends on the batch only, so
-the encoder stack builds it once for all its layers.
+place, the pairs sorted by bank row and B6b's work list. It depends on the
+batch only, so the encoder stack builds it once for all its layers.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import ctypes
 import functools
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from gtos_tpu_torch.ops import build
@@ -56,8 +60,10 @@ from gtos_tpu_torch.ops.relation_attention import (
 )
 
 BWD_SOURCE = "block_sparse_attention_bwd.cu"
-# bank rows with more kept pairs than this get a block of 32 warps in B6b
-LONG_RUN = 128
+# B6b: a bank row with at most SHORT_RUN kept pairs is one lane group's
+# work; a longer one is cut into chunks of BANK_CHUNK pairs, a block each
+# (the kernel's kShortRun and kChunk)
+SHORT_RUN, BANK_CHUNK = 32, 256
 
 
 def prep_bwd_invariants(q, g, out):
@@ -75,6 +81,40 @@ def _row_base(valid):
             - counts.flatten()).view(counts.shape).contiguous()
 
 
+def bank_work(run_r, run_len):
+    """B6b's work list (numpy, int32 [n, 4] each) for the runs of one bank
+    row in the sorted pair order (bank rows `run_r`, lengths `run_len`):
+    `chunks` (first place, pairs, bank row, workspace slot), the runs of
+    more than SHORT_RUN pairs cut into BANK_CHUNK-pair pieces in order, the
+    slot -1 for a run of one piece and the pieces of a run of several on
+    consecutive slots; `shorts` (first place, pairs, bank row, 0), the other
+    runs, longest first (stable); `multi` (first slot, slots, bank row, 0),
+    the runs of several pieces."""
+    run_r = np.asarray(run_r, np.int64)
+    run_len = np.asarray(run_len, np.int64)
+    start = np.cumsum(run_len) - run_len
+    short = np.flatnonzero(run_len <= SHORT_RUN)
+    short = short[np.argsort(-run_len[short], kind="stable")]
+    zero = np.zeros(len(short), np.int64)
+    shorts = np.stack([start[short], run_len[short], run_r[short], zero], 1)
+    long = np.flatnonzero(run_len > SHORT_RUN)
+    pieces = -(-run_len[long] // BANK_CHUNK)
+    run_of = np.repeat(long, pieces)
+    k = np.arange(len(run_of)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    lo = start[run_of] + k * BANK_CHUNK
+    n = np.minimum(BANK_CHUNK, start[run_of] + run_len[run_of] - lo)
+    several = np.repeat(pieces > 1, pieces)
+    slot = np.full(len(run_of), -1, np.int64)
+    slot[several] = np.arange(int(several.sum()))
+    chunks = np.stack([lo, n, run_r[run_of], slot], 1)
+    m = pieces > 1
+    first = np.cumsum(pieces[m]) - pieces[m]
+    multi = np.stack([first, pieces[m], run_r[long[m]],
+                      np.zeros(int(m.sum()), np.int64)], 1)
+    as_i32 = lambda x: x.reshape(-1, 4).astype(np.int32)  # noqa: E731
+    return as_i32(chunks), as_i32(shorts), as_i32(multi)
+
+
 def backward_plan(tile_src, tile_rel, tile_dst, tile_rel_src, N: int,
                   P: int) -> Dict:
     """The pair orders of the backward for one batch (torch, on the
@@ -84,11 +124,12 @@ def backward_plan(tile_src, tile_rel, tile_dst, tile_rel_src, N: int,
     128] int32, the same over the src-major planes, whose order gives each
     pair its src-major place, and `dst2src` [E] int32, the src-major place
     of each pair id; in bank-row order (stable) `pid`, `qrow` (b*N + i)
-    and `krow` (b*N + j) [E] int32, the runs of one bank row `run_r` [R]
-    and `run_start` [R + 1], split into `long_runs` (more than LONG_RUN
-    pairs) and `short_runs`; `pairs`, (b, i, j, r) int64 in pair-id order,
-    for the plain versions. Raises ValueError when the two layouts do not
-    hold the same pairs."""
+    and `krow` (b*N + j) [E] int32; B6b's work list over that order
+    (`bank_work`: `bank_chunks`, `bank_shorts`, `bank_multi` int32 [n, 4],
+    and `bank_slots`, the workspace slots) and `bank_used` [P] uint8, 1 for
+    a bank row some pair references; `pairs`, (b, i, j, r) int64 in
+    pair-id order, for the plain versions. Raises ValueError when the two
+    layouts do not hold the same pairs."""
     bi, i, j, r, valid = tile_pairs(tile_src, tile_rel, N, P)
     sb, sj, si, sr, svalid = tile_pairs(tile_dst, tile_rel_src, N, P)
     key = (bi * N + i) * N + j
@@ -101,18 +142,18 @@ def backward_plan(tile_src, tile_rel, tile_dst, tile_rel_src, N: int,
                          "dst-major layout's pairs")
     order = torch.argsort(r, stable=True)
     run_r, run_len = torch.unique_consecutive(r[order], return_counts=True)
-    run_start = torch.zeros(len(run_len) + 1, dtype=torch.int64,
-                            device=r.device)
-    torch.cumsum(run_len, 0, out=run_start[1:])
-    long = run_len > LONG_RUN
+    # one copy to the host, where the work list is cut
+    work = bank_work(*torch.stack([run_r, run_len]).cpu().numpy())
+    chunks, shorts, multi = (torch.from_numpy(x).to(r.device) for x in work)
     i32 = torch.int32
     return dict(row_base=_row_base(valid), E=int(r.numel()),
                 src_row_base=_row_base(svalid), dst2src=by_key[at].to(i32),
                 pid=order.to(i32), qrow=(bi * N + i)[order].to(i32),
-                krow=(bi * N + j)[order].to(i32), run_r=run_r.to(i32),
-                run_start=run_start.to(i32),
-                long_runs=long.nonzero()[:, 0].to(i32),
-                short_runs=(~long).nonzero()[:, 0].to(i32),
+                krow=(bi * N + j)[order].to(i32), bank_chunks=chunks,
+                bank_shorts=shorts, bank_multi=multi,
+                bank_slots=int(work[2][:, 1].sum()),
+                bank_used=torch.zeros(P, dtype=torch.uint8,
+                                      device=r.device).index_fill_(0, run_r, 1),
                 pairs=(bi, i, j, r))
 
 
@@ -200,9 +241,9 @@ def _bwd_kernels():
 
 def kernel_entries(lib):
     """(B6d, B6s, B6b, variant) entry points of a library built from
-    BWD_SOURCE, with argument types; variant(v) forces B6d's and B6s's
-    bf16 variant v (-1: their own) and returns the number of variants, 0
-    unless the library was built with GTOS_B6_VARIANTS."""
+    BWD_SOURCE, with argument types; variant(v) forces B6d's, B6s's and
+    B6b's bf16 variant v (-1: their own) and returns the number of
+    variants, 0 unless the library was built with GTOS_B6_VARIANTS."""
     dst, src, bank, variant = (
         lib.gtos_blk_attn_bwd_dst, lib.gtos_blk_attn_bwd_src,
         lib.gtos_blk_bank_grads, lib.gtos_blk_attn_bwd_variant)
@@ -210,8 +251,8 @@ def kernel_entries(lib):
     dst.argtypes = ([i32] + [ptr] * 17 + [i32] * 8
                     + [ctypes.c_float, ptr])
     src.argtypes = [i32] + [ptr] * 9 + [i32] * 8 + [ptr]
-    bank.argtypes = ([i32] + [ptr] * 11 + [i32, ptr, i32, ptr, ptr]
-                     + [i32] * 4 + [ptr])
+    bank.argtypes = ([i32] + [ptr] * 9 + [i32, ptr, i32, ptr, i32]
+                     + [ptr] * 4 + [i32] * 5 + [ptr])
     variant.argtypes = [i32]
     for fn in (dst, src, bank, variant):
         fn.restype = ctypes.c_int
@@ -312,7 +353,8 @@ def block_sparse_attention_bwd_src(q, k, v, a_bank, b_bank, t4, gp, m, l,
 
 def block_sparse_bank_grads(q, k, a_bank, b_bank, ge, plan):
     """B6b: (g_a, g_b) [P, H, Dh] in the bank type from B6d's ge [H, E] and
-    backward_plan's pair orders. Same limits as B5."""
+    backward_plan's pair orders and work list; the kernel writes every row
+    (0 where no pair references it). Same limits as B5."""
     if not _on_card(q):
         return block_sparse_bank_grads_reference(q, k, a_bank, b_bank, ge,
                                                  plan["pairs"])
@@ -326,16 +368,25 @@ def block_sparse_bank_grads(q, k, a_bank, b_bank, ge, plan):
     _check("ge", ge, (H, E), torch.float32, q.device)
     for name in ("pid", "qrow", "krow"):
         _check(name, plan[name], (E,), torch.int32, q.device)
-    g_a, g_b = torch.zeros_like(a_bank), torch.zeros_like(b_bank)
+    work = [plan[name] for name in ("bank_chunks", "bank_shorts",
+                                    "bank_multi")]
+    for name, t in zip(("bank_chunks", "bank_shorts", "bank_multi"), work):
+        _check(name, t, (len(t), 4), torch.int32, q.device)
+    _check("bank_used", plan["bank_used"], (P,), torch.uint8, q.device)
+    g_a, g_b = torch.empty_like(a_bank), torch.empty_like(b_bank)
+    slots = plan["bank_slots"]
+    part = (torch.empty(slots, H, 2 * Dh + 4, dtype=torch.float32,
+                        device=q.device) if slots else None)
     with torch.cuda.device(q.device):
         err = _bwd_kernels()[2](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), a_bank.data_ptr(),
             b_bank.data_ptr(), ge.data_ptr(), plan["pid"].data_ptr(),
             plan["qrow"].data_ptr(), plan["krow"].data_ptr(),
-            plan["run_r"].data_ptr(), plan["run_start"].data_ptr(),
-            plan["long_runs"].data_ptr(), len(plan["long_runs"]),
-            plan["short_runs"].data_ptr(), len(plan["short_runs"]),
-            g_a.data_ptr(), g_b.data_ptr(), H, N, Dh, E, _stream(q))
+            work[0].data_ptr(), len(work[0]), work[1].data_ptr(),
+            len(work[1]), work[2].data_ptr(), len(work[2]),
+            plan["bank_used"].data_ptr(),
+            part.data_ptr() if slots else None, g_a.data_ptr(),
+            g_b.data_ptr(), H, N, Dh, E, P, _stream(q))
     _raise_on(err, "block-sparse attention bank gradients")
     block_sparse_bank_grads.launches += 1
     return g_a, g_b

@@ -2,8 +2,9 @@
 
 The source has a plain C interface and is compiled by `nvcc` for Hopper
 (`sm_90a`) into a shared library, loaded with ctypes. The library name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. Libraries go to
+carries a hash of the source, the headers beside it (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Libraries go to
 `gtos_tpu_torch/_build/` (listed in .gitignore).
 """
 
@@ -29,7 +30,8 @@ def _flags(defines=()) -> tuple:
 def library_path(source: str, defines=()) -> Path:
     """Where the library of `source` (a file name in csrc/) is built, with
     the preprocessor macros `defines`."""
-    text = (CSRC_DIR / source).read_bytes()
+    text = (CSRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
         text + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"

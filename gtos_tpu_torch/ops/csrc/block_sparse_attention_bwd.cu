@@ -65,71 +65,34 @@
 // block's barrier-separated phases, each a round trip, set the time.
 //
 // B6b reads the pairs sorted by bank row (a stable order built once per
-// encoder stack): a warp per (bank row, head) for rows with few pairs, and
-// for rows with many (the global node's, the self path's) a block of 32
-// warps that split the row's pairs in 32 contiguous parts and add the parts
-// in a fixed order. No atomics in any of the three: the same bits on every
-// run.
+// encoder stack by backward_plan, with its work list). The run of one bank
+// row is walked once for all heads: a block of up to 8 head warps stages
+// the pairs' q and k row offsets and their ge' (ge rounded to the input
+// type) for its heads in shared memory, and each head's warp gathers its
+// q_i and k_j rows in 8-lane groups, 16 bytes a lane, several pairs a
+// round trip. A run of at most 32 pairs (most runs at the c5 model's
+// khop 4) is one group's: a block walks 4 of them, the runs sorted
+// longest first, and writes their rows. A longer run is cut into chunks of
+// 256 pairs, a block each, whose 4 groups share the chunk and add their
+// sums in a fixed butterfly; a run of several chunks has each chunk's sums
+// written to a workspace, added in chunk order by a second, small launch.
+// Further blocks write the rows no pair references as 0, so every row of
+// g_a and g_b is written once and the caller fills nothing. No atomics in
+// any of the three kernels: the same bits on every run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "block_sparse_common.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kThreads = 256;         // a B6d / B6s block: 8 warps
+using namespace blk;
+
+constexpr int kThreads = 256;         // a block: 8 warps
 constexpr int kPassWarps = kThreads / 32;
-constexpr int kMaxDh = 128;
-constexpr int kMaxDPL = kMaxDh / 32;  // head dims per lane (B6b)
-constexpr int kBankWarps = 32;        // warps of a B6b block
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// 8 values of a row as read (16 bytes of bf16, 32 bytes of f32)
-template <typename T> struct Chunk;
-template <> struct Chunk<__nv_bfloat16> { uint4 u; };
-template <> struct Chunk<float> { float4 a, b; };
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           Chunk<__nv_bfloat16>& c) {
-  c.u = __ldg(reinterpret_cast<const uint4*>(p));
-}
-__device__ __forceinline__ void load_chunk(const float* p, Chunk<float>& c) {
-  c.a = __ldg(reinterpret_cast<const float4*>(p));
-  c.b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-}
-__device__ __forceinline__ void unpack(const Chunk<__nv_bfloat16>& c,
-                                       float* o) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&c.u);
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const float2 f = __bfloat1622float2(h[x]);
-    o[2 * x] = f.x;
-    o[2 * x + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void unpack(const Chunk<float>& c, float* o) {
-  o[0] = c.a.x; o[1] = c.a.y; o[2] = c.a.z; o[3] = c.a.w;
-  o[4] = c.b.x; o[5] = c.b.y; o[6] = c.b.z; o[7] = c.b.w;
-}
+constexpr int kShortRun = 32;         // B6b: runs a lane group takes whole
+constexpr int kChunk = 256;           // B6b: a longer run's pairs a block
+constexpr int kZeroRows = 64;         // B6b: unreferenced rows a block
 
 // The arrays of one pass. B6d: own1/own2 = q/gp, x1/x2 = k/v, own_bank =
 // b_bank, part_bank = a_bank, tiles/rels = tile_src/tile_rel, row_base the
@@ -296,56 +259,13 @@ blk_attn_bwd_pass(const PassArgs<T> a) {
 
   const int t = n / kTile, nl = n - t * kTile;
   const size_t tile_row = static_cast<size_t>(b) * a.Tn + t;
-  const unsigned lt = (1u << lane) - 1u;
   for (int s0 = 0; s0 < a.Smax; s0 += warps) {
-    // warp w: slot s0 + w, its tile id, plane row and first id at once
-    const int s = s0 + warp;
-    int other = -1, rank0 = 0;
-    int4 rv = make_int4(-1, -1, -1, -1);
-    if (s < a.Smax) {
-      const size_t plane_row = (tile_row * a.Smax + s) * kTile + nl;
-      other = __ldg(a.tiles + tile_row * a.Smax + s);
-      rv = __ldg(reinterpret_cast<const int4*>(a.rels + plane_row * kTile) +
-                 lane);
-      rank0 = __ldg(a.row_base + plane_row);
-    }
-    const int rs[4] = {rv.x, rv.y, rv.z, rv.w};
-    unsigned bits = 0;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const bool keep = other >= 0 && rs[u] >= 0 && rs[u] < a.P &&
-                        other * kTile + 4 * lane + u < N;
-      bits |= static_cast<unsigned>(keep) << u;
-    }
-    int pos = 0, total = 0;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const unsigned m = __ballot_sync(0xffffffffu, (bits >> u) & 1u);
-      pos += __popc(m & lt);
-      total += __popc(m);
-    }
-    if (lane == 0) counts[warp] = total;
-    __syncthreads();
-    // the slots' lists one after the other, in slot order
-    int off = 0, all = 0;
-    for (int w = 0; w < warps; ++w) {
-      const int c = counts[w];
-      off += w < warp ? c : 0;
-      all += c;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if ((bits >> u) & 1u) {
-        list_o[off + pos] = other * kTile + 4 * lane + u;
-        list_r[off + pos] = rs[u];
-        list_id[off + pos] = rank0 + pos;
-        ++pos;
-      }
-    }
-    __syncthreads();
+    const int all = plane_round(a.tiles, a.rels, a.row_base, tile_row, nl,
+                                s0, a.Smax, a.P, N, counts, list_o, list_r,
+                                list_id);
     if (active)
       for (int x0 = 0; x0 < all; x0 += kRound) take(x0, min(kRound, all - x0));
-    __syncthreads();  // the list is rewritten for the next slots
+    __syncthreads();  // the lists are rewritten for the next slots
   }
   if (!active) return;
 
@@ -375,118 +295,251 @@ blk_attn_bwd_pass(const PassArgs<T> a) {
   }
 }
 
-// B6b: the bank gradients. The kept pairs sorted by bank row (stable):
-// pair id `pid`, and the rows of q (b*N + i) and k (b*N + j) it reads; the
-// sorted order splits into runs of one bank row, run x = [run_start[x],
-// run_start[x + 1]) with row run_r[x]. Blocks [0, n_long * H): one per
-// (long run, head), 32 warps over 32 contiguous parts of the run, the parts
-// added in order; then blocks of 32 warps, a warp per (short run, head).
-// Rows no pair references stay as the caller zeroed them.
+// B6b: the bank gradients, from the pairs in bank-row order (stable): for
+// sorted place x, `pid[x]` the pair's id (its place in ge), `qrow[x]` and
+// `krow[x]` its q and k rows (b*N + i, b*N + j). Work items, int4 each:
+// chunks (first place, pairs <= 256, bank row, workspace slot or -1 for a
+// run of one chunk), the longer runs' pieces; shorts (first place, pairs
+// <= 32, bank row, 0), whole runs, longest first; multi (first slot,
+// slots, bank row, 0), the runs of several chunks. used [P]: 0 for a row
+// no pair references.
+template <typename T> struct BankArgs {
+  const T* q; const T* k; const T* a_bank; const T* b_bank; const float* ge;
+  const int32_t* pid; const int32_t* qrow; const int32_t* krow;
+  const int4* chunks; const int4* shorts; const int4* multi;
+  const uint8_t* used;
+  float* part;   // [slots, H, 2 Dh + 4] f32: a chunk's sums of ge' q, ge' k
+                 // and ge' (at 2 Dh)
+  T* g_a; T* g_b;
+  int H, N, Dh, E, P, n_chunks, n_short, n_multi;
+};
+
+// the bank row r of head h from its sums: g_b = sq + dt4 a_r and g_a =
+// sk + dt4 b_r; a group's lane li writes its chunks
+template <typename T, int kCpl>
+__device__ __forceinline__ void write_bank_row(const BankArgs<T>& a, int r,
+                                               int h, int li, const float* sq,
+                                               const float* sk, float dt4) {
+  const size_t row = (static_cast<size_t>(r) * a.H + h) * a.Dh;
+#pragma unroll
+  for (int cc = 0; cc < kCpl; ++cc) {
+    const int c = li + 8 * cc;
+    if (c < a.Dh / 8) {
+      Chunk<T> ac, bc;
+      load_chunk(a.a_bank + row + c * 8, ac);
+      load_chunk(a.b_bank + row + c * 8, bc);
+      float a8[8], b8[8], ob[8], oa[8];
+      unpack(ac, a8);
+      unpack(bc, b8);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        ob[d] = sq[cc * 8 + d] + dt4 * a8[d];
+        oa[d] = sk[cc * 8 + d] + dt4 * b8[d];
+      }
+      store8(a.g_b + row + c * 8, ob);
+      store8(a.g_a + row + c * 8, oa);
+    }
+  }
+}
+
+// Blocks [0, n_chunks): a chunk each; then blocks of 4 short runs; then
+// (head block 0 only) blocks of kZeroRows rows that write the unreferenced
+// rows as 0. Warp w is head blockIdx.y * 8 + w (warps past H only stage).
+template <typename T, int kCpl, int kGu, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+blk_bank_grads(const BankArgs<T> a) {
+  constexpr int kGl = 8;                       // lanes per pair
+  constexpr int kGroups = 32 / kGl;
+  __shared__ int s_q[kChunk];                  // b*H*N + i
+  __shared__ int s_k[kChunk];                  // b*H*N + j
+  __shared__ float s_w[kPassWarps][kChunk];    // ge' per head
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / kGl, li = lane % kGl;
+  const int H = a.H, N = a.N, Dh = a.Dh, C = Dh / 8;
+  const int h0 = blockIdx.y * kPassWarps;
+  const int h = h0 + warp;
+  const int n_heads = min(warps, H - h0);
+  const int bx = blockIdx.x;
+  const int n_short_blocks = (a.n_short + kGroups - 1) / kGroups;
+  const bool is_chunk = bx < a.n_chunks;
+
+  if (bx >= a.n_chunks + n_short_blocks) {   // unreferenced rows: 0
+    if (blockIdx.y != 0) return;
+    const int r0 = (bx - a.n_chunks - n_short_blocks) * kZeroRows;
+    const int vecs = H * Dh * static_cast<int>(sizeof(T)) / 16;
+    for (int x = threadIdx.x; x < kZeroRows * vecs; x += blockDim.x) {
+      const int r = r0 + x / vecs;
+      if (r < a.P && a.used[r] == 0) {
+        const size_t at = static_cast<size_t>(r) * vecs + x % vecs;
+        reinterpret_cast<uint4*>(a.g_a)[at] = make_uint4(0, 0, 0, 0);
+        reinterpret_cast<uint4*>(a.g_b)[at] = make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+
+  // stage the block's pairs: slot s of a chunk is its pair s; slot s of a
+  // block of short runs is pair s % 32 of run s / 32
+  int4 item = make_int4(0, 0, 0, 0);   // this thread's slot's chunk or run
+  const int slots = is_chunk ? kChunk : kGroups * kShortRun;
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+    int x = s;
+    if (is_chunk) {
+      item = a.chunks[bx];
+    } else {
+      const int run = (bx - a.n_chunks) * kGroups + s / kShortRun;
+      item = run < a.n_short ? a.shorts[run] : make_int4(0, 0, 0, 0);
+      x = s % kShortRun;
+    }
+    if (x < item.y) {
+      const int p = item.x + x;
+      const int id = __ldg(a.pid + p), qr = __ldg(a.qrow + p),
+                kr = __ldg(a.krow + p);
+      const int bq = qr / N, bk = kr / N;
+      s_q[s] = bq * H * N + (qr - bq * N);
+      s_k[s] = bk * H * N + (kr - bk * N);
+      for (int hh = 0; hh < n_heads; ++hh)
+        s_w[hh][s] = round_to<T>(
+            __ldg(a.ge + static_cast<size_t>(h0 + hh) * a.E + id));
+    }
+  }
+  __syncthreads();
+  if (h >= H) return;   // no barrier below
+
+  float sq[kCpl * 8], sk[kCpl * 8], dt4 = 0.f;
+#pragma unroll
+  for (int x = 0; x < kCpl * 8; ++x) sq[x] = sk[x] = 0.f;
+  const float* w = s_w[warp];
+  // slots [x0, x0 + kGu * step) by kGu, step apart, below `end`
+  auto take = [&](int x0, int step, int end) {
+    Chunk<T> qc[kGu][kCpl], kc[kGu][kCpl];
+#pragma unroll
+    for (int uu = 0; uu < kGu; ++uu) {
+      const int x = x0 + step * uu;
+      if (x < end) {
+        const size_t qo = (static_cast<size_t>(s_q[x]) + static_cast<size_t>(h) * N) * Dh;
+        const size_t ko = (static_cast<size_t>(s_k[x]) + static_cast<size_t>(h) * N) * Dh;
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          const int c = li + kGl * cc;
+          if (c < C) {
+            load_chunk(a.q + qo + c * 8, qc[uu][cc]);
+            load_chunk(a.k + ko + c * 8, kc[uu][cc]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int uu = 0; uu < kGu; ++uu) {
+      const int x = x0 + step * uu;
+      if (x < end) {
+        const float wx = w[x];
+        dt4 += wx;
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          if (li + kGl * cc < C) {
+            float q8[8], k8[8];
+            unpack(qc[uu][cc], q8);
+            unpack(kc[uu][cc], k8);
+#pragma unroll
+            for (int d = 0; d < 8; ++d) {
+              sq[cc * 8 + d] += wx * q8[d];
+              sk[cc * 8 + d] += wx * k8[d];
+            }
+          }
+        }
+      }
+    }
+  };
+
+  if (!is_chunk) {
+    // group g: short run g of the block, whole, kGu pairs a round trip
+    const int run = (bx - a.n_chunks) * kGroups + grp;
+    if (run >= a.n_short) return;
+    const int4 it = a.shorts[run];
+    const int base = grp * kShortRun;
+    for (int x0 = 0; x0 < it.y; x0 += kGu) take(base + x0, 1, base + it.y);
+    write_bank_row<T, kCpl>(a, it.z, h, li, sq, sk, dt4);
+    return;
+  }
+  // a chunk: its pairs over the 4 groups, then their sums in a fixed
+  // butterfly
+  const int4 it = a.chunks[bx];
+  for (int x0 = 0; x0 < it.y; x0 += kGroups * kGu)
+    take(x0 + grp, kGroups, it.y);
+#pragma unroll
+  for (int off = kGl; off < 32; off <<= 1) {
+    dt4 += __shfl_xor_sync(0xffffffffu, dt4, off);
+#pragma unroll
+    for (int x = 0; x < kCpl * 8; ++x) {
+      sq[x] += __shfl_xor_sync(0xffffffffu, sq[x], off);
+      sk[x] += __shfl_xor_sync(0xffffffffu, sk[x], off);
+    }
+  }
+  if (grp != 0) return;
+  if (it.w < 0) {   // the run's only chunk
+    write_bank_row<T, kCpl>(a, it.z, h, li, sq, sk, dt4);
+    return;
+  }
+  float* part = a.part + (static_cast<size_t>(it.w) * H + h) * (2 * Dh + 4);
+#pragma unroll
+  for (int cc = 0; cc < kCpl; ++cc) {
+    const int c = li + kGl * cc;
+    if (c < C) {
+      store8(part + c * 8, sq + cc * 8);
+      store8(part + Dh + c * 8, sk + cc * 8);
+    }
+  }
+  if (li == 0) part[2 * Dh] = dt4;
+}
+
+// B6b's second launch: a block per run of several chunks (warp w: head
+// blockIdx.y * 8 + w) adds the chunks' sums in chunk order and writes the
+// row.
 template <typename T>
-__global__ void __launch_bounds__(kBankWarps * 32)
-blk_bank_grads(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ a_bank, const T* __restrict__ b_bank,
-               const float* __restrict__ ge, const int32_t* __restrict__ pid,
-               const int32_t* __restrict__ qrow,
-               const int32_t* __restrict__ krow,
-               const int32_t* __restrict__ run_r,
-               const int32_t* __restrict__ run_start,
-               const int32_t* __restrict__ long_runs, int n_long,
-               const int32_t* __restrict__ short_runs, int n_short,
-               T* __restrict__ g_a, T* __restrict__ g_b, int H, int N,
-               int Dh, int E) {
-  __shared__ float part[kBankWarps][2 * kMaxDh + 1];
-  const int warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(kThreads)
+blk_bank_combine(const BankArgs<T> a) {
+  constexpr int kVals = 2 * kMaxDh / 32;   // sums a lane adds
+  const int h = blockIdx.y * kPassWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const bool is_long = blockIdx.x < static_cast<unsigned>(n_long * H);
-  int run, h, lo, hi;
-  if (is_long) {
-    run = long_runs[blockIdx.x / H];
-    h = blockIdx.x % H;
-    const int s0 = run_start[run], len = run_start[run + 1] - s0;
-    const int per = (len + kBankWarps - 1) / kBankWarps;
-    lo = min(s0 + warp * per, s0 + len);
-    hi = min(lo + per, s0 + len);
-  } else {
-    const int item = (blockIdx.x - n_long * H) * kBankWarps + warp;
-    if (item >= n_short * H) return;  // short blocks have no barrier
-    run = short_runs[item / H];
-    h = item % H;
-    lo = run_start[run];
-    hi = run_start[run + 1];
-  }
-  float sq[kMaxDPL] = {0.f, 0.f, 0.f, 0.f};
-  float sk[kMaxDPL] = {0.f, 0.f, 0.f, 0.f};
-  float dt4 = 0.f;
-  for (int base = lo; base < hi; base += 32) {
-    // 32 pairs' indices at once, then the pairs in order
-    const int x = base + lane;
-    int p_id = 0, qr = 0, kr = 0;
-    if (x < hi) {
-      p_id = __ldg(pid + x);
-      qr = __ldg(qrow + x);
-      kr = __ldg(krow + x);
-    }
-    const float w = x < hi ? round_to<T>(ge[static_cast<size_t>(h) * E + p_id])
-                           : 0.f;
-    const int n = min(32, hi - base);
-#pragma unroll 4
-    for (int c = 0; c < n; ++c) {
-      const float wc = __shfl_sync(0xffffffffu, w, c);
-      const int qc = __shfl_sync(0xffffffffu, qr, c);
-      const int kc = __shfl_sync(0xffffffffu, kr, c);
-      const int bq = qc / N, bk = kc / N;
-      const T* qp =
-          q + ((static_cast<size_t>(bq) * H + h) * N + (qc - bq * N)) * Dh;
-      const T* kp =
-          k + ((static_cast<size_t>(bk) * H + h) * N + (kc - bk * N)) * Dh;
-      dt4 += wc;
+  if (h >= a.H) return;
+  const int Dh = a.Dh, width = 2 * Dh + 4;
+  const int4 it = a.multi[blockIdx.x];
+  float s[kVals], dt4 = 0.f;
 #pragma unroll
-      for (int t = 0; t < kMaxDPL; ++t) {
-        const int d = lane + 32 * t;
-        if (d < Dh) {
-          sq[t] += wc * to_f32(qp[d]);
-          sk[t] += wc * to_f32(kp[d]);
-        }
-      }
+  for (int t = 0; t < kVals; ++t) s[t] = 0.f;
+  // kInFlight chunks' sums read at once, then added in chunk order
+  constexpr int kInFlight = 8;
+  for (int s0 = it.x; s0 < it.x + it.y; s0 += kInFlight) {
+    float v[kInFlight][kVals], d[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const float* part =
+          a.part + (static_cast<size_t>(s0 + u) * a.H + h) * width;
+      const bool ok = s0 + u < it.x + it.y;
+#pragma unroll
+      for (int t = 0; t < kVals; ++t)
+        v[u][t] = ok && lane + 32 * t < 2 * Dh ? __ldg(part + lane + 32 * t)
+                                               : 0.f;
+      d[u] = ok ? __ldg(part + 2 * Dh) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+#pragma unroll
+      for (int t = 0; t < kVals; ++t) s[t] += v[u][t];
+      dt4 += d[u];
     }
   }
-  const int r = run_r[run];
-  const size_t row = (static_cast<size_t>(r) * H + h) * Dh;
-  if (is_long) {
+  const size_t row = (static_cast<size_t>(it.z) * a.H + h) * Dh;
 #pragma unroll
-    for (int t = 0; t < kMaxDPL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < Dh) {
-        part[warp][d] = sq[t];
-        part[warp][kMaxDh + d] = sk[t];
-      }
-    }
-    if (lane == 0) part[warp][2 * kMaxDh] = dt4;
-    __syncthreads();
-    if (warp != 0) return;
-    dt4 = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxDPL; ++t) sq[t] = sk[t] = 0.f;
-    for (int w = 0; w < kBankWarps; ++w) {
-      dt4 += part[w][2 * kMaxDh];
-#pragma unroll
-      for (int t = 0; t < kMaxDPL; ++t) {
-        const int d = lane + 32 * t;
-        if (d < Dh) {
-          sq[t] += part[w][d];
-          sk[t] += part[w][kMaxDh + d];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kMaxDPL; ++t) {
+  for (int t = 0; t < kVals; ++t) {
     const int d = lane + 32 * t;
-    if (d < Dh) {
-      g_b[row + d] = from_f32<T>(sq[t] + dt4 * to_f32(a_bank[row + d]));
-      g_a[row + d] = from_f32<T>(sk[t] + dt4 * to_f32(b_bank[row + d]));
-    }
+    if (d < Dh)
+      a.g_b[row + d] = from_f32<T>(s[t] + dt4 * to_f32(a.a_bank[row + d]));
+    else if (d < 2 * Dh)
+      a.g_a[row + d - Dh] =
+          from_f32<T>(s[t] + dt4 * to_f32(a.b_bank[row + d - Dh]));
   }
 }
 
@@ -534,27 +587,38 @@ int launch_pass(const PassArgs<T>& a, int B, cudaStream_t stream) {
   }
 }
 
-template <typename T>
-int launch_bank(const void* q, const void* k, const void* a_bank,
-                const void* b_bank, const void* ge, const void* pid,
-                const void* qrow, const void* krow, const void* run_r,
-                const void* run_start, const void* long_runs, int n_long,
-                const void* short_runs, int n_short, void* g_a, void* g_b,
-                int H, int N, int Dh, int E, cudaStream_t stream) {
-  const int blocks =
-      n_long * H + (n_short * H + kBankWarps - 1) / kBankWarps;
-  if (blocks == 0) return 0;  // no kept pair: the zeroed gradients stand
-  blk_bank_grads<T><<<blocks, kBankWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(a_bank), static_cast<const T*>(b_bank),
-      static_cast<const float*>(ge), static_cast<const int32_t*>(pid),
-      static_cast<const int32_t*>(qrow), static_cast<const int32_t*>(krow),
-      static_cast<const int32_t*>(run_r),
-      static_cast<const int32_t*>(run_start),
-      static_cast<const int32_t*>(long_runs), n_long,
-      static_cast<const int32_t*>(short_runs), n_short, static_cast<T*>(g_a),
-      static_cast<T*>(g_b), H, N, Dh, E);
+template <typename T, int kCpl, int kGu, int kMinBlocks>
+int launch_bank_one(const BankArgs<T>& a, cudaStream_t stream) {
+  const int blocks = a.n_chunks + (a.n_short + 3) / 4 +
+                     (a.P + kZeroRows - 1) / kZeroRows;
+  const dim3 grid(blocks, (a.H + kPassWarps - 1) / kPassWarps);
+  const int threads = 32 * (a.H < kPassWarps ? a.H : kPassWarps);
+  blk_bank_grads<T, kCpl, kGu, kMinBlocks><<<grid, threads, 0, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_multi == 0) return static_cast<int>(err);
+  blk_bank_combine<T><<<dim3(a.n_multi, grid.y), threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel for rows up to 64 wide: 4 pairs a group at 4 blocks an
+// SM; under GTOS_B6_VARIANTS gtos_blk_attn_bwd_variant also forces one of
+// four (kGu, kMinBlocks) variants here.
+template <typename T>
+int launch_bank(const BankArgs<T>& a, cudaStream_t stream) {
+  if (a.Dh > 64) return launch_bank_one<T, 2, 2, 1>(a, stream);
+  if constexpr (sizeof(T) != 2) {
+    return launch_bank_one<T, 1, 2, 2>(a, stream);
+  } else {
+#ifdef GTOS_B6_VARIANTS
+    switch (g_forced_variant) {
+      case 0: return launch_bank_one<T, 1, 2, 4>(a, stream);
+      case 1: return launch_bank_one<T, 1, 4, 3>(a, stream);
+      case 2: return launch_bank_one<T, 1, 4, 4>(a, stream);
+      case 3: return launch_bank_one<T, 1, 8, 2>(a, stream);
+    }
+#endif
+    return launch_bank_one<T, 1, 4, 4>(a, stream);
+  }
 }
 
 }  // namespace
@@ -633,8 +697,8 @@ extern "C" int gtos_blk_attn_bwd_src(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Forces the bf16 variant v in [0, kVariants) of B6d and B6s for rows up to
-// 64 wide (any other v: each kernel's own); returns kVariants (0 unless
+// Forces the bf16 variant v in [0, kVariants) of B6d, B6s and B6b for rows
+// up to 64 wide (any other v: each kernel's own); returns kVariants (0 unless
 // built with GTOS_B6_VARIANTS).
 extern "C" int gtos_blk_attn_bwd_variant(int v) {
   g_forced_variant = v >= 0 && v < kVariants ? v : -1;
@@ -642,30 +706,37 @@ extern "C" int gtos_blk_attn_bwd_variant(int v) {
 }
 
 // B6b: ge [H, E] float32 from B6d; pid, qrow, krow [E] int32 (the pairs in
-// bank-row order: pair id, b*N + i, b*N + j); run_r [R], run_start [R + 1]
-// int32; long_runs [n_long], short_runs [n_short] int32 run indices; g_a,
-// g_b [P, H, Dh], zeroed by the caller.
-extern "C" int gtos_blk_bank_grads(int dtype, const void* q, const void* k,
-                                   const void* a_bank, const void* b_bank,
-                                   const void* ge, const void* pid,
-                                   const void* qrow, const void* krow,
-                                   const void* run_r, const void* run_start,
-                                   const void* long_runs, int n_long,
-                                   const void* short_runs, int n_short,
-                                   void* g_a, void* g_b, int H, int N, int Dh,
-                                   int E, void* stream) {
+// bank-row order: pair id, b*N + i, b*N + j); chunks [n_chunks], shorts
+// [n_short], multi [n_multi] int32x4 (16-byte aligned) and used [P] uint8,
+// backward_plan's work list; part [slots, H, 2 Dh + 4] float32 scratch
+// (null without a run of several chunks); writes every row of g_a, g_b
+// [P, H, Dh]. Returns the CUDA error code of its launches.
+extern "C" int gtos_blk_bank_grads(
+    int dtype, const void* q, const void* k, const void* a_bank,
+    const void* b_bank, const void* ge, const void* pid, const void* qrow,
+    const void* krow, const void* chunks, int n_chunks, const void* shorts,
+    int n_short, const void* multi, int n_multi, const void* used,
+    void* part, void* g_a, void* g_b, int H, int N, int Dh, int E, int P,
+    void* stream) {
   if (H < 1 || N < 1 || Dh < 8 || Dh > kMaxDh || Dh % 8 != 0 || E < 0 ||
-      n_long < 0 || n_short < 0)
+      P < 1 || n_chunks < 0 || n_short < 0 || n_multi < 0 ||
+      (n_multi > 0 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_bank<float>(q, k, a_bank, b_bank, ge, pid, qrow, krow,
-                              run_r, run_start, long_runs, n_long, short_runs,
-                              n_short, g_a, g_b, H, N, Dh, E, s);
-  if (dtype == 1)
-    return launch_bank<__nv_bfloat16>(q, k, a_bank, b_bank, ge, pid, qrow,
-                                      krow, run_r, run_start, long_runs,
-                                      n_long, short_runs, n_short, g_a, g_b,
-                                      H, N, Dh, E, s);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    const BankArgs<T> a{
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(a_bank), static_cast<const T*>(b_bank),
+        static_cast<const float*>(ge), static_cast<const int32_t*>(pid),
+        static_cast<const int32_t*>(qrow), static_cast<const int32_t*>(krow),
+        static_cast<const int4*>(chunks), static_cast<const int4*>(shorts),
+        static_cast<const int4*>(multi), static_cast<const uint8_t*>(used),
+        static_cast<float*>(part), static_cast<T*>(g_a), static_cast<T*>(g_b),
+        H, N, Dh, E, P, n_chunks, n_short, n_multi};
+    return launch_bank<T>(a, s);
+  };
+  if (dtype == 0) return run(0.f);
+  if (dtype == 1) return run(__nv_bfloat16());
   return static_cast<int>(cudaErrorInvalidValue);
 }

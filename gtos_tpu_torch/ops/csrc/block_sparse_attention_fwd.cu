@@ -21,256 +21,268 @@
 //   m_i   = max_j e_ij (-1e9 without a kept pair), l_i = sum_j exp(e_ij-m_i).
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s f32): per
-// kept pair and head about 5 Dh multiply-adds, against the bytes of q, k,
+// kept pair and head about 4 Dh multiply-adds, against the bytes of q, k,
 // v, out, the tile planes and the bank rows the kept pairs reference: the
 // bytes bound it, most of them the bank rows (8-16k rows at c5's khop 4).
+// What holds the kernel above it is the latency of its gathers: each kept
+// pair reads its partner's k and v rows and its bank rows from L2, rows
+// that differ from pair to pair.
 //
 // Design: the TPU kernel keeps both banks resident in VMEM and builds the
 // relation terms of a 128x128 block from P/128 bank-chunk matmuls, because
-// Mosaic's gather is a shuffle inside one vector register; at P = 16384
-// that is 128 chunks per block and head. A GPU thread can load any
-// address, so here a pair reads only its own rows: no resident bank, no
-// table. One warp per dst node, eight per block (grid: node groups x heads
-// x graphs, 1024 blocks at every c5 shape). The warp walks its tile's slots
-// and the node's row of each block, compacts the kept pairs (a ballot) into
-// a small buffer in shared memory, and takes them 32 at a time: each lane
-// scores one pair, reading k_j, a_r and b_r through L1/L2 16 bytes at a time
-// against the node's q row staged in shared memory; the online softmax
-// (running max and sum, f32) rescales the output, whose lanes run across
-// the head dimension and read each pair's v row coalesced. Nodes past N
-// (the padding of the last tile) are never read or written.
+// Mosaic's gather is a shuffle inside one vector register. A GPU thread
+// can load any address, so here a pair reads only its own rows, as in
+// B6d's pass (block_sparse_attention_bwd.cu), whose skeleton this is:
+//   - a block per dst node and up to 8 heads, a warp a head (a second
+//     block along y for H > 8); the node's tile planes are read once for
+//     all heads: each warp reads one slot's tile id and plane row (8 slots
+//     in one round trip) and compacts its kept pairs by ballot into a list
+//     in shared memory (partner, bank row); after a barrier every head's
+//     warp walks the whole list (blk::plane_round). A node with more slots
+//     than warps takes them in rounds;
+//   - a warp takes the list in rounds: 4 groups of 8 lanes, a group holding
+//     kGu pairs and each lane reading its 16-byte chunks (32 bytes in f32)
+//     of k_j, a_r, b_r and v_j at once, so a round costs one round trip;
+//     the score is a 3-step shuffle sum in the group against the node's q
+//     held in registers;
+//   - each group keeps its own online softmax (running max and sum in f32)
+//     and partial output, rescaled as its max grows; the 4 groups' (m, l,
+//     out) merge in a fixed butterfly at the end. No atomics: two launches
+//     give the same bits.
+// kGu and the registers a thread may hold trade the round trips in flight
+// per warp against the warps per SM. Nodes past N (the padding of the last
+// tile) are never read or written.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "block_sparse_common.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kWarps = 8;           // dst nodes per block
-constexpr int kMaxDh = 128;
-constexpr int kMaxDPL = kMaxDh / 32;  // head dims per lane
-constexpr int kBuf = 64;            // compacted pairs per warp (< 32 + 32)
+using namespace blk;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kWarps = 8;             // heads per block
+constexpr int kThreads = kWarps * 32;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+template <typename T> struct FwdArgs {
+  const T* q; const T* k; const T* v; const T* a_bank; const T* b_bank;
+  const float* t4; const int32_t* tile_src; const int32_t* tile_rel;
+  T* out; float* m_out; float* l_out;
+  int H, N, Dh, P, Td, Smax;
+  float scale;
+};
 
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
+// The block of dst node blockIdx.x of graph blockIdx.z, warp w the head
+// blockIdx.y * 8 + w (warps past H only help read the planes); a lane holds
+// kCpl chunks of a row (Dh up to 64 kCpl).
+template <typename T, int kCpl, int kGu, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+blk_attn_fwd_kernel(const FwdArgs<T> a) {
+  constexpr int kGl = 8;                       // lanes per pair
+  constexpr int kGroups = 32 / kGl;
+  constexpr int kRound = kGroups * kGu;        // pairs a warp holds
+  constexpr int kList = kWarps * kTile;        // pairs of 8 plane rows
+  __shared__ int list_o[kList];    // src node j
+  __shared__ int list_r[kList];    // bank row r
+  __shared__ int counts[kWarps];
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// 8 consecutive elements (16-byte aligned) as floats
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float2 f = __bfloat1622float2(h[c]);
-    o[2 * c] = f.x;
-    o[2 * c + 1] = f.y;
-  }
-}
-
-// e_ij * (1/scale) of one pair: q_i from shared memory (f32), k_j, a_r, b_r
-// rows from device memory, t4_r given
-template <typename T>
-__device__ __forceinline__ float pair_logit(const float* __restrict__ qs,
-                                            const T* __restrict__ krow,
-                                            const T* __restrict__ arow,
-                                            const T* __restrict__ brow,
-                                            float t4, int Dh) {
-  float t1 = 0.f, qb = 0.f, ka = 0.f;
-  for (int d0 = 0; d0 < Dh; d0 += 8) {
-    float kr[8], ar[8], br[8];
-    load8(krow + d0, kr);
-    load8(arow + d0, ar);
-    load8(brow + d0, br);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float qd = qs[d0 + c];
-      t1 += qd * kr[c];
-      qb += qd * br[c];
-      ka += kr[c] * ar[c];
-    }
-  }
-  return t1 + qb + t4 + ka;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-blk_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ a_bank,
-                    const T* __restrict__ b_bank,
-                    const float* __restrict__ t4,
-                    const int32_t* __restrict__ tile_src,
-                    const int32_t* __restrict__ tile_rel,
-                    T* __restrict__ out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int H, int N, int Dh, int P,
-                    int Td, int Smax, float scale) {
-  __shared__ __align__(16) float qs_all[kWarps][kMaxDh];
-  __shared__ int buf_j[kWarps][kBuf];
-  __shared__ int buf_r[kWarps][kBuf];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int i = blockIdx.x * kWarps + warp;
-  if (i >= N) return;  // no block-wide barrier in this kernel
-  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x, b = blockIdx.z;
+  const int H = a.H, N = a.N, Dh = a.Dh;
+  const int h = blockIdx.y * kWarps + warp;
+  const bool active = h < H;
+  const int grp = lane / kGl, li = lane % kGl;
+  const int C = Dh / 8;
+  const size_t bh = static_cast<size_t>(b) * H + (active ? h : 0);
   const size_t head = bh * N * Dh;
-  float* qs = qs_all[warp];
-  int* bj = buf_j[warp];
-  int* br = buf_r[warp];
-  for (int d = lane; d < Dh; d += 32)
-    qs[d] = to_f32(q[head + static_cast<size_t>(i) * Dh + d]);
-  __syncwarp();
+  const size_t own_row = head + static_cast<size_t>(n) * Dh;
 
-  const int td = i / kTile, il = i - td * kTile;
-  const size_t tile_row = static_cast<size_t>(b) * Td + td;
-  const unsigned lt = (1u << lane) - 1u;
-  float m = -INFINITY, l = 0.f;
-  float acc[kMaxDPL] = {0.f, 0.f, 0.f, 0.f};
-  int cnt = 0;
-
-  // the online softmax over `n` compacted pairs at the buffer's front
-  auto take = [&](int n) {
-    int j = 0, r = 0;
-    float e = -INFINITY;
-    if (lane < n) {
-      j = bj[lane];
-      r = br[lane];
-      const size_t row = (static_cast<size_t>(r) * H + h) * Dh;
-      e = pair_logit<T>(qs, k + head + static_cast<size_t>(j) * Dh,
-                        a_bank + row, b_bank + row,
-                        __ldg(t4 + static_cast<size_t>(r) * H + h), Dh) *
-          scale;
+  float qf[kCpl * 8], acc[kCpl * 8];
+#pragma unroll
+  for (int cc = 0; cc < kCpl; ++cc) {
+    Chunk<T> c;
+    if (active && li + kGl * cc < C) {
+      load_chunk(a.q + own_row + (li + kGl * cc) * 8, c);
+      unpack(c, qf + cc * 8);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qf[cc * 8 + e] = 0.f;
     }
-    const float m_new = fmaxf(m, warp_max(e));
-    const float alpha = expf(m - m_new);  // 0 on the first chunk
-    const float p = lane < n ? expf(e - m_new) : 0.f;
-    l = l * alpha + warp_sum(p);
-    const float pr = round_to<T>(p);
+  }
 #pragma unroll
-    for (int t = 0; t < kMaxDPL; ++t) acc[t] *= alpha;
-    for (int c = 0; c < n; ++c) {
-      const float pc = __shfl_sync(0xffffffffu, pr, c);
-      const int jc = __shfl_sync(0xffffffffu, j, c);
-      const T* vrow = v + head + static_cast<size_t>(jc) * Dh;
+  for (int x = 0; x < kCpl * 8; ++x) acc[x] = 0.f;
+  float m = -INFINITY, l = 0.f;   // this group's running max and sum
+
+  // pairs [x0, x0 + cnt) of the list, kGu a group
+  auto take = [&](int x0, int cnt) {
+    Chunk<T> kc[kGu][kCpl], ac[kGu][kCpl], bc[kGu][kCpl], vc[kGu][kCpl];
+    float t4v[kGu];
 #pragma unroll
-      for (int t = 0; t < kMaxDPL; ++t) {
-        const int d = lane + 32 * t;
-        if (d < Dh) acc[t] += pc * to_f32(vrow[d]);
+    for (int uu = 0; uu < kGu; ++uu) {
+      const int x = grp + kGroups * uu;
+      t4v[uu] = 0.f;
+      if (x < cnt) {
+        const int j = list_o[x0 + x], r = list_r[x0 + x];
+        const size_t jrow = head + static_cast<size_t>(j) * Dh;
+        const size_t row = (static_cast<size_t>(r) * H + h) * Dh;
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          const int c = li + kGl * cc;
+          if (c < C) {
+            load_chunk(a.k + jrow + c * 8, kc[uu][cc]);
+            load_chunk(a.a_bank + row + c * 8, ac[uu][cc]);
+            load_chunk(a.b_bank + row + c * 8, bc[uu][cc]);
+            load_chunk(a.v + jrow + c * 8, vc[uu][cc]);
+          }
+        }
+        t4v[uu] = __ldg(a.t4 + static_cast<size_t>(r) * H + h);
       }
     }
-    m = m_new;
+    float e[kGu];
+    float mx = m;
+#pragma unroll
+    for (int uu = 0; uu < kGu; ++uu) {
+      const bool ok = grp + kGroups * uu < cnt;
+      float s = 0.f;
+      if (ok) {
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          if (li + kGl * cc < C) {
+            float k8[8], a8[8], b8[8];
+            unpack(kc[uu][cc], k8);
+            unpack(ac[uu][cc], a8);
+            unpack(bc[uu][cc], b8);
+#pragma unroll
+            for (int d = 0; d < 8; ++d)
+              s += qf[cc * 8 + d] * (k8[d] + b8[d]) + k8[d] * a8[d];
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < kGl; off <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      e[uu] = ok ? (s + t4v[uu]) * a.scale : -INFINITY;
+      mx = fmaxf(mx, e[uu]);
+    }
+    if (mx == -INFINITY) return;   // the group holds no pair this round
+    const float alpha = expf(m - mx);   // 0 on the group's first pair
+    l *= alpha;
+#pragma unroll
+    for (int x = 0; x < kCpl * 8; ++x) acc[x] *= alpha;
+#pragma unroll
+    for (int uu = 0; uu < kGu; ++uu) {
+      if (grp + kGroups * uu < cnt) {
+        const float p = expf(e[uu] - mx);
+        l += p;
+        const float pr = round_to<T>(p);
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          if (li + kGl * cc < C) {
+            float v8[8];
+            unpack(vc[uu][cc], v8);
+#pragma unroll
+            for (int d = 0; d < 8; ++d) acc[cc * 8 + d] += pr * v8[d];
+          }
+        }
+      }
+    }
+    m = mx;
   };
 
-  for (int s = 0; s < Smax; ++s) {
-    const int ts = __ldg(tile_src + tile_row * Smax + s);
-    if (ts < 0) continue;
-    const int32_t* rel_row =
-        tile_rel + ((tile_row * Smax + s) * kTile + il) * kTile;
-#pragma unroll
-    for (int u = 0; u < kTile / 32; ++u) {
-      const int jl = lane + 32 * u;
-      const int r = __ldg(rel_row + jl);
-      const int j = ts * kTile + jl;
-      const bool keep = r >= 0 && r < P && j < N;
-      const unsigned mask = __ballot_sync(0xffffffffu, keep);
-      if (keep) {
-        const int pos = cnt + __popc(mask & lt);
-        bj[pos] = j;
-        br[pos] = r;
-      }
-      cnt += __popc(mask);
-      __syncwarp();
-      if (cnt >= 32) {
-        take(32);
-        __syncwarp();
-        cnt -= 32;
-        if (lane < cnt) {
-          bj[lane] = bj[32 + lane];
-          br[lane] = br[32 + lane];
-        }
-        __syncwarp();
-      }
-    }
+  const int t = n / kTile, nl = n - t * kTile;
+  const size_t tile_row = static_cast<size_t>(b) * a.Td + t;
+  for (int s0 = 0; s0 < a.Smax; s0 += warps) {
+    const int all = plane_round(a.tile_src, a.tile_rel, nullptr, tile_row,
+                                nl, s0, a.Smax, a.P, N, counts, list_o,
+                                list_r, nullptr);
+    if (active)
+      for (int x0 = 0; x0 < all; x0 += kRound) take(x0, min(kRound, all - x0));
+    __syncthreads();  // the lists are rewritten for the next slots
   }
-  if (cnt > 0) take(cnt);
+  if (!active) return;
 
+  // the 4 groups' (m, l, out), in a fixed butterfly; group 0 writes
+#pragma unroll
+  for (int off = kGl; off < 32; off <<= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mx = fmaxf(m, m_o);
+    const float s_own = mx == -INFINITY ? 0.f : expf(m - mx);
+    const float s_oth = mx == -INFINITY ? 0.f : expf(m_o - mx);
+#pragma unroll
+    for (int x = 0; x < kCpl * 8; ++x) {
+      const float acc_o = __shfl_xor_sync(0xffffffffu, acc[x], off);
+      acc[x] = acc[x] * s_own + acc_o * s_oth;
+    }
+    l = l * s_own + l_o * s_oth;
+    m = mx;
+  }
+  if (grp != 0) return;
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-  for (int t = 0; t < kMaxDPL; ++t) {
-    const int d = lane + 32 * t;
-    if (d < Dh)
-      out[head + static_cast<size_t>(i) * Dh + d] =
-          from_f32<T>(l > 0.f ? acc[t] * inv : 0.f);
+  for (int cc = 0; cc < kCpl; ++cc) {
+    const int c = li + kGl * cc;
+    if (c < C) {
+      float o8[8];
+#pragma unroll
+      for (int d = 0; d < 8; ++d) o8[d] = l > 0.f ? acc[cc * 8 + d] * inv : 0.f;
+      store8(a.out + own_row + c * 8, o8);
+    }
   }
-  if (m_out != nullptr && lane == 0) {
-    m_out[bh * N + i] = l > 0.f ? m : -1e9f;
-    l_out[bh * N + i] = l;
+  if (a.m_out != nullptr && li == 0) {
+    a.m_out[bh * N + n] = l > 0.f ? m : -1e9f;
+    a.l_out[bh * N + n] = l;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* a_bank,
-           const void* b_bank, const void* t4, const void* tile_src,
-           const void* tile_rel,
-           void* out, void* m_out, void* l_out, int B, int H, int N, int Dh,
-           int P, int Td, int Smax, float scale, cudaStream_t stream) {
-  const dim3 grid((N + kWarps - 1) / kWarps, H, B);
-  blk_attn_fwd_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(a_bank),
-      static_cast<const T*>(b_bank), static_cast<const float*>(t4),
-      static_cast<const int32_t*>(tile_src),
-      static_cast<const int32_t*>(tile_rel), static_cast<T*>(out),
-      static_cast<float*>(m_out), static_cast<float*>(l_out), H, N, Dh, P,
-      Td, Smax, scale);
+#ifdef GTOS_B5_VARIANTS
+constexpr int kVariants = 4;
+#else
+constexpr int kVariants = 0;
+#endif
+int g_forced_variant = -1;
+
+template <typename T, int kCpl, int kGu, int kMinBlocks>
+int launch_one(const FwdArgs<T>& a, int B, cudaStream_t stream) {
+  const dim3 grid(a.N, (a.H + kWarps - 1) / kWarps, B);
+  const int threads = 32 * (a.H < kWarps ? a.H : kWarps);
+  blk_attn_fwd_kernel<T, kCpl, kGu, kMinBlocks>
+      <<<grid, threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel for rows up to 64 wide: 2 pairs a group at 3 blocks an
+// SM. Built with GTOS_B5_VARIANTS, the source also holds four (kGu,
+// kMinBlocks) variants, and gtos_blk_attn_fwd_variant forces one
+// (chip_b6_variants.py --variants).
+template <typename T>
+int launch(const FwdArgs<T>& a, int B, cudaStream_t stream) {
+  if (a.Dh > 64) return launch_one<T, 2, 1, 1>(a, B, stream);
+  if constexpr (sizeof(T) != 2) {
+    return launch_one<T, 1, 2, 1>(a, B, stream);
+  } else {
+#ifdef GTOS_B5_VARIANTS
+    switch (g_forced_variant) {
+      case 0: return launch_one<T, 1, 1, 4>(a, B, stream);
+      case 1: return launch_one<T, 1, 2, 3>(a, B, stream);
+      case 2: return launch_one<T, 1, 2, 4>(a, B, stream);
+      case 3: return launch_one<T, 1, 4, 2>(a, B, stream);
+    }
+#endif
+    return launch_one<T, 1, 2, 3>(a, B, stream);
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of q, k, v, the banks and out). All
-// tensors contiguous on one device: q, k, v, out [B, H, N, Dh]; a_bank,
-// b_bank [P, H, Dh] (16-byte aligned); t4 [P, H] float32; tile_src
-// [B, Td, Smax] int32 (-1 = empty slot); tile_rel [B, Td, Smax, 128, 128]
-// int32 (-1 = dropped pair), N <= Td * 128; m_out, l_out [B, H, N]
-// float32, or both null for B5. Dh a multiple of 8, at most 128. Returns
-// the CUDA error code of the launch (0 = launched).
+// tensors contiguous on one device: q, k, v, out [B, H, N, Dh] (16-byte
+// aligned); a_bank, b_bank [P, H, Dh] (16-byte aligned); t4 [P, H]
+// float32; tile_src [B, Td, Smax] int32 (-1 = empty slot); tile_rel
+// [B, Td, Smax, 128, 128] int32 (-1 = dropped pair), N <= Td * 128; m_out,
+// l_out [B, H, N] float32, or both null for B5. Dh a multiple of 8, at most
+// 128. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int gtos_blk_attn_fwd(int dtype, const void* q, const void* k,
                                  const void* v, const void* a_bank,
                                  const void* b_bank, const void* t4,
@@ -284,12 +296,27 @@ extern "C" int gtos_blk_attn_fwd(int dtype, const void* q, const void* k,
       (m_out == nullptr) != (l_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, a_bank, b_bank, t4, tile_src, tile_rel, out,
-                         m_out, l_out, B, H, N, Dh, P, Td, Smax, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, a_bank, b_bank, t4, tile_src,
-                                 tile_rel, out, m_out, l_out, B, H, N, Dh, P,
-                                 Td, Smax, scale, s);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    const FwdArgs<T> a{
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(a_bank),
+        static_cast<const T*>(b_bank), static_cast<const float*>(t4),
+        static_cast<const int32_t*>(tile_src),
+        static_cast<const int32_t*>(tile_rel), static_cast<T*>(out),
+        static_cast<float*>(m_out), static_cast<float*>(l_out),
+        H, N, Dh, P, Td, Smax, scale};
+    return launch<T>(a, B, s);
+  };
+  if (dtype == 0) return run(0.f);
+  if (dtype == 1) return run(__nv_bfloat16());
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Forces the bf16 variant v in [0, kVariants) for rows up to 64 wide (any
+// other v: the kernel's own); returns kVariants (0 unless built with
+// GTOS_B5_VARIANTS).
+extern "C" int gtos_blk_attn_fwd_variant(int v) {
+  g_forced_variant = v >= 0 && v < kVariants ? v : -1;
+  return kVariants;
 }

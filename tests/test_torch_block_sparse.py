@@ -46,7 +46,10 @@ from gtos_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_with_stats,
     block_sparse_relation_attention_trainable, tile_pairs,
 )
-from gtos_tpu_torch.ops.block_sparse_attention_bwd import backward_plan
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+    BANK_CHUNK, SHORT_RUN, backward_plan, bank_work,
+    block_sparse_bank_grads_reference,
+)
 from gtos_tpu_torch.ops.sparse_relation import (
     flatten_edge_cells, sparse_relation_attention,
 )
@@ -368,6 +371,100 @@ def test_backward_plan_src_major_order():
     trs[trs >= 0] = -1
     with pytest.raises(ValueError, match="src-major"):
         backward_plan(ts, tr, td, trs, 200, 37)
+
+
+def test_bank_work_list():
+    """bank_work on runs of every kind: the runs of at most SHORT_RUN pairs
+    whole, longest first (ties in run order); the longer ones cut into
+    BANK_CHUNK-pair chunks, contiguous and in order, a slot each (on
+    consecutive slots) where a run has several and -1 where it has one;
+    `multi` naming each run of several chunks with its slots."""
+    lens = np.array([1, 40, 600, 32, 33, 256, 257, 5, 32])
+    rows = np.arange(len(lens)) * 3 + 1
+    chunks, shorts, multi = bank_work(rows, lens)
+    start = np.cumsum(lens) - lens
+    assert [tuple(x) for x in shorts] == [
+        (start[i], lens[i], rows[i], 0) for i in (3, 8, 7, 0)]
+    want, slot = [], 0
+    for i in (1, 2, 4, 5, 6):
+        n = -(-lens[i] // BANK_CHUNK)
+        for c in range(n):
+            lo = start[i] + c * BANK_CHUNK
+            want.append((lo, min(BANK_CHUNK, start[i] + lens[i] - lo),
+                         rows[i], slot + c if n > 1 else -1))
+        slot += n if n > 1 else 0
+    assert [tuple(x) for x in chunks] == want
+    assert [tuple(x) for x in multi] == [(0, 3, rows[2], 0),
+                                         (3, 2, rows[6], 0)]
+    assert all(x.dtype == np.int32 and x.shape[1:] == (4,)
+               for x in (chunks, shorts, multi))
+    empty = bank_work(np.zeros(0, np.int64), np.zeros(0, np.int64))
+    assert [x.shape for x in empty] == [(0, 4)] * 3
+
+
+def test_backward_plan_bank_work():
+    """backward_plan's bank-row order and B6b work list on a layout with a
+    run of ~4k pairs (a third of the pairs on bank row 0) and rows no pair
+    references: pid is the stable sort of the pairs by bank row, qrow and
+    krow follow it; the chunks and short runs cover every sorted place
+    once, each holding only its bank row's pairs; bank_used marks the
+    referenced rows; and walking the list as B6b does (each item's sums,
+    the several-chunk runs' partial sums added in chunk order) gives the
+    plain version's bank gradients."""
+    c = make_block_case(2, 2, 256, 16, 300, 0.1, seed=3, rows=200, hot=0.3)
+    (q, k, _, a, b, ts, tr), (td, trs), _ = port_block_args(c)
+    plan = backward_plan(ts, tr, td, trs, 256, 300)
+    bi, i, j, r = plan["pairs"]
+    pid = plan["pid"].long()
+    assert torch.equal(pid, torch.argsort(r, stable=True))
+    assert torch.equal(plan["qrow"].long(), (bi * 256 + i)[pid])
+    assert torch.equal(plan["krow"].long(), (bi * 256 + j)[pid])
+    rs = r[pid]
+    chunks, shorts, multi = (plan[n] for n in ("bank_chunks", "bank_shorts",
+                                               "bank_multi"))
+    assert int((chunks[:, 1] > SHORT_RUN).sum()) > 0 and len(multi) > 0
+    assert bool((shorts[:, 1] <= SHORT_RUN).all())
+    assert bool((chunks[:, 1] <= BANK_CHUNK).all())
+    seen = torch.zeros(plan["E"], dtype=torch.int64)
+    for lo, n, row, _ in torch.cat([chunks, shorts]).tolist():
+        seen[lo:lo + n] += 1
+        assert bool((rs[lo:lo + n] == row).all())
+    assert bool((seen == 1).all())
+    used = torch.zeros(300, dtype=torch.uint8)
+    used[r] = 1
+    assert torch.equal(plan["bank_used"], used)
+    assert plan["bank_slots"] == int(multi[:, 1].sum())
+    # B6b's walk over the list, in f32
+    geq = torch.randn(2, plan["E"]).T.float()                   # [E, H]
+    H, Dh = q.shape[1], q.shape[3]
+    qr, kr = q[bi, :, i][pid], k[bi, :, j][pid]                 # [E, H, Dh]
+    w = geq[pid][..., None]
+
+    def sums(lo, n):
+        return (w[lo:lo + n] * qr[lo:lo + n]).sum(0), \
+            (w[lo:lo + n] * kr[lo:lo + n]).sum(0), w[lo:lo + n, :, 0].sum(0)
+    g_a = torch.zeros(300, H, Dh)
+    g_b = torch.zeros(300, H, Dh)
+    part = [None] * plan["bank_slots"]
+
+    def write(row, sq, sk, dt4):
+        g_b[row] = sq + dt4[:, None] * a[row]
+        g_a[row] = sk + dt4[:, None] * b[row]
+    for lo, n, row, slot in chunks.tolist():
+        if slot >= 0:
+            part[slot] = sums(lo, n)
+        else:
+            write(row, *sums(lo, n))
+    for lo, n, row, _ in shorts.tolist():
+        write(row, *sums(lo, n))
+    for first, n, row, _ in multi.tolist():
+        write(row, *(sum(p[x] for p in part[first:first + n])
+                     for x in range(3)))
+    ref_a, ref_b = block_sparse_bank_grads_reference(q, k, a, b, geq.T,
+                                                     plan["pairs"])
+    # f32 sums of up to ~4k terms of size ~1 in another order
+    torch.testing.assert_close(g_a, ref_a, rtol=1e-5, atol=5e-4)
+    torch.testing.assert_close(g_b, ref_b, rtol=1e-5, atol=5e-4)
 
 
 # ------------------------------------------------------- the whole model

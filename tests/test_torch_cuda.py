@@ -438,21 +438,24 @@ def khop_block_case(H, Dh, seed=0):
                 tile_dst=batch.tile_dst, tile_rel_src=batch.tile_rel_src)
 
 
-def make_block_case(B, H, N, Dh, P, p_pair, banded=False, seed=0):
+def make_block_case(B, H, N, Dh, P, p_pair, banded=False, seed=0, rows=None,
+                    hot=0.0):
     """Seeded numpy inputs of the block-sparse attention: q, k, v, an output
-    cotangent g, banks [P, H, Dh], rel_index [B, N, N] and the kept-pair
-    mask keep [B, N, N] (each pair with probability p_pair, the self pairs
-    always; with banded, only the blocks of the tile diagonal band, as
-    tests/test_block_sparse.py builds them; the last graph's last 20 rows
-    empty), and the packed tile layouts of the node bucket padded to the
-    tile (tile_src, tile_rel, tile_dst, tile_rel_src)."""
+    cotangent g, banks [P, H, Dh], rel_index [B, N, N] (bank rows drawn
+    from [0, rows or P), a `hot` share of the pairs on row 0) and the
+    kept-pair mask keep [B, N, N] (each pair with probability p_pair, the
+    self pairs always; with banded, only the blocks of the tile diagonal
+    band, as tests/test_block_sparse.py builds them; the last graph's last
+    20 rows empty), and the packed tile layouts of the node bucket padded
+    to the tile (tile_src, tile_rel, tile_dst, tile_rel_src)."""
     rng = np.random.default_rng(seed)
     f = np.float32
     q, k, v, g = (rng.standard_normal((B, H, N, Dh)).astype(f)
                   for _ in range(4))
     a_bank, b_bank = ((rng.standard_normal((P, H, Dh)) * 0.5).astype(f)
                       for _ in range(2))
-    rel_index = rng.integers(0, P, (B, N, N)).astype(np.int32)
+    rel_index = rng.integers(0, rows or P, (B, N, N)).astype(np.int32)
+    rel_index[rng.random((B, N, N)) < hot] = 0
     keep = rng.random((B, N, N)) < p_pair
     if banded:
         t = np.arange(N) // TILE
@@ -601,3 +604,70 @@ def test_cuda_block_sparse_train_step_and_serving(card):
     torch.cuda.synchronize()
     assert [w.launches - c for w, c in zip(wrappers, counts)] == [L, 0, 0, 0,
                                                                   0]
+
+
+# edge cases of the redesigned B5/B5s and B6b (B, H, N, Dh, P, p_pair,
+# rows, hot): a bank row whose run spans many 256-pair chunks of B6b (half
+# the kept pairs on row 0: ~6.6k pairs, 26 chunks); half the bank rows
+# referenced by no pair; and a khop-0 (dense) node of N=1100 whose 9 slots
+# overflow one round of the shared pair list (8 slots, one a head warp)
+EDGE_CASES = {"long_run": (2, 8, 256, 64, 500, 0.2, None, 0.5),
+              "unreferenced_rows": (2, 4, 256, 32, 3000, 0.1, 1500, 0.0),
+              "dense_N1100": (1, 8, 1100, 16, 300, 1.0, None, 0.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=1e-4, atol=1e-4)),
+    (torch.bfloat16, dict(rtol=2e-2, atol=3e-2)),
+])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_cuda_block_sparse_edge_cases(card, case, dtype, tol):
+    """B5s, B6d and B6b on the EDGE_CASES against their plain versions (as
+    test_cuda_block_sparse_kernels_match_plain_versions); the dst rows with
+    no kept pair (the last graph's last 20) give out 0, m -1e9 and l 0; B6b
+    writes every bank row, the unreferenced ones as exactly 0, into
+    gradients whose memory held NaN before (the card's caching allocator
+    hands the freed NaN blocks to the wrapper's torch.empty), the same
+    bits on a second launch."""
+    B, H, N, Dh, P, p_pair, rows, hot = EDGE_CASES[case]
+    c = make_block_case(B, H, N, Dh, P, p_pair, rows=rows, hot=hot)
+    args, (td, trs), g = port_block_args(c, dtype, card)
+    q, k, v, a, b, ts, tr = args
+    t4 = bank_t4(a, b)
+    out, m, l = block_sparse_attention_with_stats(*args)
+    ref, m_ref, l_ref = block_sparse_attention_with_stats_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(m, m_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
+    empty = torch.from_numpy(~c["keep"].any(-1)).to(card)     # [B, N]
+    assert int(empty.sum()) >= 20
+    rows_out = out.transpose(1, 2)[empty]                      # [n, H, Dh]
+    assert torch.equal(rows_out, torch.zeros_like(rows_out))
+    assert bool((m.transpose(1, 2)[empty] == -1e9).all())
+    assert bool((l.transpose(1, 2)[empty] == 0).all())
+    plan = backward_plan(ts, tr, td, trs, N, P)
+    gp, delta = prep_bwd_invariants(q, g, out)
+    bwd = (q, k, v, a, b, t4, gp, m, l, delta)
+    dq, ge, _ = block_sparse_attention_bwd_dst(*bwd, ts, tr, plan)
+    dq_ref, ge_ref = block_sparse_attention_bwd_dst_reference(*bwd, ts, tr)
+    torch.testing.assert_close(dq.float(), dq_ref.float(), **tol)
+    banks = []
+    for _ in range(2):
+        junk = [torch.full_like(a, float("nan")) for _ in range(2)]
+        del junk
+        banks.append(block_sparse_bank_grads(q, k, a, b, ge, plan))
+    refs = block_sparse_bank_grads_reference(q, k, a, b, ge, plan["pairs"])
+    torch.cuda.synchronize()
+    used = plan["bank_used"].bool()
+    if case == "long_run":
+        assert len(plan["bank_multi"]) >= 1
+        assert int(plan["bank_multi"][:, 1].max()) > 2
+    if case == "unreferenced_rows":
+        assert int((~used).sum()) >= P - rows
+    for x, y, again in zip(banks[0], refs, banks[1]):
+        assert x.dtype == y.dtype
+        assert torch.equal(x, again)
+        assert bool(torch.isfinite(x.float()).all())
+        assert torch.equal(x[~used], torch.zeros_like(x[~used]))
+        torch.testing.assert_close(x.float(), y.float(), **tol)

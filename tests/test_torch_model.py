@@ -9,6 +9,7 @@ tensors. Tolerances are stated per test: 1e-5 for one module, 1e-4 after
 two layers (sums in another order, compounded through LayerNorms)."""
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -40,6 +41,7 @@ from gtos_tpu_torch.models.generator import (
 )
 from gtos_tpu_torch.models.graph_transformer import GraphTransformer
 from gtos_tpu_torch.ops import relation_attention as port_ra
+from gtos_tpu_torch.train.train import loader_flags
 from gtos_tpu_torch.utils.config import ModelConfig
 
 torch.set_num_threads(2)
@@ -260,6 +262,52 @@ def test_beam_decode_token_identical(m, beam):
     np.testing.assert_array_equal(_np(out.lengths), np.asarray(ref.lengths))
     np.testing.assert_allclose(_np(out.scores), np.asarray(ref.scores),
                                rtol=1e-4, atol=1e-4)
+
+
+# the other impls' decoding (port impl: JAX impl, sparse_khop): the JAX
+# side runs the Pallas kernels under the interpreter, "sparse" as XLA
+DECODE_IMPLS = {"pallas": ("pallas", "pallas_interpret", 0),
+                "sparse_khop2": ("sparse", "sparse", 2),
+                "block_sparse_khop0": ("block_sparse",
+                                       "block_sparse_interpret", 0),
+                "block_sparse_khop2": ("block_sparse",
+                                       "block_sparse_interpret", 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def _impl_models(case):
+    """Both packages' models under one DECODE_IMPLS case from one flax init
+    (SMALL's widths, f32, dropout off) and the serving batch that impl's
+    loader flags build in each package."""
+    impl, jax_impl, khop = DECODE_IMPLS[case]
+    graphs, targets = jax_corpus(6, seed=3)
+    jv = jax_build_vocabs(graphs, targets)
+    kw = dict(batch_size_bucket=8, for_train=False,
+              **loader_flags(impl, khop))
+    ja = jax_batchify(jax_preprocess(graphs, targets), *jv, **kw).arrays()
+    g2, t2 = synthetic_amr_corpus(6, seed=3)
+    pa = batchify(preprocess(g2, t2), *build_vocabs(g2, t2), **kw).arrays()
+    tv, cv, rv, chv, _ = jv
+    cfg = dict(SMALL, token_vocab=len(tv), concept_vocab=len(cv),
+               relation_vocab=len(rv), char_vocab=len(chv), sparse_khop=khop)
+    params = JaxGenerator(JaxModelConfig(**cfg, attention_impl="xla")).init(
+        {"params": jax.random.PRNGKey(0)}, ja, deterministic=True)
+    jm = JaxGenerator(JaxModelConfig(**cfg, attention_impl=jax_impl))
+    pm = Generator(ModelConfig(**cfg, attention_impl=impl), device="cpu")
+    pm.load_state_dict(state_dict_from_flax(jax.device_get(params)))
+    return dict(jm=jm, params=params, pm=pm, ja=ja, pa=pa, tv=tv)
+
+
+@pytest.mark.parametrize("beam", [1, 4])
+@pytest.mark.parametrize("case", sorted(DECODE_IMPLS))
+def test_beam_decode_token_identical_other_impls(case, beam):
+    """test_beam_decode_token_identical under the other attention impls:
+    "pallas" (the global bank), "sparse" (the edge list, khop 2) and
+    "block_sparse" (the tiles, khop 0 and 2), each on the serving batch its
+    loader flags build: the same tokens and lengths as the JAX package's
+    search under its interpreted kernels (XLA for "sparse"), scores to
+    1e-4."""
+    test_beam_decode_token_identical(_impl_models(case), beam)
 
 
 def test_serving_copy_is_the_rounded_model():

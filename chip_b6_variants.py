@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Times the block-sparse kernels B5, B5s, B6d, B6s and B6b of one checkout
-on one NVIDIA GPU.
+"""Times the block-sparse kernels B5, B5s, B6d, B6s and B6b (or, with
+--kernels local, the localized B1, B1p and B2) of one checkout on one
+NVIDIA GPU.
 
     python3 chip_b6_variants.py [--checkout DIR] [--profile] [--variants]
+    python3 chip_b6_variants.py --kernels local [--checkout DIR] [--profile]
 
 From the repo root, on a machine with a card. DIR (default: this
 checkout) is any checkout of the repo, such as an earlier commit unpacked
@@ -29,14 +31,27 @@ variants of the bf16 kernels for rows up to 64 wide (B5/B5s; B6d, B6s and
 B6b); each is forced in turn and timed on the bf16 inputs, each result
 held against the plain versions; the last line gives each variant's mean
 over the main-path inputs.
+
+With --kernels local the same for the c2 model under "pallas_local":
+chip_smoke's serving and training phases, then layer 0's B1 inputs of
+each served batch and B1p/B2 inputs of CAPTURE_BATCHES train batches
+(`capture_b1_inputs`, `capture_train_inputs`), each kernel checked and
+timed on them (`phase_main_shapes`) and on the N=32 and N=128 probes of
+`phase_kernels` in f32 and bf16; one JSON line of the means; then B2's
+time per kernel on each train input (torch.profiler). --profile: this
+script's checkout's `phase_profile_train` (the shares of B1p, B2 and of
+any copy of the bank halves a/b) over one more train step of the other
+checkout on each captured batch.
 """
 
 import argparse
+import importlib.util
 import json
 import sys
 from pathlib import Path
 
 KERNELS = ("B5", "B5s", "B6d", "B6s", "B6b")
+HERE = Path(__file__).resolve().parent
 
 
 def main():
@@ -44,6 +59,7 @@ def main():
     ap.add_argument("--checkout", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--kernels", choices=("block", "local"), default="block")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.checkout).resolve()))
 
@@ -58,6 +74,9 @@ def main():
     checkout = str(Path(cs.__file__).resolve().parent)
     print(cs.card_line(), flush=True)
     print(f"[b6] checkout {checkout}", flush=True)
+    if args.kernels == "local":
+        main_local(cs, checkout, args)
+        return
     cfg, _ = cs.c5_configs()
     model = Generator(cfg, device="cuda",
                       rng=torch.Generator().manual_seed(0))
@@ -184,6 +203,85 @@ def time_variants(cs, cases):
     print(json.dumps({"main_path_mean_ms": {
         v: {name: sum(ms) / len(ms) for name, ms in by.items()}
         for v, by in means.items()}}))
+
+
+def this_chip_smoke():
+    """This script's own chip_smoke, loaded beside the checkout's (whose
+    modules it then uses): its profile reports the localized kernels'
+    shares for either checkout."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def main_local(cs, checkout, args):
+    """--kernels local: B1 on the c2 serving inputs, B1p and B2 on the c2
+    train inputs, and all three on the N=32 and N=128 probes; then, after
+    every timing (time_ms runs with no profiler), the train step profiles
+    and B2's kernels one by one on the train inputs."""
+    import torch
+
+    from gtos_tpu_torch.ops import local_relation_attention as lra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, model, _, batches, _, serve_launches = cs.phase_serve()
+    b1_inputs = cs.capture_b1_inputs(model, batches)
+    del model
+    trainer, ms_step, train_launches, _ = cs.phase_train()
+    train_batches = [b for _, b in zip(range(cs.CAPTURE_BATCHES),
+                                       cs.train_loader())]
+    train_inputs = cs.capture_train_inputs(trainer, train_batches)
+    rows = cs.phase_main_shapes(b1_inputs, serve_launches, train_inputs,
+                                train_launches)
+    main_ms = {row["name"]: row["ms"] for row in rows}
+    cases_ms = {}
+    for name, batch in (("N32", cs.honest_batch(32, 0, 10, 31)),
+                        ("N128", cs.honest_batch(8, 1, 64, 80))):
+        for dtype in (torch.float32, torch.bfloat16):
+            fwd = cs.kernel_inputs(batch, 8, 64, dtype)
+            bwd = cs.b2_args(fwd)
+            cases_ms[f"{name} {cs._dtype_name(fwd[0])}"] = {
+                "B1": cs.check_b1(name, fwd)["ms"],
+                "B1p": cs.check_b1p(name, fwd)["ms"],
+                "B2": cs.check_b2(name, bwd, fwd[6])["ms"]}
+        torch.cuda.empty_cache()
+    print(json.dumps({"checkout": checkout, "main_path_mean_ms": main_ms,
+                      "cases_ms": cases_ms}), flush=True)
+    if args.profile:
+        here = this_chip_smoke()
+        for i, batch in enumerate(train_batches):
+            here.phase_profile_train(
+                trainer, ms_step, batch=batch,
+                label=f"c2 pallas_local train step {i + 1}")
+    for i, (_, bwd) in enumerate(train_inputs):
+        kernels = kernel_breakdown(lambda: lra.local_relation_attention_bwd(
+            *bwd[:10], **({"runs": bwd[10]} if len(bwd) > 10 else {})))
+        print(f"[b2] train{i}: B2's kernels, mean device ms of 10 calls, L2 "
+              f"flushed: {json.dumps(kernels)}", flush=True)
+
+
+def kernel_breakdown(fn, reps=10):
+    """Mean device ms per call of each localized kernel `fn` launches
+    (name from "local_"), from torch.profiler over `reps` calls after one
+    warm-up, the L2 flushed before each call as time_ms flushes it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[e.key.index("local_"):].split("(")[0]:
+            e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "local_" in e.key}
 
 
 if __name__ == "__main__":

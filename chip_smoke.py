@@ -17,7 +17,10 @@ Phases, each of which exits non-zero on failure:
                batchify index arrays, bf16 and f32, and times both (CUDA
                events, L2 flushed before every launch) beside the bound:
                B1 (forward), B1p (forward with the f32 probabilities) and
-               B2 (backward) of the localized attention at N=32 and N=128;
+               B2 (backward, the same bits twice) of the localized
+               attention at N=32 and N=128, the banks the two halves of one
+               [B, P_loc, 2 H Dh] projection as the encoder layer hands
+               them;
                B3 (global-bank forward from tables), B3' (from the banks)
                and B4 (its backward) at N=32 (B=16) and N=128 (B=8), P=2048
                and 4096, with B3 and B3' timed on the same inputs; B5
@@ -92,7 +95,9 @@ Phases, each of which exits non-zero on failure:
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c5 train step on each captured
                batch ("block_sparse"), the device busy time, idle share,
-               top kernels and each block-sparse kernel's share.
+               top kernels and each block-sparse kernel's share; for
+               "pallas_local" also the shares of B1p, B2 and of any copy
+               of the bank halves a/b (and of their slice backward).
 The last three lines are the kernel table (JSON), the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -189,16 +194,21 @@ def honest_batch(n_graphs, seed, min_nodes, max_nodes):
 
 
 def kernel_inputs(batch, H, Dh, dtype, seed=0):
+    """B1's arguments for a batch, seeded: the banks a_loc, b_loc are the
+    two halves of one [B, P_loc, 2 H Dh] tensor, as the encoder layer hands
+    them (split_banks: views, rows 2 H Dh apart)."""
     import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import split_banks
 
     B, N = batch.concept_mask.shape
     P_loc = batch.bank_map.shape[1]
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     q, k, v = rnd(B, H, N, Dh), rnd(B, H, N, Dh), rnd(B, H, N, Dh)
-    a_loc, b_loc = rnd(B, P_loc, H, Dh) * 0.5, rnd(B, P_loc, H, Dh) * 0.5
+    ab = rnd(B, P_loc, 2 * H * Dh) * 0.5
     dev = lambda x: x.to(device="cuda", dtype=dtype).contiguous()  # noqa
-    return (dev(q), dev(k), dev(v), dev(a_loc), dev(b_loc),
+    return (dev(q), dev(k), dev(v), *split_banks(dev(ab), H),
             torch.from_numpy(batch.rel_index_loc).cuda(),
             torch.from_numpy(batch.concept_mask).cuda())
 
@@ -310,7 +320,10 @@ def phase_build():
         print(f"[build] {source}: {seconds:.2f} s"
               + ("" if log else " (library already built)"))
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+                print(f"[build]   entry {entry}")
+            elif "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] all sources: {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -338,13 +351,18 @@ def check_b1(label, args):
                                    **KERNEL_TOL[dtype_name])
     except AssertionError as e:
         fail(f"B1 {label} {dtype_name} disagrees with its plain version: {e}")
+    rel = rel_to_largest((out,), (ref,))
+    if rel > KERNEL_TOL[dtype_name]["rtol"]:
+        fail(f"B1 {label} {dtype_name}: error {rel:.3e} of the largest "
+             f"value, above {KERNEL_TOL[dtype_name]['rtol']}")
     bound_ms, bound_by = local_attention_bound(
         rel_index_loc.cpu().numpy(), H, Dh, dtype_name)
     ms = time_ms(lambda: lra(*args))
     plain_ms = time_ms(lambda: local_relation_attention_reference(*args))
     print(f"[kernel] B1 {label} B={B} H={H} N={N} Dh={Dh} "
           f"P_loc={args[3].shape[1]} {dtype_name}: max_abs_err={err:.3e} "
-          f"(tol {KERNEL_TOL[dtype_name]}) bound={bound_ms:.6f} ms "
+          f"(tol {KERNEL_TOL[dtype_name]}; {rel:.3e} of the largest value) "
+          f"bound={bound_ms:.6f} ms "
           f"({bound_by}) kernel={ms:.6f} ms plain={plain_ms:.6f} ms",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -377,13 +395,18 @@ def check_b1p(label, args):
     except AssertionError as e:
         fail(f"B1p {label} {dtype_name} disagrees with its plain version: "
              f"{e}")
+    rel = rel_to_largest((out,), (ref_out,))
+    if rel > KERNEL_TOL[dtype_name]["rtol"]:
+        fail(f"B1p {label} {dtype_name}: out's error {rel:.3e} of its "
+             f"largest value, above {KERNEL_TOL[dtype_name]['rtol']}")
     bound_ms, bound_by = local_attention_bound(
         rel_index_loc.cpu().numpy(), H, Dh, dtype_name, with_probs=True)
     ms = time_ms(lambda: lrap(*args))
     plain_ms = time_ms(lambda: plain(*args))
     print(f"[kernel] B1p {label} B={B} H={H} N={N} Dh={Dh} "
           f"P_loc={args[3].shape[1]} {dtype_name}: max_abs_err={err:.3e} "
-          f"(tol {KERNEL_TOL[dtype_name]}, probs {PROBS_TOL}) "
+          f"(tol {KERNEL_TOL[dtype_name]}, probs {PROBS_TOL}; out "
+          f"{rel:.3e} of its largest value) "
           f"bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
           f"plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -393,11 +416,13 @@ def check_b1p(label, args):
 def b2_args(args, seed=1):
     """B2's arguments for B1's inputs: the f32 probabilities from B1p, a
     seeded cotangent (values of the input type, held in f32, as a training
-    step hands B2 the output's cotangent), and the walk order."""
+    step hands B2 the output's cotangent), the walk order and, last, the
+    work list over the runs (B2's `runs` keyword)."""
     import torch
 
     from gtos_tpu_torch.ops.local_relation_attention import (
-        local_relation_attention_with_probs_reference, slot_order)
+        local_relation_attention_with_probs_reference, bank_runs,
+        slot_order)
 
     q, k, v, a_loc, b_loc, idx, mask = args
     gen = torch.Generator(device=q.device).manual_seed(seed)
@@ -405,15 +430,40 @@ def b2_args(args, seed=1):
         q.dtype).float()
     _, probs = local_relation_attention_with_probs_reference(*args)
     order, start = slot_order(idx, a_loc.shape[1])
-    return (q, k, v, g, probs, a_loc, b_loc, idx, order, start)
+    return (q, k, v, g, probs, a_loc, b_loc, idx, order, start,
+            bank_runs(start, q.shape[2]))
 
 
-def check_b2(label, bargs, mask):
+B2_NAMES = ("gq", "gk", "gv", "g_a_loc", "g_b_loc")
+
+
+def b2_disagreement(grads, refs, dtype_name):
+    """Why B2's gradients disagree with the reference ones, or None: each
+    within KERNEL_TOL and, as a training step's gradients can lie far below
+    its atol, each within its rtol of the reference's own largest value."""
+    import torch
+
+    for name, x, ref in zip(B2_NAMES, grads, refs):
+        try:
+            torch.testing.assert_close(x.float(), ref.float(),
+                                       **KERNEL_TOL[dtype_name])
+        except AssertionError as e:
+            return f"{name} disagrees with autograd of the plain forward: {e}"
+        rel = rel_to_largest((x,), (ref,))
+        if rel > KERNEL_TOL[dtype_name]["rtol"]:
+            return (f"{name}'s error is {rel:.3e} of its largest value, "
+                    f"above {KERNEL_TOL[dtype_name]['rtol']}")
+    return None
+
+
+def check_b2(label, bargs, mask, plant=False):
     """B2's wrapper against autograd of B1's plain version on the same
     inputs, taken in f32 (the cotangent g into its output): gq, gk, gv,
-    g_a_loc, g_b_loc; then B2 and its plain version timed; returns its
-    numbers. In f32 because autograd of the bf16 forward would sum each
-    bank slot's pairs in bf16, where B2 sums in f32 and rounds once."""
+    g_a_loc, g_b_loc (`b2_disagreement`), and the same bits from a second
+    call (no atomics); then B2 and its plain version timed; returns its
+    numbers. In f32 because autograd of the bf16 forward would sum each bank
+    slot's pairs in bf16, where B2 sums in f32 and rounds once. With plant,
+    the kernel's gradients with g_a_loc zeroed must fail the same check."""
     import torch
 
     from gtos_tpu_torch.ops.local_relation_attention import (
@@ -421,36 +471,51 @@ def check_b2(label, bargs, mask):
         local_relation_attention_bwd_reference as plain,
         local_relation_attention_reference as plain_fwd)
 
-    q, k, v, g, probs, a_loc, b_loc, idx, order, start = bargs
+    q, k, v, g, probs, a_loc, b_loc, idx, order, start, runs = bargs
     B, H, N, Dh = q.shape
     P_loc = a_loc.shape[1]
     dtype_name = _dtype_name(q)
-    grads = lrab(*bargs)
+    call = lambda: lrab(*bargs[:10], runs=runs)  # noqa: E731
+    grads = call()
+    again = call()
     leaves = [x.detach().float().requires_grad_()
               for x in (q, k, v, a_loc, b_loc)]
     out = plain_fwd(*leaves, idx, mask)
     refs = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
     err = 0.0
-    for name, x, ref in zip(("gq", "gk", "gv", "g_a_loc", "g_b_loc"),
-                            grads, refs):
+    for name, x, ref, y in zip(B2_NAMES, grads, refs, again):
         if x.dtype != q.dtype or not torch.isfinite(x.float()).all():
             fail(f"B2 {label} {dtype_name}: {name} non-finite or of "
                  f"type {x.dtype}")
+        if not torch.equal(x, y):
+            fail(f"B2 {label} {dtype_name}: {name} differs between two "
+                 "calls on the same inputs")
         err = max(err, (x.float() - ref.float()).abs().max().item())
-        try:
-            torch.testing.assert_close(x.float(), ref.float(),
-                                       **KERNEL_TOL[dtype_name])
-        except AssertionError as e:
-            fail(f"B2 {label} {dtype_name}: {name} disagrees with autograd "
-                 f"of the plain forward: {e}")
+    why = b2_disagreement(grads, refs, dtype_name)
+    if why is not None:
+        fail(f"B2 {label} {dtype_name}: {why}")
+    rel = rel_to_largest(grads, refs)
+    if plant:
+        zeroed = (*grads[:3], torch.zeros_like(grads[3]), grads[4])
+        why = b2_disagreement(zeroed, refs, dtype_name)
+        if why is None:
+            fail(f"B2 {label} {dtype_name}: the gate passes a planted B2 "
+                 "whose g_a_loc is all zero")
+        atol_alone = all(torch.allclose(x.float(), y.float(),
+                                        **KERNEL_TOL[dtype_name])
+                         for x, y in zip(zeroed, refs))
+        print(f"[kernel] B2 {label} {dtype_name}: a planted zero g_a_loc "
+              f"fails ({why.splitlines()[0]}; KERNEL_TOL alone would "
+              f"{'pass' if atol_alone else 'fail'} it)", flush=True)
     bound_ms, bound_by = local_attention_bwd_bound(
         idx.cpu().numpy(), H, Dh, P_loc, dtype_name)
-    ms = time_ms(lambda: lrab(*bargs))
+    ms = time_ms(call)
     plain_ms = time_ms(lambda: plain(*bargs[:8]))
     print(f"[kernel] B2 {label} B={B} H={H} N={N} Dh={Dh} P_loc={P_loc} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol "
-          f"{KERNEL_TOL[dtype_name]}) bound={bound_ms:.6f} ms ({bound_by}) "
+          f"{KERNEL_TOL[dtype_name]}; {rel:.3e} of the largest value) "
+          f"bound={bound_ms:.6f} ms ({bound_by}) "
           f"kernel={ms:.6f} ms plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -573,6 +638,16 @@ def _compare(kernel, label, dtype_name, pairs):
             fail(f"{kernel} {label} {dtype_name}: {name} disagrees with its "
                  f"plain version: {e}")
     return err
+
+
+def rel_to_largest(got, ref):
+    """The largest error of the outputs `got` against the plain ones `ref`,
+    each relative to the plain output's own largest magnitude: the check
+    that holds a small output (a training step's gradients lie far below
+    KERNEL_TOL's atol) to KERNEL_TOL's rtol."""
+    return max(((x.float() - y.float()).abs().max()
+                / y.float().abs().max().clamp_min(1e-30)).item()
+               for x, y in zip(got, ref))
 
 
 def check_b3(label, targs):
@@ -835,7 +910,7 @@ def phase_main_shapes(b1_inputs, serve_launches, train_inputs,
     b1p, b2 = [], []
     for i, (fwd, bwd) in enumerate(train_inputs):
         b1p.append(check_b1p(f"train{i}", fwd))
-        b2.append(check_b2(f"train{i}", bwd, fwd[6]))
+        b2.append(check_b2(f"train{i}", bwd, fwd[6], plant=True))
     return [table_row(B1, b1, serve_launches),
             table_row(B1P, b1p, train_launches),
             table_row(B2, b2, train_launches)]
@@ -1412,9 +1487,10 @@ def planted_b2(kind):
         local_relation_attention_bwd_reference as plain)
 
     def wrong(q, k, v, g, probs, a_loc, b_loc, idx, pair_order=None,
-              slot_start=None, scale=None):
+              slot_start=None, scale=None, runs=None):
         gq, gk, gv, ga, gb = lrab(q, k, v, g, probs, a_loc, b_loc, idx,
-                                  pair_order, slot_start, scale)
+                                  pair_order, slot_start, scale,
+                                  runs=runs)
         if kind == "no bank gradient":
             return gq, gk, gv, torch.zeros_like(ga), torch.zeros_like(gb)
         ga = plain(q, k, v, g, probs, a_loc, torch.zeros_like(b_loc), idx,
@@ -1643,9 +1719,9 @@ def capture_train_inputs(trainer, batches):
         fwd.append(tuple(a.detach() for a in args[:7]))
         return real_fwd(*args)
 
-    def rec_bwd(*args):
-        bwd.append(args[:10])
-        return real_bwd(*args)
+    def rec_bwd(*args, runs=None):
+        bwd.append((*args[:10], runs))
+        return real_bwd(*args, runs=runs)
 
     with wrapper_replaced("local_relation_attention_with_probs", rec_fwd), \
             wrapper_replaced("local_relation_attention_bwd", rec_bwd):
@@ -1903,8 +1979,9 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
     """Where a train step's time goes (--profile): torch.profiler over one
     more step on `batch` (default: a train batch of the `impl` loader), its
     device busy time, the idle share against the unprofiled mean step time
-    of the train phase, the busiest kernels, and the share of device time
-    of each hand-written block-sparse kernel that ran."""
+    of the train phase, the busiest kernels, the share of device time of
+    each hand-written block-sparse kernel that ran, and under
+    "pallas_local" `local_shares`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1920,8 +1997,8 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
     trainer.train_step(arrays)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=impl == "pallas_local") as prof:
         trainer.train_step(arrays)
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
@@ -1930,6 +2007,8 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
     if busy_ms <= 0:
         fail("the profiler recorded no device time")
     label = label or f"{impl} train step"
+    if impl == "pallas_local":
+        local_shares(prof, dev, busy_ms, arrays, trainer.model.cfg.d_model)
     print(f"[profile] {label} (B={batch.concept_mask.shape[0]} "
           f"N={batch.concept_mask.shape[1]} T={batch.token_in.shape[1]}): "
           f"device busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall:.4f}"
@@ -1945,6 +2024,72 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
                   f"{e.self_device_time_total / 1e3:.3f} ms "
                   f"({e.self_device_time_total / 1e3 / busy_ms:.4f} of "
                   f"device busy) {e.count}x {e.key[:110]}")
+
+
+def local_shares(prof, dev, busy_ms, arrays, D):
+    """Prints, for a profiled "pallas_local" train step, the device time
+    and share of device busy of B1p (its kernel), of B2 (its kernels) and
+    of the copies around them: `contiguous` calls on a [B, P_loc, H, Dh]
+    bank half, the slice backward into a [B, P_loc, 2 D] bank gradient and
+    the add of two such gradients (what a layer that copies a and b out
+    of its bank projection adds to a step). Then B2's work list
+    (`bank_runs`, built once per encoder stack, so once a step, where the
+    checkout has it) profiled alone on the step's batch: its device time,
+    device kernels and the host time to issue it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gtos_tpu_torch.ops import local_relation_attention as lra
+
+    B, P_loc = arrays["bank_map"].shape
+    kernels = {"B1p": ("local_rel_attn_fwd", "local_fwd<"),
+               "B2": ("local_rel_attn_bwd", "local_bwd_")}
+    for name, keys in kernels.items():
+        found = [e for e in dev if any(k in e.key for k in keys)]
+        ms = sum(e.self_device_time_total for e in found) / 1e3
+        print(f"[profile]   {name}: {ms:.3f} ms ({ms / busy_ms:.4f} of device "
+              f"busy), {sum(e.count for e in found)} launches", flush=True)
+
+    def is_copy(e):
+        s = list((e.input_shapes or [[]])[0])
+        if s[:2] != [B, P_loc]:
+            return False
+        return ((e.name == "aten::contiguous" and len(s) == 4
+                 and s[2] * s[3] == D)
+                or (e.name == "aten::slice_backward" and s[2:] == [D])
+                or (e.name == "aten::add" and s[2:] == [2 * D]))
+
+    copies = [e for e in prof.events() if is_copy(e)]
+    ms = sum(e.device_time_total for e in copies) / 1e3
+    print(f"[profile]   copies of the bank halves a/b and their slice "
+          f"backward: {ms:.3f} ms ({ms / busy_ms:.4f} of device busy), "
+          f"{len(copies)} ops", flush=True)
+
+    if not hasattr(lra, "bank_runs"):
+        print("[profile]   bank_runs: not in this checkout", flush=True)
+        return
+    idx = arrays["rel_index_loc"]
+    start = lra.slot_order(idx, P_loc)[1]
+    runs = lambda: lra.bank_runs(start, idx.shape[1])  # noqa: E731
+    runs()
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runs()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as alone:
+        runs()
+        torch.cuda.synchronize()
+    found = [e for e in alone.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    ms = sum(e.self_device_time_total for e in found) / 1e3
+    print(f"[profile]   bank_runs, once a step (profiled alone on this "
+          f"batch): {ms:.3f} ms device ({ms / busy_ms:.4f} of the step's "
+          f"device busy), {sum(e.count for e in found)} device kernels/"
+          f"copies, {host_ms:.3f} ms host time to issue", flush=True)
 
 
 # ------------------------------------- block-sparse kernels B5, B5s and B6
@@ -2217,9 +2362,7 @@ def check_b6(label, args, src, g=None, bwd=None):
         err = _compare(kernel, label, dtype_name, list(zip(names, got, ref)))
         # a training step's gradients can be far below KERNEL_TOL's atol:
         # each output also within its rtol of its own largest value
-        rel = max(((x.float() - y.float()).abs().max()
-                   / y.float().abs().max().clamp_min(1e-30)).item()
-                  for x, y in zip(got, ref))
+        rel = rel_to_largest(got, ref)
         if rel > KERNEL_TOL[dtype_name]["rtol"]:
             fail(f"{kernel} {label} {dtype_name}: error {rel:.3e} of the "
                  f"largest value, above {KERNEL_TOL[dtype_name]['rtol']}")

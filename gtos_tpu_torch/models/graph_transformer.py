@@ -19,9 +19,12 @@ one set of parameters:
                  runs the localized relation attention
                  (ops/local_relation_attention.py): kernel B1 without
                  gradients, and with them the trainable entry, whose
-                 forward is B1p and backward B2. B2's slot order over each
-                 graph's pairs is built once per stack, as the JAX package
-                 builds its sort auxiliaries once per step;
+                 forward is B1p and backward B2. The kernels take the
+                 halves of the bank projection as views and B2 writes its
+                 gradient as one tensor, so neither is copied. B2's slot
+                 order over each graph's pairs and its work list over the
+                 runs are built once per stack, as the JAX package builds its
+                 sort auxiliaries once per step;
   "sparse"       the edge-list attention over batchify's COO edge cells
                  (build_edges=True), plain torch as the JAX package leaves
                  it to XLA (ops/sparse_relation.py);
@@ -56,7 +59,8 @@ from gtos_tpu_torch.ops.block_sparse_attention import (
 )
 from gtos_tpu_torch.ops.block_sparse_attention_bwd import backward_plan
 from gtos_tpu_torch.ops.local_relation_attention import (
-    local_relation_attention, local_relation_attention_trainable, slot_order,
+    local_relation_attention, local_relation_attention_trainable,
+    bank_runs, slot_order, split_banks,
 )
 from gtos_tpu_torch.ops.localize import localize_bank
 from gtos_tpu_torch.ops.relation_attention import (
@@ -115,7 +119,8 @@ class RelationMultiheadAttention(nn.Module):
         "xla" and "pallas" (with edges["row_order"]/["col_order"] when
         gradients are taken), or pre-localized [B,P_loc,Dr] for
         "pallas_local" (with edges["rel_index_loc"], and
-        edges["pair_order"]/["slot_start"] when gradients are taken); the
+        edges["pair_order"]/["slot_start"]/["bank_runs"] when gradients
+        are taken); the
         global [P,Dr] for "sparse" (with edges["flat_edges"]) and
         "block_sparse" (with the tile layouts, and edges["blk_plan"] when
         gradients are taken)."""
@@ -125,20 +130,19 @@ class RelationMultiheadAttention(nn.Module):
         k = split_heads(self.k_proj(x), H)
         v = split_heads(self.v_proj(x), H)
         ab = self.rel_proj(rel_vecs)
-        lead = ab.shape[:-1]
-        a = ab[..., :D].reshape(*lead, H, D // H)
-        b = ab[..., D:].reshape(*lead, H, D // H)
+        a, b = split_banks(ab, H)
         edges = edges or {}
         grad = torch.is_grad_enabled() and q.requires_grad
         if impl == "pallas_local":
-            args = (q.contiguous(), k.contiguous(), v.contiguous(),
-                    a.contiguous(), b.contiguous(), edges["rel_index_loc"],
-                    node_mask)
+            qkv = (q.contiguous(), k.contiguous(), v.contiguous())
             if grad:
                 out = local_relation_attention_trainable(
-                    *args, edges.get("pair_order"), edges.get("slot_start"))
+                    *qkv, ab, edges["rel_index_loc"], node_mask,
+                    edges.get("pair_order"), edges.get("slot_start"),
+                    edges.get("bank_runs"))
             else:
-                out = local_relation_attention(*args)
+                out = local_relation_attention(
+                    *qkv, a, b, edges["rel_index_loc"], node_mask)
         elif impl == "pallas":
             args = (q.contiguous(), k.contiguous(), v.contiguous(),
                     a.contiguous(), b.contiguous(), rel_index, node_mask)
@@ -215,7 +219,8 @@ class GraphTransformer(nn.Module):
             if torch.is_grad_enabled():
                 order, start = slot_order(edges["rel_index_loc"],
                                           edges["bank_map"].shape[1])
-                edges = dict(edges, pair_order=order, slot_start=start)
+                edges = dict(edges, pair_order=order, slot_start=start,
+                             bank_runs=bank_runs(start, x.shape[1]))
         elif impl == "pallas" and torch.is_grad_enabled():
             rows, cols = walk_orders(rel_index)
             edges = dict(edges or {}, row_order=rows, col_order=cols)

@@ -1,8 +1,10 @@
-// What the block-sparse kernels share (block_sparse_attention_fwd.cu and
-// block_sparse_attention_bwd.cu): element conversions, the 8-value row
-// chunks a lane reads 16 bytes (bf16) or 32 bytes (f32) at a time, and the
-// walk of an own node's tile planes that a block does once for all its
-// head warps. ops/build.py hashes this header with each source.
+// What the block-sparse kernels (block_sparse_attention_fwd.cu and
+// block_sparse_attention_bwd.cu) and the localized ones
+// (local_relation_attention_fwd.cu and local_relation_attention_bwd.cu)
+// share: element conversions, the 8-value row chunks a lane reads 16 bytes
+// (bf16) or 32 bytes (f32) at a time, and the walk of an own node's tile
+// planes that a block does once for all its head warps. ops/build.py
+// hashes this header with each source.
 
 #pragma once
 
@@ -72,6 +74,34 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
 __device__ __forceinline__ void store8(float* p, const float* x) {
   reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// The row chunks of a head dimension that need not be a multiple of 8 (the
+// localized kernels): chunk c holds values [8c, 8c + min(8, n)) of the row,
+// n = Dh - 8c. With `vec` (Dh a multiple of 8, every row 16-byte aligned)
+// one load_chunk / store8; else a value at a time, the missing values read
+// as 0 and not written.
+template <typename T>
+__device__ __forceinline__ void load_chunk_n(const T* p, int n, bool vec,
+                                             Chunk<T>& c) {
+  if (vec) {
+    load_chunk(p, c);
+    return;
+  }
+  T* e = reinterpret_cast<T*>(&c);
+#pragma unroll
+  for (int x = 0; x < 8; ++x) e[x] = x < n ? p[x] : from_f32<T>(0.f);
+}
+template <typename T>
+__device__ __forceinline__ void store_n(T* p, const float* x, int n,
+                                        bool vec) {
+  if (vec) {
+    store8(p, x);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < n) p[e] = from_f32<T>(x[e]);
 }
 
 // One round of the plane walk of own node `nl` (its row in its tile) of

@@ -21,10 +21,21 @@ for CPU tensors and raises for anything else:
   B1p `local_relation_attention_with_probs`  the same kernel, also writing
       the f32 probabilities [B, H, N, N] (the forward of a training step);
   B2  `local_relation_attention_bwd`         the backward from those probs,
-      csrc/local_relation_attention_bwd.cu.
+      csrc/local_relation_attention_bwd.cu (three launches, one count: a
+      row pass that also zeroes the empty slots' bank rows; the column
+      blocks and the long runs' chunks; the long runs' chunk sums and the
+      short runs, from `bank_runs`' work list).
+
+Each is a block per (graph, node) whose head warps share one read of the
+node's slots and of each all-heads bank row, 8 lanes a pair. The banks
+a_loc/b_loc may be strided views: rows of [H, Dh] contiguous values, any
+row stride (the layer hands the two halves of its [B, P_loc, 2 H Dh]
+projection `ab`, `split_banks`, without a copy), and B2 writes g_a_loc and
+g_b_loc as the two halves of one [B, P_loc, 2 H Dh] tensor.
 
 `local_relation_attention_trainable` is the differentiable entry: a
-torch.autograd.Function whose forward is B1p and whose backward is B2. The
+torch.autograd.Function of q, k, v and `ab`, whose forward is B1p and whose
+backward is B2, returning the gradient of `ab` as that one tensor. The
 cotangent enters B2 in f32 and the saved probabilities are f32, as the JAX
 package's custom VJP has them. Each wrapper counts its launches in
 `.launches`.
@@ -45,9 +56,10 @@ BWD_SOURCE = "local_relation_attention_bwd.cu"
 SOURCES = (FWD_SOURCE, BWD_SOURCE)
 MAX_NODES = 128   # node bucket limit of the kernels (and of the TPU kernel)
 MAX_HEAD_DIM = 128
-# B2 stages ge [N, N], k and v^T (then q) [N, Dh] in f32 in shared memory;
-# the kernel's static shared memory takes the rest of the card's 227 KB
-MAX_BWD_SMEM = 232448 - 20 * 1024
+# B2's bank pass: a slot's run of at most SHORT_RUN pairs is one lane
+# group's work; a longer one is cut into RUN_CHUNK-pair chunks, a block
+# each (the kernel's kShortRun and kChunk)
+SHORT_RUN, RUN_CHUNK = 8, 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -124,6 +136,28 @@ def local_relation_attention_bwd_reference(q, k, v, g, probs, a_loc, b_loc,
             bank_grad(to_a).to(a_loc.dtype), bank_grad(to_b).to(b_loc.dtype))
 
 
+def split_banks(ab, heads: int):
+    """(a_loc, b_loc) [B, P_loc, H, Dh]: the two halves of the per-graph
+    bank projection ab [B, P_loc, 2 H Dh], as views (no copy)."""
+    D = ab.shape[-1] // 2
+    shape = (*ab.shape[:-1], heads, D // heads)
+    return ab[..., :D].reshape(shape), ab[..., D:].reshape(shape)
+
+
+def joined_bank_grads(g_a, g_b):
+    """The [B, P_loc, 2 H Dh] gradient of `ab` whose halves are g_a and g_b
+    [B, P_loc, H, Dh]: a view of B2's output, whose two halves are one
+    tensor's, else a copy."""
+    B, P, H, Dh = g_a.shape
+    D = H * Dh
+    strides = (P * 2 * D, 2 * D, Dh, 1)
+    if (g_a.dtype == g_b.dtype and g_a.device == g_b.device
+            and g_a.stride() == g_b.stride() == strides
+            and g_b.data_ptr() == g_a.data_ptr() + D * g_a.element_size()):
+        return g_a.as_strided((B, P, 2 * D), (P * 2 * D, 2 * D, 1))
+    return torch.cat((g_a.reshape(B, P, D), g_b.reshape(B, P, D)), -1)
+
+
 def slot_order(rel_index_loc, P_loc: int):
     """B2's walk order over each graph's pairs, from the local slot matrix
     [B, N, N]: (pair_order [B, N*N] int32, the flat pair i*N+j sorted by
@@ -141,6 +175,50 @@ def slot_order(rel_index_loc, P_loc: int):
     return order.to(torch.int32), start
 
 
+def max_run_chunks(N: int) -> int:
+    """The most chunks `bank_runs` lists for one graph of node bucket N: a
+    run of L > SHORT_RUN pairs has ceil(L / RUN_CHUNK) <= L / (SHORT_RUN +
+    1) of them, and a graph has N*N pairs (the kernel's cmax)."""
+    return -(-N * N // (SHORT_RUN + 1))
+
+
+def bank_runs(slot_start, N: int):
+    """B2's work list over the slots' runs, from `slot_order`'s slot_start
+    [B, P_loc + 1]: int32 [B, 1 + max_run_chunks(N) + P_loc, 4], per graph
+    entry 0 (its number of chunks, its number of short runs, 0, 0); then
+    max_run_chunks(N) entries, the runs of more than SHORT_RUN pairs cut
+    into RUN_CHUNK-pair chunks (first place in pair_order, pairs, slot,
+    chunk of its run), by slot and in order within a run, then zeros; then
+    P_loc entries, the other non-empty runs whole (first place, pairs,
+    slot, 0), longest first (stable), then zeros. Built on the slot starts'
+    device with no copy to the host; head- and layer-invariant, so built
+    once per encoder stack."""
+    B, P = slot_start.shape[0], slot_start.shape[1] - 1
+    start = slot_start.long()
+    length = start[:, 1:] - start[:, :-1]
+    chunks = torch.where(length > SHORT_RUN,
+                         (length + RUN_CHUNK - 1) // RUN_CHUNK, 0)
+    ends = torch.cumsum(chunks, 1)
+    x = torch.arange(max_run_chunks(N), device=start.device).expand(
+        B, -1).contiguous()
+    slot = torch.searchsorted(ends, x, right=True).clamp_max(P - 1)
+    k = x - ends.gather(1, slot) + chunks.gather(1, slot)
+    first = start.gather(1, slot) + k * RUN_CHUNK
+    pairs = (length.gather(1, slot) - k * RUN_CHUNK).clamp_max(RUN_CHUNK)
+    pieces = torch.stack([first, pairs, slot, k], -1) * (
+        x < ends[:, -1:])[..., None]
+    short = (length > 0) & (length <= SHORT_RUN)
+    order = torch.argsort(torch.where(short, SHORT_RUN - length,
+                                      SHORT_RUN), dim=1, stable=True)
+    runs = torch.stack([start.gather(1, order), length.gather(1, order),
+                        order, torch.zeros_like(order)], -1) * short.gather(
+        1, order)[..., None]
+    count = torch.zeros(B, 1, 4, dtype=runs.dtype, device=runs.device)
+    count[:, 0, 0] = ends[:, -1]
+    count[:, 0, 1] = short.sum(1)
+    return torch.cat([count, pieces, runs], 1).to(torch.int32)
+
+
 def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
         raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
@@ -149,6 +227,38 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} on {t.device}, q on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def bank_row_stride(t):
+    """Elements between two rows of a bank [B, P_loc, H, Dh] whose rows are
+    H*Dh contiguous values and whose graphs lie P_loc rows apart (a
+    contiguous bank, or a half of `ab` from split_banks); None for any other
+    layout."""
+    B, P, H, Dh = t.shape
+    s0, s1, s2, s3 = t.stride()
+    row = s1 if P > 1 else (s0 if B > 1 else H * Dh)
+    if ((Dh > 1 and s3 != 1) or (H > 1 and s2 != Dh) or row < H * Dh
+            or (B > 1 and s0 != P * row)):
+        return None
+    return row
+
+
+def _check_banks(a_loc, b_loc, shape, dtype, device):
+    """The banks as the kernels take them: of `shape`, `dtype` and
+    `device`, rows of contiguous [H, Dh] values, one row stride for both;
+    returns it."""
+    for name, t in (("a_loc", a_loc), ("b_loc", b_loc)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, q on {device}")
+    row = bank_row_stride(a_loc)
+    if row is None or row != bank_row_stride(b_loc):
+        raise ValueError("a_loc and b_loc must be [B, P_loc, H, Dh] banks of "
+                         "contiguous rows with one row stride, got strides "
+                         f"{a_loc.stride()} and {b_loc.stride()}")
+    return row
 
 
 def _check_sizes(q):
@@ -163,23 +273,24 @@ def _check_sizes(q):
 
 
 def _check_cuda_args(q, k, v, a_loc, b_loc, rel_index_loc, node_mask):
-    """What B1/B1p take: refused here, before a launch."""
+    """What B1/B1p take: refused here, before a launch. Returns the banks'
+    row stride."""
     _check_sizes(q)
     B, H, N, Dh = q.shape
     P_loc = a_loc.shape[1]
     for name, t, shape, dtype in (
             ("q", q, (B, H, N, Dh), q.dtype), ("k", k, (B, H, N, Dh), q.dtype),
             ("v", v, (B, H, N, Dh), q.dtype),
-            ("a_loc", a_loc, (B, P_loc, H, Dh), q.dtype),
-            ("b_loc", b_loc, (B, P_loc, H, Dh), q.dtype),
             ("rel_index_loc", rel_index_loc, (B, N, N), torch.int32),
             ("node_mask", node_mask, (B, N), torch.bool)):
         _check(name, t, shape, dtype, q.device)
+    return _check_banks(a_loc, b_loc, (B, P_loc, H, Dh), q.dtype, q.device)
 
 
 def _check_bwd_args(q, k, v, g, probs, a_loc, b_loc, rel_index_loc,
-                    pair_order, slot_start):
-    """What B2 takes: refused here, before a launch."""
+                    pair_order, slot_start, runs=None):
+    """What B2 takes: refused here, before a launch. Returns the banks'
+    row stride."""
     _check_sizes(q)
     B, H, N, Dh = q.shape
     P_loc = a_loc.shape[1]
@@ -188,23 +299,22 @@ def _check_bwd_args(q, k, v, g, probs, a_loc, b_loc, rel_index_loc,
             ("v", v, (B, H, N, Dh), q.dtype),
             ("g", g, (B, H, N, Dh), torch.float32),
             ("probs", probs, (B, H, N, N), torch.float32),
-            ("a_loc", a_loc, (B, P_loc, H, Dh), q.dtype),
-            ("b_loc", b_loc, (B, P_loc, H, Dh), q.dtype),
             ("rel_index_loc", rel_index_loc, (B, N, N), torch.int32),
             ("pair_order", pair_order, (B, N * N), torch.int32),
             ("slot_start", slot_start, (B, P_loc + 1), torch.int32)):
         _check(name, t, shape, dtype, q.device)
-    smem = (N * N + 2 * N * Dh) * 4
-    if smem > MAX_BWD_SMEM:
-        raise ValueError(f"N={N}, Dh={Dh}: the backward's {smem} bytes of "
-                         f"shared memory exceed {MAX_BWD_SMEM}")
+    if runs is not None:
+        _check("runs", runs, (B, 1 + max_run_chunks(N) + P_loc, 4),
+               torch.int32, q.device)
+    return _check_banks(a_loc, b_loc, (B, P_loc, H, Dh), q.dtype, q.device)
 
 
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
     """B1/B1p's C entry point in the built library, with argument types."""
     fn = build.load(FWD_SOURCE).gtos_local_rel_attn_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -214,8 +324,10 @@ def _fwd_kernel():
 def _bwd_kernel():
     """B2's C entry point in the built library, with argument types."""
     fn = build.load(BWD_SOURCE).gtos_local_rel_attn_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -225,8 +337,8 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel: CUDA error {err} at launch")
 
 
-def _launch_fwd(q, k, v, a_loc, b_loc, rel_index_loc, node_mask, scale,
-                with_probs):
+def _launch_fwd(q, k, v, a_loc, b_loc, row_stride, rel_index_loc, node_mask,
+                scale, with_probs):
     B, H, N, Dh = q.shape
     out = torch.empty_like(q)
     probs = (torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
@@ -235,8 +347,8 @@ def _launch_fwd(q, k, v, a_loc, b_loc, rel_index_loc, node_mask, scale,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fwd_kernel()(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            a_loc.data_ptr(), b_loc.data_ptr(), rel_index_loc.data_ptr(),
-            node_mask.data_ptr(), out.data_ptr(),
+            a_loc.data_ptr(), b_loc.data_ptr(), row_stride,
+            rel_index_loc.data_ptr(), node_mask.data_ptr(), out.data_ptr(),
             probs.data_ptr() if with_probs else None, B, H, N, Dh,
             a_loc.shape[1], float(scale), stream)
     _raise_on(err, "local relation attention forward")
@@ -257,16 +369,18 @@ def local_relation_attention(q, k, v, a_loc, b_loc, rel_index_loc,
     q, k, v: [B, H, N, Dh]; a_loc/b_loc: [B, P_loc, H, Dh] (per-graph
     localized banks); rel_index_loc: [B, N, N] int32 local slots;
     node_mask: [B, N] bool. Returns out [B, H, N, Dh] in q's dtype.
-    CUDA tensors go through the kernel (float32 or bfloat16, contiguous,
-    N <= 128, Dh <= 128; anything else raises); CPU tensors through the
-    plain version. `local_relation_attention.launches` counts launches."""
+    CUDA tensors go through the kernel (float32 or bfloat16, q/k/v
+    contiguous, the banks rows of contiguous [H, Dh] values with one row
+    stride, as `split_banks` gives them; N <= 128, Dh <= 128; anything else
+    raises); CPU tensors through the plain version.
+    `local_relation_attention.launches` counts launches."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
         return local_relation_attention_reference(
             q, k, v, a_loc, b_loc, rel_index_loc, node_mask, scale)
-    _check_cuda_args(q, k, v, a_loc, b_loc, rel_index_loc, node_mask)
-    out, _ = _launch_fwd(q, k, v, a_loc, b_loc, rel_index_loc, node_mask,
-                         scale, with_probs=False)
+    row = _check_cuda_args(q, k, v, a_loc, b_loc, rel_index_loc, node_mask)
+    out, _ = _launch_fwd(q, k, v, a_loc, b_loc, row, rel_index_loc,
+                         node_mask, scale, with_probs=False)
     local_relation_attention.launches += 1
     return out
 
@@ -281,8 +395,8 @@ def local_relation_attention_with_probs(q, k, v, a_loc, b_loc,
     if not _on_card(q):
         return local_relation_attention_with_probs_reference(
             q, k, v, a_loc, b_loc, rel_index_loc, node_mask, scale)
-    _check_cuda_args(q, k, v, a_loc, b_loc, rel_index_loc, node_mask)
-    out, probs = _launch_fwd(q, k, v, a_loc, b_loc, rel_index_loc,
+    row = _check_cuda_args(q, k, v, a_loc, b_loc, rel_index_loc, node_mask)
+    out, probs = _launch_fwd(q, k, v, a_loc, b_loc, row, rel_index_loc,
                              node_mask, scale, with_probs=True)
     local_relation_attention_with_probs.launches += 1
     return out, probs
@@ -290,12 +404,15 @@ def local_relation_attention_with_probs(q, k, v, a_loc, b_loc,
 
 def local_relation_attention_bwd(q, k, v, g, probs, a_loc, b_loc,
                                  rel_index_loc, pair_order=None,
-                                 slot_start=None, scale=None):
+                                 slot_start=None, scale=None, runs=None):
     """B2: (gq, gk, gv, g_a_loc, g_b_loc) in the input type from the
     forward's f32 probs [B, H, N, N] and the f32 cotangent g [B, H, N, Dh].
-    pair_order/slot_start: `slot_order(rel_index_loc, P_loc)`, built here
-    when not given (the CPU's plain version needs neither). Same limits as
-    B1; `.launches` counts launches."""
+    pair_order/slot_start: `slot_order(rel_index_loc, P_loc)`, runs:
+    `bank_runs(slot_start, N)`, built here when not given (the CPU's
+    plain version needs none). On the card g_a_loc and g_b_loc are the two
+    halves of one [B, P_loc, 2 H Dh] tensor (`joined_bank_grads` hands it
+    back without a copy). Same limits as B1; `.launches` counts calls (three
+    kernel launches each)."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
         return local_relation_attention_bwd_reference(
@@ -304,22 +421,29 @@ def local_relation_attention_bwd(q, k, v, g, probs, a_loc, b_loc,
     P_loc = a_loc.shape[1]
     if pair_order is None or slot_start is None:
         pair_order, slot_start = slot_order(rel_index_loc, P_loc)
-    _check_bwd_args(q, k, v, g, probs, a_loc, b_loc, rel_index_loc,
-                    pair_order, slot_start)
+    if runs is None:
+        runs = bank_runs(slot_start, N)
+    row = _check_bwd_args(q, k, v, g, probs, a_loc, b_loc, rel_index_loc,
+                          pair_order, slot_start, runs)
     gq, gk, gv = (torch.empty_like(q) for _ in range(3))
-    ga, gb = torch.empty_like(a_loc), torch.empty_like(b_loc)
+    g_ab = torch.empty(B, P_loc, 2, H, Dh, dtype=q.dtype, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    gep = torch.empty(B, N, N, H, 2, **f32)
+    part = torch.empty(B, max_run_chunks(N), H, 2 * Dh + 4, **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel()(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             g.data_ptr(), probs.data_ptr(), a_loc.data_ptr(),
-            b_loc.data_ptr(), rel_index_loc.data_ptr(), pair_order.data_ptr(),
-            slot_start.data_ptr(), gq.data_ptr(), gk.data_ptr(),
-            gv.data_ptr(), ga.data_ptr(), gb.data_ptr(), B, H, N, Dh, P_loc,
+            b_loc.data_ptr(), row, rel_index_loc.data_ptr(),
+            pair_order.data_ptr(), slot_start.data_ptr(), runs.data_ptr(),
+            gep.data_ptr(), part.data_ptr(), gq.data_ptr(), gk.data_ptr(),
+            gv.data_ptr(), g_ab[:, :, 0].data_ptr(),
+            g_ab[:, :, 1].data_ptr(), 2 * H * Dh, B, H, N, Dh, P_loc,
             float(scale), stream)
     _raise_on(err, "local relation attention backward")
     local_relation_attention_bwd.launches += 1
-    return gq, gk, gv, ga, gb
+    return gq, gk, gv, g_ab[:, :, 0], g_ab[:, :, 1]
 
 
 local_relation_attention.launches = 0
@@ -328,35 +452,43 @@ local_relation_attention_bwd.launches = 0
 
 
 class _LocalRelationAttention(torch.autograd.Function):
-    """Forward B1p, backward B2 (looked up at call time, by name)."""
+    """Forward B1p, backward B2 (looked up at call time, by name), over the
+    two halves of `ab`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, a_loc, b_loc, rel_index_loc, node_mask,
-                pair_order, slot_start, scale):
+    def forward(ctx, q, k, v, ab, rel_index_loc, node_mask, pair_order,
+                slot_start, runs, scale):
+        a_loc, b_loc = split_banks(ab, q.shape[1])
         out, probs = local_relation_attention_with_probs(
             q, k, v, a_loc, b_loc, rel_index_loc, node_mask, scale)
-        ctx.save_for_backward(q, k, v, a_loc, b_loc, rel_index_loc, probs,
-                              pair_order, slot_start)
+        ctx.save_for_backward(q, k, v, ab, rel_index_loc, probs)
+        ctx.walk = pair_order, slot_start, runs
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, a_loc, b_loc, idx, probs, pair_order, slot_start = \
-            ctx.saved_tensors
-        grads = local_relation_attention_bwd(
-            q, k, v, g.float().contiguous(), probs, a_loc, b_loc, idx,
-            pair_order, slot_start, ctx.scale)
-        return (*grads, None, None, None, None, None)
+        q, k, v, ab, idx, probs = ctx.saved_tensors
+        pair_order, slot_start, runs = ctx.walk
+        gq, gk, gv, g_a, g_b = local_relation_attention_bwd(
+            q, k, v, g.float().contiguous(), probs,
+            *split_banks(ab, q.shape[1]), idx, pair_order, slot_start,
+            ctx.scale, runs=runs)
+        return (gq, gk, gv, joined_bank_grads(g_a, g_b), None, None, None,
+                None, None, None)
 
 
-def local_relation_attention_trainable(q, k, v, a_loc, b_loc, rel_index_loc,
+def local_relation_attention_trainable(q, k, v, ab, rel_index_loc,
                                        node_mask, pair_order=None,
-                                       slot_start=None, scale=None):
-    """Differentiable localized attention: `local_relation_attention`'s
-    arguments and result, with gradients to q, k, v, a_loc and b_loc.
-    Forward B1p, backward B2 (their plain versions for CPU tensors).
-    pair_order/slot_start: `slot_order(...)` when the caller has it."""
+                                       slot_start=None, runs=None,
+                                       scale=None):
+    """Differentiable localized attention over the per-graph bank
+    projection ab [B, P_loc, 2 H Dh] (a_loc = its first half, b_loc its
+    second, per head; `split_banks`): `local_relation_attention`'s result,
+    with gradients to q, k, v and ab, the last one [B, P_loc, 2 H Dh]
+    tensor. Forward B1p, backward B2 (their plain versions for CPU
+    tensors). pair_order/slot_start: `slot_order(...)`, runs:
+    `bank_runs(...)`, when the caller has them."""
     return _LocalRelationAttention.apply(
-        q, k, v, a_loc, b_loc, rel_index_loc, node_mask, pair_order,
-        slot_start, _default_scale(q, scale))
+        q, k, v, ab, rel_index_loc, node_mask, pair_order, slot_start, runs,
+        _default_scale(q, scale))

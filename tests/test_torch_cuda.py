@@ -15,10 +15,10 @@ import pytest
 import torch
 
 from gtos_tpu_torch.ops.local_relation_attention import (
-    local_relation_attention, local_relation_attention_bwd,
+    RUN_CHUNK, bank_runs, local_relation_attention, local_relation_attention_bwd,
     local_relation_attention_bwd_reference, local_relation_attention_reference,
     local_relation_attention_with_probs,
-    local_relation_attention_with_probs_reference,
+    local_relation_attention_with_probs_reference, slot_order, split_banks,
 )
 from gtos_tpu_torch.ops.block_sparse import (
     TILE, pack_block_sparse, pack_block_sparse_src,
@@ -186,6 +186,109 @@ def test_cuda_b1p_and_b2_match_plain_versions(card, B, H, N, Dh, P, P_loc,
         assert x.dtype == dtype and torch.isfinite(x.float()).all(), name
         torch.testing.assert_close(x.float(), y.float(), **tol, msg=name)
         assert torch.equal(x, z), name
+
+
+# edge cases of the redesigned B1/B1p/B2 (B, H, N, Dh, P_loc, layout): one
+# node; N=17 (not a multiple of 8 or 32) with H=12 (two head blocks); N=128
+# with P_loc=4096; Dh=32, Dh=128 (two 16-byte chunks a lane) and Dh=20 (not
+# a multiple of 8: a value at a time); B=1; every pair of an N=128 graph on
+# one slot (a run of 16384 pairs: 512 chunks of RUN_CHUNK = 32 pairs);
+# every key but one masked.
+# "random": slots drawn per pair, the pairs of a graph's padded nodes on
+# the pad slot 0, as batchify lays them out
+LOCAL_EDGE_CASES = {"N1": (2, 8, 1, 64, 16, "random"),
+                    "N17_H12": (2, 12, 17, 64, 300, "random"),
+                    "N128_P4096": (2, 8, 128, 64, 4096, "random"),
+                    "Dh32": (2, 8, 32, 32, 512, "random"),
+                    "Dh128": (2, 8, 32, 128, 512, "random"),
+                    "Dh20": (2, 4, 24, 20, 256, "random"),
+                    "B1": (1, 8, 64, 64, 1024, "random"),
+                    "one_slot": (2, 8, 128, 64, 256, "one_slot"),
+                    "one_key": (2, 8, 32, 64, 512, "one_key")}
+
+
+def make_local_edge_case(B, H, N, Dh, P_loc, layout, seed=0):
+    """Seeded numpy inputs of B1/B2: q, k, v, g [B, H, N, Dh], the bank
+    projection ab [B, P_loc, 2 H Dh], idx [B, N, N] and mask [B, N]; the
+    top slots of each graph are referenced by no pair."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v, g = (rng.standard_normal((B, H, N, Dh)).astype(f)
+                  for _ in range(4))
+    ab = (rng.standard_normal((B, P_loc, 2 * H * Dh)) * 0.5).astype(f)
+    idx = rng.integers(1, max(2, P_loc - 8), (B, N, N))
+    mask = np.ones((B, N), bool)
+    if layout == "one_slot":
+        idx[:] = 0
+    elif layout == "one_key":
+        mask[0, 1:] = False
+    else:
+        for b in range(B):
+            n = int(rng.integers((N + 1) // 2, N + 1))
+            mask[b, n:] = False
+            idx[b, n:], idx[b, :, n:] = 0, 0
+    return dict(q=q, k=k, v=v, g=g, ab=ab, idx=idx.astype(np.int32),
+                mask=mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=1e-4, atol=1e-4)),
+    (torch.bfloat16, dict(rtol=2e-2, atol=3e-2)),
+])
+@pytest.mark.parametrize("case", sorted(LOCAL_EDGE_CASES))
+def test_cuda_local_edge_cases(card, case, dtype, tol):
+    """B1, B1p and B2 on LOCAL_EDGE_CASES, the banks the two halves of one
+    [B, P_loc, 2 H Dh] tensor (split_banks, rows 2 H Dh apart), against
+    their plain versions at test_cuda_b1p_and_b2_match_plain_versions'
+    tolerances (probabilities 1e-5); the same bits as on contiguous copies
+    of the halves; B2 the same bits on a second call, its bank gradients
+    written in full (the unreferenced rows exactly 0) into memory that
+    held NaN before (the caching allocator hands the freed NaN blocks to
+    the wrapper's torch.empty)."""
+    B, H, N, Dh, P_loc, layout = LOCAL_EDGE_CASES[case]
+    c = make_local_edge_case(B, H, N, Dh, P_loc, layout)
+    dev = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    q, k, v = (dev(c[n]).to(dtype) for n in "qkv")
+    ab, idx, mask = dev(c["ab"]).to(dtype), dev(c["idx"]), dev(c["mask"])
+    g = dev(c["g"]).to(dtype).float()
+    a_v, b_v = split_banks(ab, H)
+    a_c, b_c = a_v.contiguous(), b_v.contiguous()
+    args = (q, k, v, a_v, b_v, idx, mask)
+    out = local_relation_attention(*args)
+    out_p, probs = local_relation_attention_with_probs(*args)
+    ref_out, ref_probs = local_relation_attention_with_probs_reference(*args)
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+    torch.testing.assert_close(out_p.float(), ref_out.float(), **tol)
+    torch.testing.assert_close(probs, ref_probs, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out, local_relation_attention(q, k, v, a_c, b_c, idx,
+                                                     mask))
+    assert torch.equal(probs, local_relation_attention_with_probs(
+        q, k, v, a_c, b_c, idx, mask)[1])
+    order, start = slot_order(idx, P_loc)
+    plan = bank_runs(start, N)
+    if layout == "one_slot":
+        assert int(plan[:, 0, 0].min()) == N * N // RUN_CHUNK
+    calls = []
+    for banks in ((a_v, b_v), (a_v, b_v), (a_c, b_c)):
+        junk = [torch.full((B, P_loc, 2, H, Dh), float("nan"), dtype=dtype,
+                           device=card) for _ in range(2)]
+        del junk
+        calls.append(local_relation_attention_bwd(
+            q, k, v, g, probs, *banks, idx, order, start, runs=plan))
+    ref = local_relation_attention_bwd_reference(q, k, v, g, probs, a_v, b_v,
+                                                 idx)
+    torch.cuda.synchronize()
+    used = torch.zeros(B, P_loc, dtype=torch.bool, device=card)
+    used.scatter_(1, idx.long().flatten(1), True)
+    for name, x, again, contig, y in zip(
+            ("gq", "gk", "gv", "g_a_loc", "g_b_loc"), *calls, ref):
+        assert x.dtype == dtype and torch.isfinite(x.float()).all(), name
+        assert torch.equal(x, again) and torch.equal(x, contig), name
+        torch.testing.assert_close(x.float(), y.float(), **tol, msg=name)
+        if name.startswith("g_"):
+            assert not used.all()
+            assert torch.equal(x[~used], torch.zeros_like(x[~used])), name
 
 
 @pytest.mark.cuda

@@ -28,10 +28,12 @@ from gtos_tpu.ops.pallas.local_relation_attention import (
 )
 from gtos_tpu_torch.ops.attention import bank_relation_attention
 from gtos_tpu_torch.ops.local_relation_attention import (
-    _check_bwd_args, _check_cuda_args, local_relation_attention,
-    local_relation_attention_bwd, local_relation_attention_reference,
-    local_relation_attention_trainable, local_relation_attention_with_probs,
-    slot_order,
+    RUN_CHUNK, SHORT_RUN, _check_bwd_args, _check_cuda_args,
+    bank_row_stride, bank_runs, joined_bank_grads, local_relation_attention,
+    local_relation_attention_bwd, local_relation_attention_bwd_reference,
+    local_relation_attention_reference, local_relation_attention_trainable,
+    local_relation_attention_with_probs, max_run_chunks, slot_order,
+    split_banks,
 )
 from gtos_tpu_torch.ops.localize import build_localize_aux, localize_bank
 from test_local_kernel import build_case
@@ -127,8 +129,11 @@ def test_plain_b1p_and_b2_match_jax_trainable(B, H, N, Dh, P, P_loc):
     local_relation_attention_trainable under the Pallas interpreter, on
     tests/test_local_kernel.py's build_case: the output, B1p's f32
     probabilities against the JAX kernel's (its lane-padded columns cut
-    off), and the gradients of sum(out^2) to q, k, v and both GLOBAL banks
-    through the bank_map gather, at that test's 5e-4."""
+    off), the gradient of sum(out^2) to the per-graph bank projection ab
+    [B, P_loc, 2 H Dh] (the entry's input: the local banks side by side)
+    against the custom VJP's gradients to its a_loc and b_loc, and to q, k,
+    v and both GLOBAL banks through the bank_map gather, at that test's
+    5e-4."""
     (q, k, v, a_bank, b_bank, _, mask, bank_map, idx_loc,
      srt, bnd, srtT, bndT) = build_case(B, H, N, Dh, P, P_loc)
 
@@ -140,6 +145,10 @@ def test_plain_b1p_and_b2_match_jax_trainable(B, H, N, Dh, P, P_loc):
     (_, jout), jgrads = jax.jit(jax.value_and_grad(
         jax_loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(
             q, k, v, a_bank, b_bank)
+    jloc = jax.jit(jax.grad(lambda a, b: (jax_trainable(
+        q, k, v, a, b, idx_loc, mask, srt, bnd, srtT, bndT,
+        interpret=True) ** 2).sum(), argnums=(0, 1)))(
+            a_bank[bank_map], b_bank[bank_map])
     _, jprobs = jax_local_relation_attention(
         q, k, v, a_bank[bank_map], b_bank[bank_map], idx_loc, mask,
         interpret=True, with_probs=True)
@@ -148,12 +157,12 @@ def test_plain_b1p_and_b2_match_jax_trainable(B, H, N, Dh, P, P_loc):
               for x in (q, k, v, a_bank, b_bank)]
     bm, idx, nmask = (torch.from_numpy(np.array(x))
                       for x in (bank_map, idx_loc, mask))
-    a_loc = localize_bank(leaves[3].flatten(1), bm).reshape(B, P_loc, H, Dh)
-    b_loc = localize_bank(leaves[4].flatten(1), bm).reshape(B, P_loc, H, Dh)
+    ab = torch.cat([localize_bank(x.flatten(1), bm) for x in leaves[3:]], -1)
+    ab.retain_grad()
+    a_loc, b_loc = split_banks(ab, H)
     before = (local_relation_attention_with_probs.launches,
               local_relation_attention_bwd.launches)
-    out = local_relation_attention_trainable(*leaves[:3], a_loc, b_loc, idx,
-                                             nmask)
+    out = local_relation_attention_trainable(*leaves[:3], ab, idx, nmask)
     (out ** 2).sum().backward()
     _, probs = local_relation_attention_with_probs(
         *(x.detach() for x in (*leaves[:3], a_loc, b_loc)), idx, nmask)
@@ -166,6 +175,9 @@ def test_plain_b1p_and_b2_match_jax_trainable(B, H, N, Dh, P, P_loc):
     for name, leaf, ref in zip("qkvab", leaves, jgrads):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref),
                                    **tol, err_msg=name)
+    ref_ab = np.concatenate([np.asarray(x).reshape(B, P_loc, H * Dh)
+                             for x in jloc], -1)
+    np.testing.assert_allclose(ab.grad.numpy(), ref_ab, **tol)
 
 
 @pytest.mark.parametrize("sorted_aux", [False, True])
@@ -246,3 +258,122 @@ def test_backward_argument_checks_raise(which):
         order, start = slot_order(idx, 128)
     with pytest.raises((TypeError, ValueError)):
         _check_bwd_args(q, k, v, g, probs, a, b, idx, order, start)
+
+
+def _walk(order, runs, N):
+    """Every pair that B2's bank pass visits, per graph, as (slot, pair) in
+    its order: the chunks of bank_runs' list in list order, then its short
+    runs whole."""
+    seen = []
+    cmax = max_run_chunks(N)
+    for b in range(len(order)):
+        ids = order[b].tolist()
+        n_chunks, n_short = runs[b, 0, :2].tolist()
+        pairs = []
+        for first, count, r, _ in runs[b, 1:1 + n_chunks].tolist():
+            assert 0 < count <= RUN_CHUNK
+            pairs += [(r, p) for p in ids[first:first + count]]
+        for first, count, r, k in runs[b, 1 + cmax:1 + cmax + n_short].tolist():
+            assert 0 < count <= SHORT_RUN and k == 0
+            pairs += [(r, p) for p in ids[first:first + count]]
+        seen.append(pairs)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["random", "one_slot", "pad_slot", "tiny"])
+def test_bank_runs_cover_every_pair_once(case):
+    """B2's bank pass over slot_order's order and bank_runs' list visits
+    every pair of every graph exactly once, under the slot the pair maps
+    to: a run of more than SHORT_RUN pairs as chunks that stand one after
+    the other in chunk order, each starting RUN_CHUNK places after the one
+    before, the other non-empty runs whole, longest first; the counts in
+    entry 0, zeros past them. Cases: a random slot matrix (runs of every
+    length), all N*N pairs on one slot (a run of 16384 pairs at N=128), the
+    pad slot 0 holding the pairs of padded nodes, and N=1."""
+    rng = np.random.default_rng(3)
+    B, N, P_loc = {"random": (3, 32, 64), "one_slot": (2, 128, 4096),
+                   "pad_slot": (4, 48, 512), "tiny": (2, 1, 128)}[case]
+    if case == "random":
+        idx = rng.integers(0, 8, (B, N, N)) ** 2
+    elif case == "pad_slot":
+        idx = rng.integers(1, P_loc, (B, N, N))
+        for b in range(B):
+            n = int(rng.integers(5, N))
+            idx[b, n:] = 0
+            idx[b, :, n:] = 0
+    else:
+        idx = np.zeros((B, N, N), np.int64)
+    idx = torch.from_numpy(idx.astype(np.int32))
+    order, start = slot_order(idx, P_loc)
+    runs = bank_runs(start, N)
+    cmax = max_run_chunks(N)
+    assert runs.dtype == torch.int32
+    assert tuple(runs.shape) == (B, 1 + cmax + P_loc, 4)
+    for b, pairs in enumerate(_walk(order, runs, N)):
+        flat = idx[b].flatten().tolist()
+        assert sorted(p for _, p in pairs) == list(range(N * N))
+        assert all(flat[p] == r for r, p in pairs)
+        n_chunks, n_short = runs[b, 0, :2].tolist()
+        assert not runs[b, 0, 2:].any()
+        assert not runs[b, 1 + n_chunks:1 + cmax].any()
+        assert not runs[b, 1 + cmax + n_short:].any()
+        items = runs[b, 1:1 + n_chunks].tolist()
+        for (f0, _, r0, k0), (f1, _, r1, k1) in zip(items, items[1:]):
+            assert (r1 == r0 and k1 == k0 + 1 and f1 == f0 + RUN_CHUNK) or (
+                r1 > r0 and k1 == 0)
+        lengths = runs[b, 1 + cmax:1 + cmax + n_short, 1].tolist()
+        assert lengths == sorted(lengths, reverse=True)
+    if case == "one_slot":
+        assert runs[0, 0, :2].tolist() == [N * N // RUN_CHUNK, 0]
+
+
+def test_split_banks_are_views_the_kernels_take():
+    """The layer's bank projection ab [B, P_loc, 2 H Dh] splits into a_loc
+    and b_loc without a copy, rows 2 H Dh apart, which the kernels' checks
+    take (B1/B1p and B2); the halves of one [B, P_loc, 2, H, Dh] gradient
+    join back into ab's gradient as a view, two separate tensors by a copy;
+    a bank whose heads are not contiguous within a row is refused."""
+    q, k, v, a, b, idx, mask = port_local_args(make_case(*CASES[0]))
+    B, H, N, Dh = q.shape
+    P_loc = a.shape[1]
+    ab = torch.cat([a.flatten(2), b.flatten(2)], -1)
+    a_v, b_v = split_banks(ab, H)
+    assert a_v.data_ptr() == ab.data_ptr() and not a_v.is_contiguous()
+    assert torch.equal(a_v, a) and torch.equal(b_v, b)
+    assert bank_row_stride(a_v) == bank_row_stride(b_v) == 2 * H * Dh
+    assert bank_row_stride(a) == H * Dh
+    assert _check_cuda_args(q, k, v, a_v, b_v, idx, mask) == 2 * H * Dh
+    g = torch.zeros_like(q)
+    _, probs = local_relation_attention_with_probs(q, k, v, a, b, idx, mask)
+    order, start = slot_order(idx, P_loc)
+    assert _check_bwd_args(q, k, v, g, probs, a_v, b_v, idx, order, start,
+                           bank_runs(start, N)) == 2 * H * Dh
+    with pytest.raises(ValueError, match="one row stride"):
+        _check_cuda_args(q, k, v, a_v, b, idx, mask)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        _check_cuda_args(q, k, v, a.transpose(0, 1).contiguous().transpose(
+            0, 1), b, idx, mask)
+    grad = torch.randn(B, P_loc, 2, H, Dh)
+    joined = joined_bank_grads(grad[:, :, 0], grad[:, :, 1])
+    assert joined.data_ptr() == grad.data_ptr()
+    assert torch.equal(joined, grad.reshape(B, P_loc, 2 * H * Dh))
+    copied = joined_bank_grads(grad[:, :, 0].clone(), grad[:, :, 1].clone())
+    assert torch.equal(copied, joined)
+
+
+def test_plain_b2_on_strided_banks_matches_contiguous():
+    """The plain B1 and B2 (what CPU tensors run) give the same bits on the
+    halves of ab as on contiguous copies of them."""
+    q, k, v, a, b, idx, mask = port_local_args(make_case(*CASES[2]))
+    ab = torch.cat([a.flatten(2), b.flatten(2)], -1)
+    a_v, b_v = split_banks(ab, q.shape[1])
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(2))
+    out, probs = local_relation_attention_with_probs(q, k, v, a_v, b_v, idx,
+                                                     mask)
+    assert torch.equal(out, local_relation_attention(q, k, v, a, b, idx,
+                                                     mask))
+    for x, y in zip(local_relation_attention_bwd_reference(
+            q, k, v, g, probs, a_v, b_v, idx),
+            local_relation_attention_bwd_reference(q, k, v, g, probs, a, b,
+                                                   idx)):
+        assert torch.equal(x, y)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Times the block-sparse kernels B5, B5s, B6d, B6s and B6b (or, with
---kernels local, the localized B1, B1p and B2) of one checkout on one
-NVIDIA GPU.
+--kernels local, the localized B1, B1p and B2; with --kernels global, the
+global-bank B3, B3' and B4) of one checkout on one NVIDIA GPU.
 
     python3 chip_b6_variants.py [--checkout DIR] [--profile] [--variants]
     python3 chip_b6_variants.py --kernels local [--checkout DIR] [--profile]
+    python3 chip_b6_variants.py --kernels global [--checkout DIR] [--profile]
 
 From the repo root, on a machine with a card. DIR (default: this
 checkout) is any checkout of the repo, such as an earlier commit unpacked
@@ -42,6 +43,22 @@ time per kernel on each train input (torch.profiler). --profile: this
 script's checkout's `phase_profile_train` (the shares of B1p, B2 and of
 any copy of the bank halves a/b) over one more train step of the other
 checkout on each captured batch.
+
+With --kernels global the same for the c2 model under "pallas": chip_smoke's
+"pallas" serving and training phases, layer 0's B3/B3' inputs of each
+served batch and B3/B3'/B4 inputs of CAPTURE_BATCHES train batches of each
+bank (`capture_global_inputs`), each kernel checked and timed on them
+(`phase_global_shapes`) and on `phase_kernels`' N=32 and N=128 probes
+(P=2048 and 4096) in f32 and bf16; one JSON line of the means; then B4's
+time per kernel on each train input (torch.profiler) beside the time of
+writing its two dense tables alone (two torch zero_, `time_ms`), and B4's
+`time_ms` at several spins (SPIN_STUDY). --profile: this script's checkout's
+`phase_profile_train` (B3's, B3''s and B4's shares) over one more train
+step of the other checkout on each captured batch (the first
+CAPTURE_BATCHES take B3, the last B3').
+
+Every mode sets the checkout's chip_smoke.SPIN_CYCLES to this script's
+checkout's, so that two checkouts are timed with the same spin.
 """
 
 import argparse
@@ -52,6 +69,7 @@ from pathlib import Path
 
 KERNELS = ("B5", "B5s", "B6d", "B6s", "B6b")
 HERE = Path(__file__).resolve().parent
+SPIN_STUDY = (200_000, 1_000_000, 4_000_000)   # time_ms spins, cycles
 
 
 def main():
@@ -59,7 +77,8 @@ def main():
     ap.add_argument("--checkout", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--variants", action="store_true")
-    ap.add_argument("--kernels", choices=("block", "local"), default="block")
+    ap.add_argument("--kernels", choices=("block", "local", "global"),
+                    default="block")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.checkout).resolve()))
 
@@ -72,10 +91,15 @@ def main():
         cs.fail("torch.cuda.is_available() is false: this script needs a "
                 "card")
     checkout = str(Path(cs.__file__).resolve().parent)
+    cs.SPIN_CYCLES = this_chip_smoke().SPIN_CYCLES
     print(cs.card_line(), flush=True)
-    print(f"[b6] checkout {checkout}", flush=True)
+    print(f"[b6] checkout {checkout}; time_ms spin {cs.SPIN_CYCLES} cycles",
+          flush=True)
     if args.kernels == "local":
         main_local(cs, checkout, args)
+        return
+    if args.kernels == "global":
+        main_global(cs, checkout, args)
         return
     cfg, _ = cs.c5_configs()
     model = Generator(cfg, device="cuda",
@@ -262,10 +286,81 @@ def main_local(cs, checkout, args):
               f"flushed: {json.dumps(kernels)}", flush=True)
 
 
-def kernel_breakdown(fn, reps=10):
-    """Mean device ms per call of each localized kernel `fn` launches
-    (name from "local_"), from torch.profiler over `reps` calls after one
-    warm-up, the L2 flushed before each call as time_ms flushes it."""
+def main_global(cs, checkout, args):
+    """--kernels global: B3/B3' on the c2 "pallas" serving inputs, B3/B3'
+    and B4 on its train inputs, and all three on the N=32 and N=128
+    probes; then, after every timing (time_ms runs with no profiler), the
+    train step profiles, B4's kernels one by one on the train inputs and
+    B4's time_ms on one train input at each spin of SPIN_STUDY."""
+    import torch
+
+    from gtos_tpu_torch.ops import relation_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, model, _, batches, _, serve_launches = cs.phase_serve("pallas")
+    serve_inputs = cs.capture_global_inputs(model, batches, train=False)
+    del model
+    trainer, ms_step, train_launches, train_batches = cs.phase_train(
+        "pallas")
+    captured = (train_batches[:cs.CAPTURE_BATCHES]
+                + train_batches[-cs.CAPTURE_BATCHES:])
+    train_inputs = cs.capture_global_inputs(trainer.model, captured,
+                                            train=True)
+    rows = cs.phase_global_shapes(serve_inputs, serve_launches, train_inputs,
+                                  train_launches)
+    main_ms = {row["name"]: row["ms"] for row in rows}
+    cases_ms = {}
+    for name, spec in (("N32_P2048", (16, 0, 10, 14, 32, 2048)),
+                       ("N32_P4096", (16, 0, 16, 20, 32, 4096)),
+                       ("N128_P2048", (8, 1, 12, 18, 128, 2048)),
+                       ("N128_P4096", (8, 1, 20, 30, 128, 4096))):
+        batch = cs.global_batch(*spec)
+        for dtype in (torch.float32, torch.bfloat16):
+            fwd = cs.global_inputs(batch, 8, 64, dtype)
+            targs = cs.table_args(fwd)
+            cases_ms[f"{name} {cs._dtype_name(fwd[0])}"] = {
+                "B3": cs.check_b3(name, targs)["ms"],
+                "B3'": cs.check_b3i(name, fwd)["ms"],
+                "B4": cs.check_b4(name, cs.b4_args(targs))["ms"]}
+        torch.cuda.empty_cache()
+    print(json.dumps({"checkout": checkout, "main_path_mean_ms": main_ms,
+                      "cases_ms": cases_ms}), flush=True)
+    if args.profile:
+        here = this_chip_smoke()
+        for i, batch in enumerate(captured):
+            here.phase_profile_train(
+                trainer, ms_step, impl="pallas", batch=batch,
+                label=f"c2 pallas train step {i + 1}")
+    bwd = [b for _, _, b in train_inputs if b is not None]
+    for i, args_b4 in enumerate(bwd):
+        kernels = kernel_breakdown(
+            lambda: ra.fused_relation_attention_bwd(*args_b4), key="rel_")
+        q, t2 = args_b4[0], args_b4[4]
+        tables = [torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                              t2.shape[-1], dtype=t2.dtype, device="cuda")
+                  for _ in range(2)]
+        write_ms = cs.time_ms(lambda: [t.zero_() for t in tables])
+        print(f"[b4] train{i}: B4's kernels, mean device ms of 10 calls, L2 "
+              f"flushed: {json.dumps(kernels)} (sum "
+              f"{sum(kernels.values()):.6f}); writing its two dense tables "
+              f"alone (two zero_, time_ms) {write_ms:.6f} ms", flush=True)
+        del tables
+    spin = cs.SPIN_CYCLES
+    try:
+        for cycles in SPIN_STUDY:
+            cs.SPIN_CYCLES = cycles
+            ms = cs.time_ms(lambda: ra.fused_relation_attention_bwd(*bwd[0]))
+            print(f"[b4] train0: time_ms with a {cycles}-cycle spin "
+                  f"{ms:.6f} ms", flush=True)
+    finally:
+        cs.SPIN_CYCLES = spin
+
+
+def kernel_breakdown(fn, reps=10, key="local_"):
+    """Mean device ms per call of each kernel `fn` launches whose name
+    holds `key` (named from there), from torch.profiler over `reps` calls
+    after one warm-up, the L2 flushed before each call as time_ms flushes
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -278,10 +373,10 @@ def kernel_breakdown(fn, reps=10):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    return {e.key[e.key.index("local_"):].split("(")[0]:
+    return {e.key[e.key.index(key):].split("(")[0]:
             e.self_device_time_total / 1e3 / reps
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "local_" in e.key}
+            if e.device_type == DeviceType.CUDA and key in e.key}
 
 
 if __name__ == "__main__":

@@ -21,9 +21,12 @@ Phases, each of which exits non-zero on failure:
                attention at N=32 and N=128, the banks the two halves of one
                [B, P_loc, 2 H Dh] projection as the encoder layer hands
                them;
-               B3 (global-bank forward from tables), B3' (from the banks)
-               and B4 (its backward) at N=32 (B=16) and N=128 (B=8), P=2048
-               and 4096, with B3 and B3' timed on the same inputs; B5
+               B3 (global-bank forward from tables), B3' (from the banks,
+               the halves of one [P, 2 H Dh] projection) and B4 (its
+               backward) at N=32 (B=16) and N=128 (B=8), P=2048 and 4096,
+               each output also within KERNEL_TOL's rtol of its largest
+               value (B4: the same bits twice), with B3 and B3' timed on
+               the same inputs, then their edge cases GLOBAL_EDGES; B5
                (block-sparse forward), B5s (with the softmax statistics),
                B6d, B6s and B6b (its backward: dst pass, src pass, bank
                gradients) at c5 widths on batchify tile layouts of N=256
@@ -90,14 +93,16 @@ Phases, each of which exits non-zero on failure:
   13. shapes — each kernel again, on the very inputs the serving runs (B1;
                B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
                B5s, B6d, B6s, B6b) gave it, against its plain version and
-               timed: the table rows;
+               timed: the table rows (a planted B2 with g_a zeroed and a
+               planted B4 with g_t3 zeroed must fail the gate there);
   14. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c5 train step on each captured
                batch ("block_sparse"), the device busy time, idle share,
                top kernels and each block-sparse kernel's share; for
                "pallas_local" also the shares of B1p, B2 and of any copy
-               of the bank halves a/b (and of their slice backward).
+               of the bank halves a/b (and of their slice backward), for
+               "pallas" those of B3, B3' and B4.
 The last three lines are the kernel table (JSON), the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -130,7 +135,10 @@ WORK_SYNTHETIC, WORK_STEPS, WORK_GRAPHS = 256, 6, 48
 OVERFIT_STEPS, OVERFIT_RATIO = 100, 0.5  # last loss < 0.5 x the first
 RESUME_AT, RESUME_MORE = 4, 4
 CAPTURE_BATCHES = 3                      # train batches behind the B1p/B2 rows
-SPIN_CYCLES = 200_000                # ~0.1 ms at the H100's 1.98 GHz
+# the card's spin before each timed call (`time_ms`): ~0.5 ms at the
+# H100's 1.98 GHz, longer than the host takes to issue a wrapper's
+# launches (B2's three, B4's two), so host time stays out of the number
+SPIN_CYCLES = 1_000_000
 # stated tolerances (reasons in PERF.md): kernel vs plain version on the
 # same inputs; whole encoder on the card vs f32 on the CPU, each set
 # between the sound kernel's gap and that of the planted wrong kernels
@@ -437,19 +445,21 @@ def b2_args(args, seed=1):
 B2_NAMES = ("gq", "gk", "gv", "g_a_loc", "g_b_loc")
 
 
-def b2_disagreement(grads, refs, dtype_name):
-    """Why B2's gradients disagree with the reference ones, or None: each
-    within KERNEL_TOL and, as a training step's gradients can lie far below
-    its atol, each within its rtol of the reference's own largest value."""
+def disagreement(names, got, refs, dtype_name, largest=None):
+    """Why a kernel's outputs `got` disagree with the reference ones, or
+    None: each within KERNEL_TOL and, as a training step's gradients can
+    lie far below its atol, each within its rtol of the reference's own
+    largest value (`rel_to_largest`, with `largest`)."""
     import torch
 
-    for name, x, ref in zip(B2_NAMES, grads, refs):
+    for n, (name, x, ref) in enumerate(zip(names, got, refs)):
         try:
             torch.testing.assert_close(x.float(), ref.float(),
                                        **KERNEL_TOL[dtype_name])
         except AssertionError as e:
-            return f"{name} disagrees with autograd of the plain forward: {e}"
-        rel = rel_to_largest((x,), (ref,))
+            return f"{name} disagrees with its reference: {e}"
+        rel = rel_to_largest((x,), (ref,),
+                             None if largest is None else (largest[n],))
         if rel > KERNEL_TOL[dtype_name]["rtol"]:
             return (f"{name}'s error is {rel:.3e} of its largest value, "
                     f"above {KERNEL_TOL[dtype_name]['rtol']}")
@@ -459,7 +469,7 @@ def b2_disagreement(grads, refs, dtype_name):
 def check_b2(label, bargs, mask, plant=False):
     """B2's wrapper against autograd of B1's plain version on the same
     inputs, taken in f32 (the cotangent g into its output): gq, gk, gv,
-    g_a_loc, g_b_loc (`b2_disagreement`), and the same bits from a second
+    g_a_loc, g_b_loc (`disagreement`), and the same bits from a second
     call (no atomics); then B2 and its plain version timed; returns its
     numbers. In f32 because autograd of the bf16 forward would sum each bank
     slot's pairs in bf16, where B2 sums in f32 and rounds once. With plant,
@@ -492,13 +502,13 @@ def check_b2(label, bargs, mask, plant=False):
             fail(f"B2 {label} {dtype_name}: {name} differs between two "
                  "calls on the same inputs")
         err = max(err, (x.float() - ref.float()).abs().max().item())
-    why = b2_disagreement(grads, refs, dtype_name)
+    why = disagreement(B2_NAMES, grads, refs, dtype_name)
     if why is not None:
         fail(f"B2 {label} {dtype_name}: {why}")
     rel = rel_to_largest(grads, refs)
     if plant:
         zeroed = (*grads[:3], torch.zeros_like(grads[3]), grads[4])
-        why = b2_disagreement(zeroed, refs, dtype_name)
+        why = disagreement(B2_NAMES, zeroed, refs, dtype_name)
         if why is None:
             fail(f"B2 {label} {dtype_name}: the gate passes a planted B2 "
                  "whose g_a_loc is all zero")
@@ -544,8 +554,12 @@ def global_batch(n_graphs, seed, min_nodes, max_nodes, N, P):
 def global_inputs(batch, H, Dh, dtype, seed=0):
     """Seeded q, k, v [B, H, N, Dh] and banks [P, H, Dh] on the card in
     `dtype`, with the batch's rel_index and node mask: the arguments of
-    B3' (and of build_tables)."""
+    B3' (and of build_tables). The banks are the two halves of one [P,
+    2 H Dh] tensor, as the encoder layer hands them (split_banks: views,
+    rows 2 H Dh apart)."""
     import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import split_banks
 
     B, N = batch.concept_mask.shape
     P = batch.rel_bank.shape[0]
@@ -553,8 +567,8 @@ def global_inputs(batch, H, Dh, dtype, seed=0):
     rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     dev = lambda x: x.to(device="cuda", dtype=dtype).contiguous()  # noqa
     return (dev(rnd(B, H, N, Dh)), dev(rnd(B, H, N, Dh)),
-            dev(rnd(B, H, N, Dh)), dev(rnd(P, H, Dh) * 0.5),
-            dev(rnd(P, H, Dh) * 0.5),
+            dev(rnd(B, H, N, Dh)),
+            *split_banks(dev(rnd(P, 2 * H * Dh) * 0.5), H),
             torch.from_numpy(batch.rel_index).cuda(),
             torch.from_numpy(batch.concept_mask).cuda())
 
@@ -640,19 +654,50 @@ def _compare(kernel, label, dtype_name, pairs):
     return err
 
 
-def rel_to_largest(got, ref):
+def rel_to_largest(got, ref, largest=None):
     """The largest error of the outputs `got` against the plain ones `ref`,
-    each relative to the plain output's own largest magnitude: the check
-    that holds a small output (a training step's gradients lie far below
-    KERNEL_TOL's atol) to KERNEL_TOL's rtol."""
-    return max(((x.float() - y.float()).abs().max()
-                / y.float().abs().max().clamp_min(1e-30)).item()
-               for x, y in zip(got, ref))
+    each relative to the plain output's own largest magnitude (or to
+    largest[n], where that is given and not None): the check that holds a
+    small output (a training step's gradients lie far below KERNEL_TOL's
+    atol) to KERNEL_TOL's rtol."""
+    rels = []
+    for n, (x, y) in enumerate(zip(got, ref)):
+        top = None if largest is None else largest[n]
+        if top is None:
+            top = y.float().abs().max().item()
+        rels.append((x.float() - y.float()).abs().max().item()
+                    / max(top, 1e-30))
+    return max(rels)
+
+
+def b4_largest(refs):
+    """`rel_to_largest`'s scale for B4's outputs (gq, gk, gv, g_t2, g_t3):
+    gq, gk and gv their own largest values; g_t2 and g_t3 the larger of
+    their two. Each row of ge sums to 0, so a table row whose pairs all
+    share one bank row holds rounding noise only (every g_t2 row at P=1),
+    and its own largest value is no scale for its error."""
+    top = max(refs[3].float().abs().max().item(),
+              refs[4].float().abs().max().item())
+    return (None, None, None, top, top)
+
+
+def _hold(kernel, label, dtype_name, pairs, largest=None):
+    """`_compare`, then each output within KERNEL_TOL's rtol of its plain
+    version's own largest value (`rel_to_largest`, with `largest`); returns
+    the largest absolute error and that relative one."""
+    err = _compare(kernel, label, dtype_name, pairs)
+    rel = rel_to_largest([x for _, x, _ in pairs], [y for _, _, y in pairs],
+                         largest)
+    if rel > KERNEL_TOL[dtype_name]["rtol"]:
+        fail(f"{kernel} {label} {dtype_name}: error {rel:.3e} of the largest "
+             f"value, above {KERNEL_TOL[dtype_name]['rtol']}")
+    return err, rel
 
 
 def check_b3(label, targs):
-    """B3's wrapper against its plain version on the same tables, then
-    both timed; prints one line and returns its numbers."""
+    """B3's wrapper against its plain version on the same tables (within
+    KERNEL_TOL and its rtol of the largest value), then both timed; prints
+    one line and returns its numbers."""
     import torch
 
     from gtos_tpu_torch.ops.relation_attention import (
@@ -664,13 +709,14 @@ def check_b3(label, targs):
     out = fra(*targs)
     ref = fused_relation_attention_reference(*targs)
     torch.cuda.synchronize()
-    err = _compare("B3", label, dtype_name, [("out", out, ref)])
+    err, rel = _hold("B3", label, dtype_name, [("out", out, ref)])
     bound_ms, bound_by = global_attention_bound(
         idx.cpu().numpy(), H, Dh, P, dtype_name, "tables")
     ms = time_ms(lambda: fra(*targs))
     plain_ms = time_ms(lambda: fused_relation_attention_reference(*targs))
     print(f"[kernel] B3 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
-          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]})"
+          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
+          f" {rel:.3e} of the largest value)"
           f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
           f"plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -678,8 +724,9 @@ def check_b3(label, targs):
 
 
 def check_b3i(label, args):
-    """B3''s wrapper against its plain version on the same banks, then
-    both timed; prints one line and returns its numbers."""
+    """B3''s wrapper against its plain version on the same banks (within
+    KERNEL_TOL and its rtol of the largest value), then both timed; prints
+    one line and returns its numbers."""
     import torch
 
     from gtos_tpu_torch.ops.relation_attention import (
@@ -692,23 +739,30 @@ def check_b3i(label, args):
     out = frai(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
-    err = _compare("B3'", label, dtype_name, [("out", out, ref)])
+    err, rel = _hold("B3'", label, dtype_name, [("out", out, ref)])
     bound_ms, bound_by = global_attention_bound(
         idx.cpu().numpy(), H, Dh, P, dtype_name, "inline")
     ms = time_ms(lambda: frai(*args))
     plain_ms = time_ms(lambda: plain(*args))
     print(f"[kernel] B3' {label} B={B} H={H} N={N} Dh={Dh} P={P} "
-          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]})"
+          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
+          f" {rel:.3e} of the largest value)"
           f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
           f"plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_b4(label, bargs):
+B4_NAMES = ("gq", "gk", "gv", "g_t2", "g_t3")
+
+
+def check_b4(label, bargs, plant=False):
     """B4's wrapper against its plain version on the same tables and
-    cotangent (gq, gk, gv, g_t2, g_t3), the same bits from a second launch
-    (no atomics), then both timed; returns its numbers."""
+    cotangent (gq, gk, gv, g_t2, g_t3; within KERNEL_TOL and its rtol of
+    each output's largest value, `b4_largest`), the same bits from a
+    second call (no atomics), then both timed; returns its numbers. With
+    plant, the kernel's outputs with g_t3 zeroed must fail the same
+    check."""
     import torch
 
     from gtos_tpu_torch.ops.relation_attention import (
@@ -722,22 +776,37 @@ def check_b4(label, bargs):
     grads, again = frab(*bargs), frab(*bargs)
     refs = plain(*bargs[:8])
     torch.cuda.synchronize()
-    names = ("gq", "gk", "gv", "g_t2", "g_t3")
-    for name, x, ref, y in zip(names, grads, refs, again):
+    for name, x, ref, y in zip(B4_NAMES, grads, refs, again):
         if x.dtype != ref.dtype or x.shape != ref.shape:
             fail(f"B4 {label} {dtype_name}: {name} is {x.dtype} "
                  f"{tuple(x.shape)}, the plain version's {ref.dtype} "
                  f"{tuple(ref.shape)}")
         if not torch.equal(x, y):
             fail(f"B4 {label} {dtype_name}: {name} differs between two "
-                 "launches on the same inputs")
-    err = _compare("B4", label, dtype_name, list(zip(names, grads, refs)))
+                 "calls on the same inputs")
+    err, rel = _hold("B4", label, dtype_name,
+                     list(zip(B4_NAMES, grads, refs)), b4_largest(refs))
+    if plant:
+        zeroed = (*grads[:4], torch.zeros_like(grads[4]))
+        why = disagreement(B4_NAMES, zeroed, refs, dtype_name,
+                           b4_largest(refs))
+        if why is None:
+            fail(f"B4 {label} {dtype_name}: the gate passes a planted B4 "
+                 "whose g_t3 is all zero")
+        atol_alone = all(torch.allclose(x.float(), y.float(),
+                                        **KERNEL_TOL[dtype_name])
+                         for x, y in zip(zeroed, refs))
+        print(f"[kernel] B4 {label} {dtype_name}: a planted zero g_t3 fails "
+              f"({why.splitlines()[0]}; g_t3's largest value "
+              f"{refs[4].float().abs().max().item():.3e}; KERNEL_TOL alone "
+              f"would {'pass' if atol_alone else 'fail'} it)", flush=True)
     bound_ms, bound_by = global_attention_bound(
         idx.cpu().numpy(), H, Dh, P, dtype_name, "bwd")
     ms = time_ms(lambda: frab(*bargs))
     plain_ms = time_ms(lambda: plain(*bargs[:8]))
     print(f"[kernel] B4 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
-          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]})"
+          f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
+          f" {rel:.3e} of the largest value)"
           f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
           f"plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -798,6 +867,116 @@ def phase_kernels():
           "global-bank relation attention or its backward (the score "
           "gathers a table entry per pair), so there is no library "
           "yardstick")
+
+
+# the global-bank kernels' edge cases (B, H, N, Dh, P, layout), as
+# tests/test_torch_cuda.py's GLOBAL_EDGE_CASES: "one_run" puts every pair
+# of graph 0 on one bank row (each row and each column one run of N);
+# "padded" pads each graph to N (pairs of padded nodes on row 0) and pads
+# the last graph whole; "random" draws each pair's row. P=1, P=1001 (not a
+# multiple of 8: table-gradient rows stored a value at a time) and
+# P=65536, the largest bank of the ladders, where B4 stages each row of
+# its dense table gradients in many tiles (f32: 64)
+GLOBAL_EDGES = {"one_run": (2, 8, 32, 64, 512, "one_run"),
+                "padded": (4, 8, 32, 64, 1024, "padded"),
+                "N1": (2, 8, 1, 64, 16, "random"),
+                "P1": (2, 8, 16, 64, 1, "random"),
+                "P1001": (2, 8, 32, 64, 1001, "random"),
+                "Dh32": (2, 8, 32, 32, 512, "random"),
+                "Dh128": (2, 8, 32, 128, 512, "random"),
+                "H12": (2, 12, 17, 64, 300, "random"),
+                "P65536": (1, 8, 16, 64, 65536, "random")}
+
+
+def global_edge_inputs(B, H, N, Dh, P, layout, dtype, seed=0):
+    """Seeded arguments of B3' for a GLOBAL_EDGES case on the card (the
+    banks the halves of one [P, 2 H Dh] tensor) and a cotangent g."""
+    import torch
+
+    from gtos_tpu_torch.ops.local_relation_attention import split_banks
+
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    q, k, v, g = (rnd(B, H, N, Dh) for _ in range(4))
+    ab = rnd(P, 2 * H * Dh) * 0.5
+    idx = torch.randint(0, P, (B, N, N), generator=gen)
+    mask = torch.ones(B, N, dtype=torch.bool)
+    if layout == "one_run":
+        idx[0] = P // 2
+    elif layout == "padded":
+        for b in range(B):
+            n = 0 if b == B - 1 else int(torch.randint(
+                N // 2, N, (1,), generator=gen))
+            mask[b, n:] = False
+            idx[b, n:], idx[b, :, n:] = 0, 0
+    dev = lambda x: x.to(device="cuda", dtype=dtype)  # noqa: E731
+    return ((dev(q), dev(k), dev(v), *split_banks(dev(ab), H),
+             idx.int().cuda(), mask.cuda()), dev(g))
+
+
+def phase_global_edges():
+    """B3, B3' and B4 on GLOBAL_EDGES in f32 and bf16 against their plain
+    versions (`_hold`: KERNEL_TOL and its rtol of each output's largest
+    value): B3' on the bank halves the same bits as on contiguous copies;
+    B4 the same bits twice, its dense table gradients written in full
+    (entries no pair refers to exactly 0) into memory that held NaN (the
+    caching allocator hands the freed blocks to the wrapper's
+    torch.empty)."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        build_tables, fused_relation_attention as fra,
+        fused_relation_attention_bwd as frab,
+        fused_relation_attention_bwd_reference as frab_plain,
+        fused_relation_attention_inline as frai,
+        fused_relation_attention_inline_reference as frai_plain,
+        fused_relation_attention_reference as fra_plain, walk_orders)
+
+    for case, (B, H, N, Dh, P, layout) in GLOBAL_EDGES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args, g = global_edge_inputs(B, H, N, Dh, P, layout, dtype)
+            q, k, v, a, b, idx, mask = args
+            name = _dtype_name(q)
+            out = frai(*args)
+            if not torch.equal(out, frai(q, k, v, a.contiguous(),
+                                         b.contiguous(), idx, mask)):
+                fail(f"B3' {case} {name}: the bank halves and contiguous "
+                     "copies of them give different bits")
+            t2, t3 = build_tables(q, k, a, b)
+            targs = (q, k, v, t2, t3, idx, mask)
+            rows, cols = walk_orders(idx)
+            junk = [torch.full((B, N, H, P), float("nan"), dtype=dtype,
+                               device="cuda") for _ in range(2)]
+            del junk
+            grads = frab(q, k, v, g, *targs[3:], rows, cols)
+            again = frab(q, k, v, g, *targs[3:], rows, cols)
+            refs = frab_plain(q, k, v, g, *targs[3:])
+            torch.cuda.synchronize()
+            errs = [_hold("B3'", case, name,
+                          [("out", out, frai_plain(*args))]),
+                    _hold("B3", case, name,
+                          [("out", fra(*targs), fra_plain(*targs))]),
+                    _hold("B4", case, name, list(zip(B4_NAMES, grads, refs)),
+                          b4_largest(refs))]
+            for label, x, y in zip(B4_NAMES, grads, again):
+                if not torch.equal(x, y):
+                    fail(f"B4 {case} {name}: {label} differs between two "
+                         "calls on the same inputs")
+            il = idx.long()
+            used2 = torch.zeros(B, N, P, dtype=torch.bool, device="cuda")
+            used2.scatter_(2, il, True)
+            used3 = torch.zeros(B, N, P, dtype=torch.bool, device="cuda")
+            used3.scatter_(2, il.transpose(1, 2), True)
+            for label, x, used in (("g_t2", grads[3], used2),
+                                   ("g_t3", grads[4], used3)):
+                if torch.count_nonzero(x.permute(0, 1, 3, 2)[~used]):
+                    fail(f"B4 {case} {name}: {label} is not 0 at entries "
+                         "no pair refers to")
+            print(f"[edge] {case} B={B} H={H} N={N} Dh={Dh} P={P} {name}: "
+                  "B3' / B3 / B4 max_abs_err "
+                  + " / ".join(f"{e:.3e} ({r:.3e} of the largest value)"
+                               for e, r in errs), flush=True)
+        torch.cuda.empty_cache()
 
 
 KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
@@ -921,8 +1100,8 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
     """B3, B3' and B4 on the inputs the "pallas" paths gave them, held
     against their plain versions and timed: layer 0's forward of each
     served batch and each captured train batch (B3 or B3' as the batch's
-    bank decided), layer 0's backward of each captured train batch (B4),
-    bf16. The launches are those of the "pallas" serving run and training
+    bank decided), layer 0's backward of each captured train batch (B4,
+    where a planted zero g_t3 must fail the gate), bf16. The launches are those of the "pallas" serving run and training
     run together (B3, B3') and of the training run (B4)."""
     rows = {B3: [], B3I: [], B4: []}
     for tag, captured in (("serve", serve_inputs), ("train", train_inputs)):
@@ -933,7 +1112,7 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
             else:
                 rows[B3I].append(check_b3i(label, args))
             if bwd is not None:
-                rows[B4].append(check_b4(label, bwd))
+                rows[B4].append(check_b4(label, bwd, plant=True))
     for name, found in rows.items():
         if not found:
             fail(f"the pallas paths gave {name} no inputs to check")
@@ -1980,8 +2159,8 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
     more step on `batch` (default: a train batch of the `impl` loader), its
     device busy time, the idle share against the unprofiled mean step time
     of the train phase, the busiest kernels, the share of device time of
-    each hand-written block-sparse kernel that ran, and under
-    "pallas_local" `local_shares`."""
+    each hand-written block-sparse kernel that ran, under "pallas_local"
+    `local_shares` and under "pallas" `global_shares`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2009,6 +2188,8 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
     label = label or f"{impl} train step"
     if impl == "pallas_local":
         local_shares(prof, dev, busy_ms, arrays, trainer.model.cfg.d_model)
+    if impl == "pallas":
+        global_shares(dev, busy_ms)
     print(f"[profile] {label} (B={batch.concept_mask.shape[0]} "
           f"N={batch.concept_mask.shape[1]} T={batch.token_in.shape[1]}): "
           f"device busy {busy_ms:.3f} ms; idle share {1 - busy_ms / wall:.4f}"
@@ -2024,6 +2205,28 @@ def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
                   f"{e.self_device_time_total / 1e3:.3f} ms "
                   f"({e.self_device_time_total / 1e3 / busy_ms:.4f} of "
                   f"device busy) {e.count}x {e.key[:110]}")
+
+
+# the global-bank kernels' names in a profile: this tree's (rel_attn_fwd_
+# tables, rel_attn_fwd_inline, rel_bwd_rows/_cols) and those of the
+# earlier sources (one forward template, B3 its <T, false> and B3' its
+# <T, true> instance; rel_attn_bwd_kernel), so that one profile reads a
+# checkout of either
+GLOBAL_PROFILE_KEYS = {
+    "B3": (("rel_attn_fwd_tables",), ("rel_attn_fwd_kernel", "false>")),
+    "B3'": (("rel_attn_fwd_inline",), ("rel_attn_fwd_kernel", "true>")),
+    "B4": (("rel_bwd_",), ("rel_attn_bwd_kernel",))}
+
+
+def global_shares(dev, busy_ms):
+    """Prints, for a profiled "pallas" train step, the device time, share
+    of device busy and launches of B3, B3' and B4 (their kernels)."""
+    for name, patterns in GLOBAL_PROFILE_KEYS.items():
+        found = [e for e in dev
+                 if any(all(p in e.key for p in pat) for pat in patterns)]
+        ms = sum(e.self_device_time_total for e in found) / 1e3
+        print(f"[profile]   {name}: {ms:.3f} ms ({ms / busy_ms:.4f} of device "
+              f"busy), {sum(e.count for e in found)} launches", flush=True)
 
 
 def local_shares(prof, dev, busy_ms, arrays, D):
@@ -3013,6 +3216,7 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     phase_kernels()
+    phase_global_edges()
     phase_block_kernels()
     torch.cuda.empty_cache()   # free the plain versions' GBs before serving
     # "pallas_local": serving, encoder check, training, grads, resume

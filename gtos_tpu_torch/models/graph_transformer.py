@@ -144,8 +144,10 @@ class RelationMultiheadAttention(nn.Module):
                 out = local_relation_attention(
                     *qkv, a, b, edges["rel_index_loc"], node_mask)
         elif impl == "pallas":
-            args = (q.contiguous(), k.contiguous(), v.contiguous(),
-                    a.contiguous(), b.contiguous(), rel_index, node_mask)
+            # the bank halves as views: B3' reads their strided rows, and
+            # build_tables and B4's contractions take them as they are
+            args = (q.contiguous(), k.contiguous(), v.contiguous(), a, b,
+                    rel_index, node_mask)
             if grad:
                 out = relation_attention_trainable(
                     *args, edges.get("row_order"), edges.get("col_order"))

@@ -1,9 +1,11 @@
 // What the block-sparse kernels (block_sparse_attention_fwd.cu and
-// block_sparse_attention_bwd.cu) and the localized ones
-// (local_relation_attention_fwd.cu and local_relation_attention_bwd.cu)
-// share: element conversions, the 8-value row chunks a lane reads 16 bytes
-// (bf16) or 32 bytes (f32) at a time, and the walk of an own node's tile
-// planes that a block does once for all its head warps. ops/build.py
+// block_sparse_attention_bwd.cu), the localized ones
+// (local_relation_attention_fwd.cu and local_relation_attention_bwd.cu) and
+// the global-bank ones (relation_attention_fwd.cu and
+// relation_attention_bwd.cu) share: element conversions, sums across lanes,
+// the 8-value row chunks a lane reads 16 bytes (bf16) or 32 bytes (f32) at
+// a time, and the walk of an own node's tile planes that a block does once
+// for all its head warps. ops/build.py
 // hashes this header with each source.
 
 #pragma once
@@ -33,6 +35,39 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
+}
+
+// Sums and maxima across lanes, the same in every lane they cover: a
+// warp's 32; a pair's group of kPairLanes; and, lane for lane, the warp's
+// 32 / kPairLanes groups, added in a fixed butterfly (the gather kernels'
+// 8 lanes a pair, 4 pairs a warp a round).
+constexpr int kPairLanes = 8;
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < kPairLanes; o <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float groups_sum(float x) {
+#pragma unroll
+  for (int o = kPairLanes; o < 32; o <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // 8 values of a row as read (16 bytes of bf16, 32 bytes of f32)

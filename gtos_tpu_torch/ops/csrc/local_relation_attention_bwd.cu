@@ -74,32 +74,12 @@ using namespace blk;
 
 constexpr int kMaxN = 128;       // node bucket limit (as the TPU kernel)
 constexpr int kHeads = 8;        // head warps a block
-constexpr int kGl = 8;           // lanes a pair
+constexpr int kGl = kPairLanes;  // lanes a pair
 constexpr int kGroups = 32 / kGl;
 constexpr int kShortRun = 8;     // runs a lane group takes whole, a lane a pair
 constexpr int kChunk = 32;       // a longer run's pairs a chunk block
 constexpr int kZeroRows = 32;    // empty slots' rows a block writes
 static_assert(kShortRun <= kGl, "a short run's pairs are a lane each");
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// the sum over a group's 8 lanes, in every lane of the group
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < kGl; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// the sum over the warp's 4 groups, in a fixed butterfly
-__device__ __forceinline__ float groups_sum(float x) {
-#pragma unroll
-  for (int o = kGl; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T> struct BwdArgs {
   const T* q; const T* k; const T* v; const float* g; const float* probs;

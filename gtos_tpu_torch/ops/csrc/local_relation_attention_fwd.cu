@@ -55,28 +55,8 @@ using namespace blk;
 
 constexpr int kMaxN = 128;      // node bucket limit (as the TPU kernel)
 constexpr int kHeads = 8;       // head warps a block
-constexpr int kGl = 8;          // lanes a pair
+constexpr int kGl = kPairLanes; // lanes a pair
 constexpr int kGroups = 32 / kGl;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// the sum over a group's 8 lanes, in every lane of the group
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < kGl; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T> struct FwdArgs {
   const T* q; const T* k; const T* v; const T* a_loc; const T* b_loc;

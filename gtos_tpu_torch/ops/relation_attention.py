@@ -21,11 +21,14 @@ for CPU tensors and raises for anything else, and counts its launches in
       (t2 = q.b_bank^T + t4 and t3 = k.a_bank^T, [B, H, N, P], rounded to
       q's type), csrc/relation_attention_fwd.cu;
   B3' `fused_relation_attention_inline`  the same function from the banks,
-      no table in device memory (t4 rounded to the bank type, as the TPU
-      kernel folds it into b_bank's padding lane), same source;
+      no table in device memory (t4 formed in the kernel and rounded to the
+      bank type, as the TPU kernel folds it into b_bank's padding lane);
+      the banks may be strided views (`bank_row_stride`: the layer's halves
+      of one [P, 2 H Dh] projection), same source;
   B4  `fused_relation_attention_bwd`     the backward from the tables:
       gq, gk, gv (f32) and the dense table gradients g_t2/g_t3
-      ([B, N, H, P], table type), csrc/relation_attention_bwd.cu.
+      ([B, N, H, P], table type), csrc/relation_attention_bwd.cu (a row
+      pass and a column pass, two launches counted as one call).
 
 `pallas_relation_attention` picks B3' when the banks pass the JAX
 package's `_inline_fits` rule and B3 otherwise. The differentiable entry
@@ -44,6 +47,7 @@ import functools
 import torch
 
 from gtos_tpu_torch.ops import build
+from gtos_tpu_torch.ops.local_relation_attention import bank_row_stride
 
 NEG_INF = -1e9
 FWD_SOURCE = "relation_attention_fwd.cu"
@@ -51,10 +55,6 @@ BWD_SOURCE = "relation_attention_bwd.cu"
 SOURCES = (FWD_SOURCE, BWD_SOURCE)
 MAX_NODES = 128   # node bucket limit of the kernels (and of the TPU kernels)
 MAX_HEAD_DIM = 128
-# B4 holds attn and ge [N, N], k^T and v^T [Dh, N] and its 16 warps'
-# staged table-gradient rows [N] in 4-byte shared memory
-MAX_BWD_SMEM = 232448
-_BWD_WARPS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX package's VMEM budget rule for the inline kernel, with its numbers
 _VMEM_BUDGET = 13 * 1024 * 1024
@@ -224,18 +224,32 @@ def _check_tables_args(q, k, v, t2, t3, rel_index, node_mask):
 
 
 def _check_inline_args(q, k, v, a_bank, b_bank, rel_index, node_mask):
-    """What B3' takes: refused here, before a launch (the banks are read 16
-    bytes at a time, so they must start 16-byte aligned)."""
+    """What B3' takes: refused here, before a launch. The banks are read 16
+    bytes at a time, so each must start 16-byte aligned and their rows
+    (H*Dh contiguous values, one row stride for both) must lie a multiple
+    of 16 bytes apart. Returns that row stride in elements."""
     _check_sizes(q)
     B, H, N, Dh = q.shape
     P = a_bank.shape[0]
-    for name, t, shape, dtype in _qkv_checks(q, k, v, rel_index, node_mask) + [
-            ("a_bank", a_bank, (P, H, Dh), q.dtype),
-            ("b_bank", b_bank, (P, H, Dh), q.dtype)]:
+    for name, t, shape, dtype in _qkv_checks(q, k, v, rel_index, node_mask):
         _check(name, t, shape, dtype, q.device)
     for name, t in (("a_bank", a_bank), ("b_bank", b_bank)):
+        if tuple(t.shape) != (P, H, Dh) or t.dtype != q.dtype:
+            raise ValueError(f"{name}: expected {(P, H, Dh)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start 16-byte aligned")
+    row = bank_row_stride(a_bank[None])
+    if row is None or row != bank_row_stride(b_bank[None]):
+        raise ValueError("a_bank and b_bank must be [P, H, Dh] banks of "
+                         "contiguous rows with one row stride, got strides "
+                         f"{a_bank.stride()} and {b_bank.stride()}")
+    if row * a_bank.element_size() % 16:
+        raise ValueError(f"bank row stride {row} elements is not a multiple "
+                         "of 16 bytes")
+    return row
 
 
 def _check_bwd_args(q, k, v, g, t2, t3, rel_index, node_mask, row_order,
@@ -248,10 +262,6 @@ def _check_bwd_args(q, k, v, g, t2, t3, rel_index, node_mask, row_order,
             ("row_order", row_order, (B, N, N), torch.int32),
             ("col_order", col_order, (B, N, N), torch.int32)):
         _check(name, t, shape, dtype, q.device)
-    smem = (2 * N * N + 2 * N * Dh + N + 2 * _BWD_WARPS * N) * 4
-    if smem > MAX_BWD_SMEM:
-        raise ValueError(f"N={N}, Dh={Dh}: the backward's {smem} bytes of "
-                         f"shared memory exceed {MAX_BWD_SMEM}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -265,7 +275,8 @@ def _fwd_kernels():
     tables, inline = lib.gtos_rel_attn_fwd_tables, lib.gtos_rel_attn_fwd_inline
     tables.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    inline.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+    inline.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     tables.restype = inline.restype = ctypes.c_int
     return tables, inline
@@ -275,7 +286,7 @@ def _fwd_kernels():
 def _bwd_kernel():
     """B4's C entry point in the built library, with argument types."""
     fn = build.load(BWD_SOURCE).gtos_rel_attn_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 16
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -328,22 +339,22 @@ def fused_relation_attention_inline(q, k, v, a_bank, b_bank, rel_index,
                                     node_mask, scale=None):
     """B3', the global-bank forward from the banks themselves.
 
-    q, k, v: [B, H, N, Dh]; a_bank, b_bank: [P, H, Dh] in q's type;
-    rel_index, node_mask as B3. Returns out [B, H, N, Dh] in v's type.
-    Same limits as B3; its own `.launches`."""
+    q, k, v: [B, H, N, Dh]; a_bank, b_bank: [P, H, Dh] in q's type, rows
+    of H*Dh contiguous values with one row stride for both (contiguous
+    banks, or the halves of one [P, 2 H Dh] projection from `split_banks`),
+    16-byte aligned; rel_index, node_mask as B3. Returns out [B, H, N, Dh]
+    in v's type. Same limits as B3; its own `.launches`."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
         return fused_relation_attention_inline_reference(
             q, k, v, a_bank, b_bank, rel_index, node_mask, scale)
-    _check_inline_args(q, k, v, a_bank, b_bank, rel_index, node_mask)
+    row = _check_inline_args(q, k, v, a_bank, b_bank, rel_index, node_mask)
     B, H, N, Dh = q.shape
-    t4 = torch.einsum("phd,phd->ph", a_bank.float(), b_bank.float()).to(
-        b_bank.dtype).float().contiguous()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _fwd_kernels()[1](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            a_bank.data_ptr(), b_bank.data_ptr(), t4.data_ptr(),
+            a_bank.data_ptr(), b_bank.data_ptr(), row,
             rel_index.data_ptr(), node_mask.data_ptr(), out.data_ptr(), B, H,
             N, Dh, a_bank.shape[0], float(scale), _stream(q))
     _raise_on(err, "relation attention forward (inline)")
@@ -357,8 +368,9 @@ def fused_relation_attention_bwd(q, k, v, g, t2, t3, rel_index, node_mask,
     table type; note the row-major table-gradient layout) from B3's inputs
     and the output's cotangent g [B, H, N, Dh] in q's type. row_order /
     col_order: `walk_orders(rel_index)`, built here when not given (the
-    CPU's plain version needs neither). Same limits as B3; `.launches`
-    counts launches."""
+    CPU's plain version needs neither). Same limits as B3. Its kernel is two
+    launches (a row pass and a column pass, with a [B, N, N, H] (ge, p)
+    workspace between them), which `.launches` counts as one call."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
         return fused_relation_attention_bwd_reference(
@@ -373,13 +385,15 @@ def fused_relation_attention_bwd(q, k, v, g, t2, t3, rel_index, node_mask,
                   for _ in range(3))
     gt2, gt3 = (torch.empty(B, N, H, P, dtype=t2.dtype, device=q.device)
                 for _ in range(2))
+    gep = torch.empty(B, N, N, H, 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_kernel()(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             g.data_ptr(), t2.data_ptr(), t3.data_ptr(), rel_index.data_ptr(),
             node_mask.data_ptr(), row_order.data_ptr(), col_order.data_ptr(),
-            gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), gt2.data_ptr(),
-            gt3.data_ptr(), B, H, N, Dh, P, float(scale), _stream(q))
+            gep.data_ptr(), gq.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+            gt2.data_ptr(), gt3.data_ptr(), B, H, N, Dh, P, float(scale),
+            _stream(q))
     _raise_on(err, "relation attention backward")
     fused_relation_attention_bwd.launches += 1
     return gq, gk, gv, gt2, gt3
@@ -394,7 +408,8 @@ def pallas_relation_attention(q, k, v, a_bank, b_bank, rel_index, node_mask,
                               scale=None):
     """The global-bank forward, output only (no probabilities: the
     fusion's point): B3' when the banks pass `_inline_fits`, else B3 on
-    `build_tables`. q, k, v: [B, H, N, Dh]; a_bank/b_bank: [P, H, Dh];
+    `build_tables`. q, k, v: [B, H, N, Dh]; a_bank/b_bank: [P, H, Dh], as
+    B3' takes them (strided views such as `split_banks`' halves too);
     rel_index: [B, N, N] int32. Returns (out [B, H, N, Dh], None), as the
     JAX package's."""
     if _inline_fits(q, a_bank):

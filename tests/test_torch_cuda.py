@@ -399,9 +399,12 @@ def test_cuda_global_kernels_match_plain_versions(card, B, H, N, Dh, P,
     """B3 (from the tables), B3' (from the banks) and B4 (the backward)
     against their plain versions on the same card inputs, to B1's
     tolerances (f32 sums in another order; in bf16 one rounding of each
-    output, the probabilities rounded before the product with v). Each
-    launch counts once, and B4 gives the same bits on a second run (no
-    atomics)."""
+    output, the probabilities rounded before the product with v), each
+    output also within the rtol of its plain version's own largest value
+    (a training step's table gradients lie far below the atol; the two
+    tables: of the larger of their two, `_table_scale`). Each call
+    counts once (B4's two launches are one call), and B4 gives the same
+    bits on a second call (no atomics)."""
     c = make_global_case(B, H, N, Dh, P)
     q, k, v, a, b, idx, mask = port_global_args(c, dtype, card)
     g = torch.from_numpy(c["g"]).to(card, dtype)
@@ -429,11 +432,134 @@ def test_cuda_global_kernels_match_plain_versions(card, B, H, N, Dh, P,
             q, k, v, a, b, idx, mask).float(), **tol)
     ref = fused_relation_attention_bwd_reference(q, k, v, g, t2, t3, idx,
                                                  mask)
+    top = _table_scale(ref)
     for name, x, y, z in zip(("gq", "gk", "gv", "g_t2", "g_t3"), grads, ref,
                              again):
         assert x.dtype == y.dtype and torch.isfinite(x.float()).all(), name
         torch.testing.assert_close(x.float(), y.float(), **tol, msg=name)
+        assert _rel_to_largest(x, y, top.get(name)) <= tol["rtol"], name
         assert torch.equal(x, z), name
+    for x, y in ((out, fused_relation_attention_reference(
+            q, k, v, t2, t3, idx, mask)),
+                 (out_inline, fused_relation_attention_inline_reference(
+                     q, k, v, a, b, idx, mask))):
+        assert _rel_to_largest(x, y) <= tol["rtol"]
+
+
+def _rel_to_largest(x, ref, top=None):
+    """The largest error of x against ref relative to ref's own largest
+    magnitude, or to `top` where given."""
+    if top is None:
+        top = ref.float().abs().max().item()
+    return (x.float() - ref.float()).abs().max().item() / max(top, 1e-30)
+
+
+def _table_scale(ref):
+    """The scale of B4's table gradients in _rel_to_largest: the larger of
+    g_t2's and g_t3's largest values (as chip_smoke.py's b4_largest). Each
+    row of ge sums to 0, so a table row whose pairs all share one bank row
+    holds rounding noise only (every g_t2 row at P=1)."""
+    top = max(ref[3].float().abs().max().item(),
+              ref[4].float().abs().max().item())
+    return {"g_t2": top, "g_t3": top}
+
+
+# (B, H, N, Dh, P, layout) of the global-bank kernels' edge cases, as
+# chip_smoke.py's GLOBAL_EDGES: "one_run" puts every pair of graph 0 on one
+# bank row (each row and each column one run of N); "padded" pads each
+# graph to N (pairs of padded nodes on row 0) and the last graph whole;
+# "random" draws each pair's row. P=1001 is not a multiple of 8 (B4 stores
+# its table-gradient rows a value at a time); at P=65536, the ladders'
+# largest bank, B4 stages each dense row in many tiles (f32: 64)
+GLOBAL_EDGE_CASES = {"one_run": (2, 8, 32, 64, 512, "one_run"),
+                     "padded": (4, 8, 32, 64, 1024, "padded"),
+                     "N1": (2, 8, 1, 64, 16, "random"),
+                     "P1": (2, 8, 16, 64, 1, "random"),
+                     "P1001": (2, 8, 32, 64, 1001, "random"),
+                     "Dh32": (2, 8, 32, 32, 512, "random"),
+                     "Dh128": (2, 8, 32, 128, 512, "random"),
+                     "H12": (2, 12, 17, 64, 300, "random"),
+                     "P65536": (1, 8, 16, 64, 65536, "random")}
+
+
+def make_global_edge_case(B, H, N, Dh, P, layout, seed=0):
+    """Seeded numpy inputs of B3'/B4: q, k, v, g [B, H, N, Dh], the bank
+    projection ab [P, 2 H Dh], rel_index [B, N, N] and mask [B, N]."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v, g = (rng.standard_normal((B, H, N, Dh)).astype(f)
+                  for _ in range(4))
+    ab = (rng.standard_normal((P, 2 * H * Dh)) * 0.5).astype(f)
+    idx = rng.integers(0, P, (B, N, N))
+    mask = np.ones((B, N), bool)
+    if layout == "one_run":
+        idx[0] = P // 2
+    elif layout == "padded":
+        for b in range(B):
+            n = 0 if b == B - 1 else int(rng.integers(N // 2, N))
+            mask[b, n:] = False
+            idx[b, n:], idx[b, :, n:] = 0, 0
+    return dict(q=q, k=k, v=v, g=g, ab=ab, idx=idx.astype(np.int32),
+                mask=mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=1e-4, atol=1e-4)),
+    (torch.bfloat16, dict(rtol=2e-2, atol=3e-2)),
+])
+@pytest.mark.parametrize("case", sorted(GLOBAL_EDGE_CASES))
+def test_cuda_global_edge_cases(card, case, dtype, tol):
+    """B3', B3 and B4 on GLOBAL_EDGE_CASES, the banks the two halves of one
+    [P, 2 H Dh] tensor (split_banks, rows 2 H Dh apart), against their
+    plain versions at test_cuda_global_kernels_match_plain_versions'
+    tolerances, each output also within the rtol of its own largest value
+    (the table gradients: of the larger of their two, `_table_scale`); B3'
+    the same bits on the halves as on contiguous copies; B4 the
+    same bits on a second call, its dense table gradients written in full
+    (entries no pair refers to exactly 0) into memory that held NaN (the
+    caching allocator hands the freed NaN blocks to the wrapper's
+    torch.empty)."""
+    B, H, N, Dh, P, layout = GLOBAL_EDGE_CASES[case]
+    c = make_global_edge_case(B, H, N, Dh, P, layout)
+    dev = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    q, k, v, g = (dev(c[n]).to(dtype) for n in "qkvg")
+    ab, idx, mask = dev(c["ab"]).to(dtype), dev(c["idx"]), dev(c["mask"])
+    a, b = split_banks(ab, H)
+    out = fused_relation_attention_inline(q, k, v, a, b, idx, mask)
+    assert torch.equal(out, fused_relation_attention_inline(
+        q, k, v, a.contiguous(), b.contiguous(), idx, mask))
+    t2, t3 = build_tables(q, k, a, b)
+    out_t = fused_relation_attention(q, k, v, t2, t3, idx, mask)
+    rows, cols = walk_orders(idx)
+    calls = []
+    for _ in range(2):
+        junk = [torch.full((B, N, H, P), float("nan"), dtype=dtype,
+                           device=card) for _ in range(2)]
+        del junk
+        calls.append(fused_relation_attention_bwd(q, k, v, g, t2, t3, idx,
+                                                  mask, rows, cols))
+    ref = fused_relation_attention_bwd_reference(q, k, v, g, t2, t3, idx,
+                                                 mask)
+    torch.cuda.synchronize()
+    top = _table_scale(ref)
+    pairs = [("out", out, fused_relation_attention_inline_reference(
+                 q, k, v, a, b, idx, mask)),
+             ("out_tables", out_t, fused_relation_attention_reference(
+                 q, k, v, t2, t3, idx, mask)),
+             *zip(("gq", "gk", "gv", "g_t2", "g_t3"), calls[0], ref)]
+    for name, x, y in pairs:
+        assert torch.isfinite(x.float()).all(), name
+        torch.testing.assert_close(x.float(), y.float(), **tol, msg=name)
+        assert _rel_to_largest(x, y, top.get(name)) <= tol["rtol"], name
+    for x, again in zip(*calls):
+        assert torch.equal(x, again)
+    il = idx.long()
+    for x, keys in ((calls[0][3], il), (calls[0][4], il.transpose(1, 2))):
+        used = torch.zeros(B, N, P, dtype=torch.bool, device=card)
+        used.scatter_(2, keys, True)
+        if not used.all():
+            assert torch.count_nonzero(x.permute(0, 1, 3, 2)[~used]) == 0
 
 
 @pytest.mark.cuda

@@ -209,9 +209,15 @@ def test_walk_orders_sort_each_row_and_column():
 
 @pytest.mark.parametrize("which", ["dtype", "idx_dtype", "table_shape",
                                    "head_dim", "too_many_nodes",
-                                   "bank_dtype", "g_dtype", "order_shape"])
+                                   "bank_dtype", "g_dtype", "order_shape",
+                                   "bank_row_stride", "bank_layout",
+                                   "bank_strides_differ", "bank_misaligned",
+                                   "order_dtype"])
 def test_kernel_argument_checks_raise(which):
-    """What the CUDA kernels do not take is refused before a launch."""
+    """What the CUDA kernels do not take is refused before a launch: B3'
+    takes strided banks only as rows of contiguous [H, Dh] values with one
+    row stride for both, a multiple of 16 bytes, starting 16-byte
+    aligned."""
     c = make_global_case(B, H, 16, DH, 128)
     q, k, v, a, b, idx, mask = port_global_args(c)
     t2, t3 = build_tables(q, k, a, b)
@@ -237,12 +243,23 @@ def test_kernel_argument_checks_raise(which):
         a = a.double()
     elif which == "g_dtype":
         g = g.double()
+    elif which == "bank_row_stride":   # rows H*Dh + 1 f32 values apart
+        a, b = (torch.zeros(128, H * DH + 1)[:, :H * DH].reshape(128, H, DH)
+                for _ in range(2))
+    elif which == "bank_layout":       # heads not contiguous within a row
+        a = torch.zeros(128, DH, H).transpose(1, 2)
+    elif which == "bank_strides_differ":
+        a = torch.zeros(128, 2 * H * DH)[:, :H * DH].reshape(128, H, DH)
+    elif which == "bank_misaligned":
+        a = torch.zeros(128 * H * DH + 1)[1:].view(128, H, DH)
+    elif which == "order_dtype":
+        rows = rows.long()
     else:
         rows = rows[:, :-1].contiguous()
     with pytest.raises((TypeError, ValueError)):
-        if which in ("bank_dtype",):
+        if which.startswith("bank_"):
             _check_inline_args(q, k, v, a, b, idx, mask)
-        elif which in ("g_dtype", "order_shape"):
+        elif which in ("g_dtype", "order_shape", "order_dtype"):
             _check_bwd_args(q, k, v, g, t2, t3, idx, mask, rows, cols)
         else:
             _check_tables_args(q, k, v, t2, t3, idx, mask)

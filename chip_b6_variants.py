@@ -6,6 +6,7 @@ global-bank B3, B3' and B4) of one checkout on one NVIDIA GPU.
     python3 chip_b6_variants.py [--checkout DIR] [--profile] [--variants]
     python3 chip_b6_variants.py --kernels local [--checkout DIR] [--profile]
     python3 chip_b6_variants.py --kernels global [--checkout DIR] [--profile]
+                                [--variants]
 
 From the repo root, on a machine with a card. DIR (default: this
 checkout) is any checkout of the repo, such as an earlier commit unpacked
@@ -52,7 +53,15 @@ bank (`capture_global_inputs`), each kernel checked and timed on them
 (P=2048 and 4096) in f32 and bf16; one JSON line of the means; then B4's
 time per kernel on each train input (torch.profiler) beside the time of
 writing its two dense tables alone (two torch zero_, `time_ms`), and B4's
-`time_ms` at several spins (SPIN_STUDY). --profile: this script's checkout's
+`time_ms` at several spins (SPIN_STUDY); beside them the `time_ms` of one
+empty kernel (`torch.cuda._sleep(0)`), the timer's floor for one launch.
+With --variants (this checkout's kernels only), the forward source is built
+once more with GTOS_B3_VARIANTS, which lets B3 take 2, 4 or 8 pairs a lane
+group a round for rows up to 64 wide; each is forced in turn on B3's
+main-path inputs and the P=4096 probes in both types, held against the
+plain version and timed; the last line gives each design's mean over the
+main-path inputs.
+--profile: this script's checkout's
 `phase_profile_train` (B3's, B3''s and B4's shares) over one more train
 step of the other checkout on each captured batch (the first
 CAPTURE_BATCHES take B3, the last B3').
@@ -309,6 +318,11 @@ def main_global(cs, checkout, args):
     rows = cs.phase_global_shapes(serve_inputs, serve_launches, train_inputs,
                                   train_launches)
     main_ms = {row["name"]: row["ms"] for row in rows}
+    variant_cases = [(f"{tag}{i}", args)
+                     for tag, captured in (("serve", serve_inputs),
+                                           ("train", train_inputs))
+                     for i, (kind, args, _) in enumerate(captured)
+                     if kind == cs.B3]
     cases_ms = {}
     for name, spec in (("N32_P2048", (16, 0, 10, 14, 32, 2048)),
                        ("N32_P4096", (16, 0, 16, 20, 32, 4096)),
@@ -322,9 +336,16 @@ def main_global(cs, checkout, args):
                 "B3": cs.check_b3(name, targs)["ms"],
                 "B3'": cs.check_b3i(name, fwd)["ms"],
                 "B4": cs.check_b4(name, cs.b4_args(targs))["ms"]}
+            if name.endswith("P4096"):
+                variant_cases.append(
+                    (f"{name} {cs._dtype_name(fwd[0])}", targs))
         torch.cuda.empty_cache()
     print(json.dumps({"checkout": checkout, "main_path_mean_ms": main_ms,
                       "cases_ms": cases_ms}), flush=True)
+    print(f"[b3] one empty kernel (torch.cuda._sleep(0)) under time_ms: "
+          f"{cs.time_ms(lambda: torch.cuda._sleep(0)):.6f} ms", flush=True)
+    if args.variants:
+        time_b3_variants(cs, variant_cases)
     if args.profile:
         here = this_chip_smoke()
         for i, batch in enumerate(captured):
@@ -354,6 +375,42 @@ def main_global(cs, checkout, args):
                   f"{ms:.6f} ms", flush=True)
     finally:
         cs.SPIN_CYCLES = spin
+
+
+def time_b3_variants(cs, cases):
+    """Each of B3's designs for rows up to 64 wide (the source built with
+    GTOS_B3_VARIANTS) forced in turn on `cases` (label, B3's arguments):
+    held against the plain version (`_hold`) and timed; prints the
+    per-design means over the main-path inputs as JSON."""
+    import torch
+
+    from gtos_tpu_torch.ops import build
+    from gtos_tpu_torch.ops import relation_attention as ra
+
+    tables, inline, variant = ra.fwd_entries(
+        build.load(ra.FWD_SOURCE, ("GTOS_B3_VARIANTS",)))
+    real = ra._fwd_kernels
+    ra._fwd_kernels = lambda: (tables, inline)
+    means = {}
+    try:
+        for v in range(variant(-1)):
+            variant(v)
+            for label, targs in cases:
+                ref = ra.fused_relation_attention_reference(*targs)
+                got = ra.fused_relation_attention(*targs)
+                torch.cuda.synchronize()
+                cs._hold("B3", f"{label} variant {v}",
+                         cs._dtype_name(targs[0]), [("out", got, ref)])
+                ms = cs.time_ms(lambda: ra.fused_relation_attention(*targs))
+                print(f"[variant] B3 {label} variant {v}: {ms:.6f} ms",
+                      flush=True)
+                if not label.startswith("N"):
+                    means.setdefault(v, []).append(ms)
+    finally:
+        variant(-1)
+        ra._fwd_kernels = real
+    print(json.dumps({"b3_main_path_mean_ms": {
+        v: sum(ms) / len(ms) for v, ms in means.items()}}), flush=True)
 
 
 def kernel_breakdown(fn, reps=10, key="local_"):

@@ -93,8 +93,10 @@ Phases, each of which exits non-zero on failure:
   13. shapes — each kernel again, on the very inputs the serving runs (B1;
                B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
                B5s, B6d, B6s, B6b) gave it, against its plain version and
-               timed: the table rows (a planted B2 with g_a zeroed and a
-               planted B4 with g_t3 zeroed must fail the gate there);
+               timed: the table rows (a planted B2 with g_a zeroed, a
+               planted B4 with g_t3 zeroed and two planted B3s, one reading
+               t3 at the query row and one without the t2 term, must fail
+               the gate there);
   14. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c5 train step on each captured
@@ -607,7 +609,20 @@ def _pair_entries(idx):
     return rows + cols
 
 
-def global_attention_bound(idx, H, Dh, P, dtype_name, kind):
+def _table_sectors(idx, H, P, elt):
+    """The distinct 32-byte sectors of t2 and t3 [B, H, N, P] (elt bytes an
+    entry) that these pairs read: t2[b, h, i, r] and t3[b, h, j, r],
+    r = idx[b, i, j]."""
+    B, N, _ = idx.shape
+    node = np.arange(N, dtype=np.int64)
+    rows = ((np.arange(B, dtype=np.int64)[:, None] * H + np.arange(H))
+            * N)[:, :, None, None]                     # (b, h)'s first row
+    r = idx.astype(np.int64)[:, None]
+    return sum(len(np.unique(((rows + own) * P + r) * elt // 32))
+               for own in (node[:, None], node[None, :]))
+
+
+def global_attention_bound(idx, H, Dh, P, dtype_name, kind, sectors=False):
     """(bound_ms, bound_by) on an H100 SXM of B3 ("tables"), B3'
     ("inline") or B4 ("bwd") on these inputs. Bytes: q, k, v (and B4's
     cotangent) read once, the output written once (B4: gq, gk, gv in f32
@@ -616,22 +631,25 @@ def global_attention_bound(idx, H, Dh, P, dtype_name, kind):
     pairs reference (B3, B4) or of the banks the rows they reference and
     their t4 (B3'). Operations per pair and head: q.k and p.v (B3); q.k,
     q.b, k.a and p.v (B3'); q.k, g.v, gv, gq and gk (B4), each Dh
-    multiply-adds."""
+    multiply-adds. With sectors (B3, B4: the sector floor), each distinct
+    32-byte sector of t2/t3 that the pairs touch counts once in place of
+    each referenced entry at its element size: the card reads at least a
+    sector per scattered load."""
     B, N, _ = idx.shape
     elt = 2 if dtype_name == "bfloat16" else 4
     base = B * N * N * 4 + B * N
-    if kind == "tables":
-        nbytes = (4 * B * H * N * Dh * elt + base
-                  + _pair_entries(idx) * H * elt)
-        return _bound(nbytes, B * H * N * N * 4 * Dh, dtype_name)
     if kind == "inline":
         rows = len(np.unique(idx))
         nbytes = (4 * B * H * N * Dh * elt + base
                   + rows * H * (2 * Dh * elt + 4))
         return _bound(nbytes, B * H * N * N * 8 * Dh, dtype_name)
+    tables = (_table_sectors(idx, H, P, elt) * 32 if sectors
+              else _pair_entries(idx) * H * elt)
+    if kind == "tables":
+        nbytes = 4 * B * H * N * Dh * elt + base + tables
+        return _bound(nbytes, B * H * N * N * 4 * Dh, dtype_name)
     nbytes = (4 * B * H * N * Dh * elt + base + 2 * B * N * N * 4
-              + _pair_entries(idx) * H * elt + 3 * B * H * N * Dh * 4
-              + 2 * B * N * H * P * elt)
+              + tables + 3 * B * H * N * Dh * 4 + 2 * B * N * H * P * elt)
     return _bound(nbytes, B * H * N * N * 10 * Dh, dtype_name)
 
 
@@ -694,10 +712,33 @@ def _hold(kernel, label, dtype_name, pairs, largest=None):
     return err, rel
 
 
-def check_b3(label, targs):
+B3_PLANTS = ("t3 read at the query row", "no t2 term")
+
+
+def planted_b3(kind, targs):
+    """The plain B3 with one fault (B3_PLANTS): t3[b, h, i, r] read in
+    place of t3[b, h, j, r] (the transposition the TPU kernel's idxT
+    guards against), or the t2 term dropped."""
+    import torch
+
+    from gtos_tpu_torch.ops.relation_attention import (
+        _attend, _default_scale, _scores)
+
+    q, k, v, t2, t3, idx, mask = targs
+    if kind == B3_PLANTS[0]:     # both table terms from query row i
+        t2, t3 = t2.float() + t3.float(), torch.zeros_like(t3)
+    else:
+        t2 = torch.zeros_like(t2)
+    return _attend(_scores(q, k, t2, t3, idx, mask,
+                           _default_scale(q, None)), v)
+
+
+def check_b3(label, targs, plant=False):
     """B3's wrapper against its plain version on the same tables (within
     KERNEL_TOL and its rtol of the largest value), then both timed; prints
-    one line and returns its numbers."""
+    one line, with the bound and the sector floor (`global_attention_bound`
+    with sectors), and returns its numbers. With plant, each planted plain
+    B3 of B3_PLANTS must fail the same gate."""
     import torch
 
     from gtos_tpu_torch.ops.relation_attention import (
@@ -710,17 +751,35 @@ def check_b3(label, targs):
     ref = fused_relation_attention_reference(*targs)
     torch.cuda.synchronize()
     err, rel = _hold("B3", label, dtype_name, [("out", out, ref)])
-    bound_ms, bound_by = global_attention_bound(
-        idx.cpu().numpy(), H, Dh, P, dtype_name, "tables")
+    for kind in B3_PLANTS if plant else ():
+        bad = planted_b3(kind, targs)
+        why = disagreement(("out",), (bad,), (ref,), dtype_name)
+        if why is None:
+            fail(f"B3 {label} {dtype_name}: the gate passes a planted B3 "
+                 f"({kind})")
+        atol_alone = torch.allclose(bad.float(), ref.float(),
+                                    **KERNEL_TOL[dtype_name])
+        print(f"[kernel] B3 {label} {dtype_name}: a planted B3 ({kind}) "
+              f"fails: gap {(bad.float() - ref.float()).abs().max().item():.3e}"
+              f", {rel_to_largest((bad,), (ref,)):.3e} of the largest value "
+              f"({why.splitlines()[0]}; KERNEL_TOL alone would "
+              f"{'pass' if atol_alone else 'fail'} it)", flush=True)
+    idx_np = idx.cpu().numpy()
+    bound_ms, bound_by = global_attention_bound(idx_np, H, Dh, P, dtype_name,
+                                                "tables")
+    floor_ms, _ = global_attention_bound(idx_np, H, Dh, P, dtype_name,
+                                         "tables", sectors=True)
     ms = time_ms(lambda: fra(*targs))
     plain_ms = time_ms(lambda: fused_relation_attention_reference(*targs))
     print(f"[kernel] B3 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
           f" {rel:.3e} of the largest value)"
-          f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
+          f" bound={bound_ms:.6f} ms ({bound_by}) sector_floor="
+          f"{floor_ms:.6f} ms kernel={ms:.6f} ms "
           f"plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                sector_floor_ms=floor_ms)
 
 
 def check_b3i(label, args):
@@ -800,17 +859,22 @@ def check_b4(label, bargs, plant=False):
               f"({why.splitlines()[0]}; g_t3's largest value "
               f"{refs[4].float().abs().max().item():.3e}; KERNEL_TOL alone "
               f"would {'pass' if atol_alone else 'fail'} it)", flush=True)
-    bound_ms, bound_by = global_attention_bound(
-        idx.cpu().numpy(), H, Dh, P, dtype_name, "bwd")
+    idx_np = idx.cpu().numpy()
+    bound_ms, bound_by = global_attention_bound(idx_np, H, Dh, P, dtype_name,
+                                                "bwd")
+    floor_ms, _ = global_attention_bound(idx_np, H, Dh, P, dtype_name, "bwd",
+                                         sectors=True)
     ms = time_ms(lambda: frab(*bargs))
     plain_ms = time_ms(lambda: plain(*bargs[:8]))
     print(f"[kernel] B4 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
           f" {rel:.3e} of the largest value)"
-          f" bound={bound_ms:.6f} ms ({bound_by}) kernel={ms:.6f} ms "
+          f" bound={bound_ms:.6f} ms ({bound_by}) sector_floor="
+          f"{floor_ms:.6f} ms kernel={ms:.6f} ms "
           f"plain={plain_ms:.6f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                sector_floor_ms=floor_ms)
 
 
 def phase_kernels():
@@ -1027,6 +1091,37 @@ KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
         "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
         "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:85"),
 }
+# each kernel's design, as its source's header gives it (the JSON line's
+# "design")
+DESIGNS = {
+    "local_relation_attention_fwd":
+        "a block per (graph, node), head warps, 8 lanes a pair",
+    "local_relation_attention_fwd_probs":
+        "B1's body, the f32 probabilities written too",
+    "local_relation_attention_bwd":
+        "rows, columns and chunks, finish: 3 launches over the slot runs",
+    "relation_attention_fwd_tables":
+        "B3''s row body: a block per (graph, query row), head warps, "
+        "8 lanes a pair, the table scalars gathered before the q.k rounds",
+    "relation_attention_fwd_inline":
+        "the row body shared with B3: bank-row chunks, t4 formed in the "
+        "kernel",
+    "relation_attention_bwd":
+        "a row pass and a column pass, dense table rows through a "
+        "shared-memory tile",
+    "block_sparse_attention_fwd":
+        "a block per node, one plane walk for all heads, a softmax per "
+        "lane group",
+    "block_sparse_attention_fwd_stats": "B5's body, m and l written too",
+    "block_sparse_attention_bwd_dst":
+        "a block per node, one plane walk for all heads, (ge, p) written "
+        "src-major",
+    "block_sparse_attention_bwd_src":
+        "a block per node, one plane walk, (ge, p) read from the dst pass",
+    "block_sparse_bank_grads":
+        "each bank row's run walked once for all heads, long runs in "
+        "256-pair chunks",
+}
 B1, B1P, B2 = ("local_relation_attention_fwd",
                "local_relation_attention_fwd_probs",
                "local_relation_attention_bwd")
@@ -1067,7 +1162,8 @@ def table_row(name, rows, launches):
     inputs of each number, the largest error."""
     _, source, replaces = KERNELS[name]
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
-               launches=launches[name], library_ms=None)
+               launches=launches[name], library_ms=None,
+               design=DESIGNS[name])
     if all("library_ms" in r for r in rows):
         row["library_ms"] = sum(r["library_ms"] for r in rows) / len(rows)
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -1100,7 +1196,8 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
     """B3, B3' and B4 on the inputs the "pallas" paths gave them, held
     against their plain versions and timed: layer 0's forward of each
     served batch and each captured train batch (B3 or B3' as the batch's
-    bank decided), layer 0's backward of each captured train batch (B4,
+    bank decided; on the train inputs the planted B3s of B3_PLANTS must
+    fail B3's gate), layer 0's backward of each captured train batch (B4,
     where a planted zero g_t3 must fail the gate), bf16. The launches are those of the "pallas" serving run and training
     run together (B3, B3') and of the training run (B4)."""
     rows = {B3: [], B3I: [], B4: []}
@@ -1108,7 +1205,7 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
         for i, (kind, args, bwd) in enumerate(captured):
             label = f"{tag}{i}"
             if kind == B3:
-                rows[B3].append(check_b3(label, args))
+                rows[B3].append(check_b3(label, args, plant=tag == "train"))
             else:
                 rows[B3I].append(check_b3i(label, args))
             if bwd is not None:

@@ -212,15 +212,28 @@ def _qkv_checks(q, k, v, rel_index, node_mask):
             ("node_mask", node_mask, (B, N), torch.bool)]
 
 
+def _check_aligned(*named):
+    """Each (name, tensor) starts 16-byte aligned: the kernels read and
+    write its rows 16 bytes at a time."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+
+
 def _check_tables_args(q, k, v, t2, t3, rel_index, node_mask):
-    """What B3 takes: refused here, before a launch."""
+    """What B3 takes: refused here, before a launch. q, k and v are read
+    16 bytes at a time, so each must start 16-byte aligned; the tables are
+    read a value at a time, any P >= 1."""
     _check_sizes(q)
     B, H, N, _ = q.shape
     P = t2.shape[-1]
+    if P < 1:
+        raise ValueError("the tables need P >= 1 bank rows")
     for name, t, shape, dtype in _qkv_checks(q, k, v, rel_index, node_mask) + [
             ("t2", t2, (B, H, N, P), q.dtype),
             ("t3", t3, (B, H, N, P), q.dtype)]:
         _check(name, t, shape, dtype, q.device)
+    _check_aligned(("q", q), ("k", k), ("v", v))
 
 
 def _check_inline_args(q, k, v, a_bank, b_bank, rel_index, node_mask):
@@ -239,8 +252,8 @@ def _check_inline_args(q, k, v, a_bank, b_bank, rel_index, node_mask):
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned")
+    _check_aligned(("q", q), ("k", k), ("v", v), ("a_bank", a_bank),
+                   ("b_bank", b_bank))
     row = bank_row_stride(a_bank[None])
     if row is None or row != bank_row_stride(b_bank[None]):
         raise ValueError("a_bank and b_bank must be [P, H, Dh] banks of "
@@ -271,15 +284,24 @@ def _check_bwd_args(q, k, v, g, t2, t3, rel_index, node_mask, row_order,
 def _fwd_kernels():
     """B3's and B3''s C entry points in the built library, with argument
     types."""
-    lib = build.load(FWD_SOURCE)
+    return fwd_entries(build.load(FWD_SOURCE))[:2]
+
+
+def fwd_entries(lib):
+    """(B3, B3', variant) entry points of a library built from
+    FWD_SOURCE, with argument types; variant(v) forces B3's design v (-1:
+    the kernel's own) and returns the number of designs, 0 unless the
+    library was built with GTOS_B3_VARIANTS."""
     tables, inline = lib.gtos_rel_attn_fwd_tables, lib.gtos_rel_attn_fwd_inline
+    variant = lib.gtos_rel_attn_fwd_tables_variant
     tables.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     inline.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    tables.restype = inline.restype = ctypes.c_int
-    return tables, inline
+    variant.argtypes = [ctypes.c_int]
+    tables.restype = inline.restype = variant.restype = ctypes.c_int
+    return tables, inline, variant
 
 
 @functools.lru_cache(maxsize=None)
@@ -315,8 +337,9 @@ def fused_relation_attention(q, k, v, t2, t3, rel_index, node_mask,
     q, k, v: [B, H, N, Dh]; t2, t3: [B, H, N, P] in q's type (`build_tables`);
     rel_index: [B, N, N] int32 bank rows; node_mask: [B, N] bool. Returns
     out [B, H, N, Dh] in v's type. CUDA tensors go through the kernel
-    (float32 or bfloat16, contiguous, N <= 128, Dh a multiple of 8 up to
-    128; anything else raises); CPU tensors through the plain version."""
+    (float32 or bfloat16, contiguous, q, k, v 16-byte aligned, N <= 128,
+    Dh a multiple of 8 up to 128, any P; anything else raises); CPU tensors
+    through the plain version."""
     scale = _default_scale(q, scale)
     if not _on_card(q):
         return fused_relation_attention_reference(

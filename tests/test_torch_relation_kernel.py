@@ -49,11 +49,14 @@ def _real_rows(x, N):
     return np.concatenate([x[0, :, : N - PAD].ravel(), x[1].ravel()])
 
 
-@pytest.mark.parametrize("N,P", SHAPES)
+@pytest.mark.parametrize("N,P", SHAPES + [(32, 4096)])
 def test_tables_and_plain_b3_match_jax(N, P):
     """build_tables against the JAX package's _build_tables, and the
     plain B3 (what a CPU tensor runs) against fused_relation_attention
-    under the interpreter, on the JAX tables."""
+    under the interpreter, on the JAX tables; last at the bank size at
+    which B3 serves (P=4096, N=32). The JAX kernel takes P a multiple of
+    128 only, so B3 at other P is held on the card, against the plain
+    version."""
     c = make_global_case(B, H, N, DH, P)
     q, k, v, ab, bb, idx, mask = _jax(c, "q", "k", "v", "a_bank", "b_bank",
                                       "rel_index", "mask")
@@ -212,12 +215,14 @@ def test_walk_orders_sort_each_row_and_column():
                                    "bank_dtype", "g_dtype", "order_shape",
                                    "bank_row_stride", "bank_layout",
                                    "bank_strides_differ", "bank_misaligned",
-                                   "order_dtype"])
+                                   "order_dtype", "q_misaligned",
+                                   "k_misaligned", "v_misaligned"])
 def test_kernel_argument_checks_raise(which):
     """What the CUDA kernels do not take is refused before a launch: B3'
     takes strided banks only as rows of contiguous [H, Dh] values with one
     row stride for both, a multiple of 16 bytes, starting 16-byte
-    aligned."""
+    aligned; B3 (and B4, which checks B3's arguments) takes q, k and v
+    only 16-byte aligned (here bf16 views at storage offset 1)."""
     c = make_global_case(B, H, 16, DH, 128)
     q, k, v, a, b, idx, mask = port_global_args(c)
     t2, t3 = build_tables(q, k, a, b)
@@ -254,6 +259,13 @@ def test_kernel_argument_checks_raise(which):
         a = torch.zeros(128 * H * DH + 1)[1:].view(128, H, DH)
     elif which == "order_dtype":
         rows = rows.long()
+    elif which.endswith("_misaligned"):
+        q, k, v, t2, t3 = (x.bfloat16() for x in (q, k, v, t2, t3))
+        moved = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
+        moved = moved.view(q.shape)
+        assert moved.is_contiguous() and moved.data_ptr() % 16
+        q, k, v = (moved if which[0] == name else x
+                   for name, x in zip("qkv", (q, k, v)))
     else:
         rows = rows[:, :-1].contiguous()
     with pytest.raises((TypeError, ValueError)):
@@ -263,3 +275,18 @@ def test_kernel_argument_checks_raise(which):
             _check_bwd_args(q, k, v, g, t2, t3, idx, mask, rows, cols)
         else:
             _check_tables_args(q, k, v, t2, t3, idx, mask)
+
+
+@pytest.mark.parametrize("P", [1, 7, 1001, 4096])
+def test_tables_check_takes_any_bank_size(P):
+    """B3 reads its tables a value at a time, so _check_tables_args (and
+    B4's check around it) takes tables of any P >= 1, aligned or not."""
+    c = make_global_case(B, H, 16, DH, P)
+    q, k, v, a, b, idx, mask = port_global_args(c)
+    t2, t3 = build_tables(q, k, a, b)
+    assert t2.shape == t3.shape == (B, H, 16, P)
+    _check_tables_args(q, k, v, t2, t3, idx, mask)
+    _check_tables_args(*(x.bfloat16() for x in (q, k, v, t2, t3)), idx,
+                       mask)
+    _check_bwd_args(q, k, v, torch.zeros_like(q), t2, t3, idx, mask,
+                    *walk_orders(idx))

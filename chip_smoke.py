@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (gtos_tpu_torch) on one NVIDIA GPU, end to end:
 serving and training of the configs/c2_amr2.json model at full width,
-under each dense attention impl ("pallas_local", "pallas", "auto"), and of
-the configs/c5_scaled_synthetic.json model at full width under the
-block-sparse tier ("block_sparse", "sparse"), and the train and work CLIs.
+under each dense attention impl ("pallas_local", "pallas", "auto"), of
+the configs/c4_nmt_ende.json translator at full width under
+"pallas_local", and of the configs/c5_scaled_synthetic.json model at full
+width under the block-sparse tier ("block_sparse", "sparse"); the train
+and work CLIs on PENMAN and CoNLL files; the host pipeline.
 
     python3 chip_smoke.py            # from the repo root, on a machine with a card
     python3 chip_smoke.py --profile  # and where the serving and training time goes
@@ -11,8 +13,10 @@ block-sparse tier ("block_sparse", "sparse"), and the train and work CLIs.
 Phases, each of which exits non-zero on failure:
   1. device  — requires CUDA; prints the card's name and power limit;
   2. build   — builds every CUDA kernel from gtos_tpu_torch/ops/csrc (one
-               nvcc per source, all started together; sm_90a) and prints
-               the build times, registers and spills;
+               nvcc per source, all started together; sm_90a) and the
+               native path extractor (gtos_tpu_torch/native/paths.cpp,
+               g++; it must build), and prints the build times, registers
+               and spills;
   3. kernels — holds each kernel against its plain torch version on real
                batchify index arrays, bf16 and f32, and times both (CUDA
                events, L2 flushed before every launch) beside the bound:
@@ -80,7 +84,33 @@ Phases, each of which exits non-zero on failure:
                BLEU and chrF; then the same with `--config
                configs/c5_scaled_synthetic.json --attention_impl
                block_sparse --graph 1 --dp 0`;
-  12. c5     — the c5 model at full width (bf16, sparse_khop 4) on
+  12. c4     — the c4 translator at full width (bf16, dropout 0.2, label
+               smoothing 0.1, no copy, node positions) on C4_GRAPHS
+               synthetic dependency trees of 10-50 tokens: the train
+               loader's batch shapes per node bucket (B, P, bank rows in
+               use, P_loc after the bisect), then phases 4-7 for it
+               (serving the fullest batch of each bucket 16/32/64 with B1 =
+               enc_layers per batch; the encoder check with the planted
+               B1s; TRAIN_STEPS steps with B1p = B2 = enc_layers per step;
+               the gradient check with the planted B2s; a bit-identical
+               resume) and B1, B1p, B2 on its own inputs (model "c4" in
+               the JSON line);
+  13. work nmt — the train CLI with `--config configs/c4_nmt_ende.json
+               --task nmt` on a CoNLL file and its target file
+               (`--train_data/--train_target`, `--dev_data/--dev_target`,
+               `--batchify_workers 4`), then the work CLI with
+               `--test_data/--test_target`: one hypothesis per sentence in
+               file order, BLEU and chrF;
+  14. host   — the card machine's host, with its CPU count: the native
+               path extractor must build; preprocess ms per graph native
+               against Python on the c2 and c4 corpora (the same
+               PackedPaths); the train loaders' ms per batch at workers
+               0/2/4 (processes) and 4 (threads), every array equal to
+               workers=0's; 10 c2 training steps from a 4-worker loader
+               with the same losses, bit for bit;
+  15. batch_multiple — one c2 train batch of B=16 padded to 18: B1p and
+               B2 launch on it, its loss equal to B=16's within 1e-6;
+  16. c5     — the c5 model at full width (bf16, sparse_khop 4) on
                C5_GRAPHS synthetic graphs of 100-500 nodes: serving the
                fullest batch of each node bucket (128/256/512; B5 =
                enc_layers per batch, no other kernel), the encoder on the
@@ -90,17 +120,17 @@ Phases, each of which exits non-zero on failure:
                wrong B6s (B6d, B6s, B6b) and a planted wrong B5s (no k.a
                term), "sparse" against "block_sparse"
                on one batch, and a bit-identical resume;
-  13. shapes — each kernel again, on the very inputs the serving runs (B1;
+  17. shapes — each kernel again, on the very inputs the serving runs (B1;
                B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
                B5s, B6d, B6s, B6b) gave it, against its plain version and
                timed: the table rows (a planted B2 with g_a zeroed, a
                planted B4 with g_t3 zeroed and two planted B3s, one reading
                t3 at the query row and one without the t2 term, must fail
                the gate there);
-  14. profile — with --profile only: torch.profiler over each served batch
+  18. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
-               "pallas") and over one c5 train step on each captured
-               batch ("block_sparse"), the device busy time, idle share,
+               "pallas") and over one c4 and one c5 train step on each
+               captured batch ("pallas_local", "block_sparse"), the device busy time, idle share,
                top kernels and each block-sparse kernel's share; for
                "pallas_local" also the shares of B1p, B2 and of any copy
                of the bank halves a/b (and of their slice backward), for
@@ -154,6 +184,10 @@ PROBS_TOL = dict(atol=1e-5, rtol=1e-4)
 # relative L2 gap over the parameters with a gradient, and the loss gap
 GRAD_TOL = {"float32": dict(rel=1e-2, loss=1e-4),
             "bfloat16": dict(rel=0.4, loss=1e-2)}
+# the c4 translator (configs/c4_nmt_ende.json: no copy, node positions)
+# on synthetic dependency trees of 10-50 tokens, a translator's sentence
+# lengths; served requests are another seed of the same corpus
+C4_GRAPHS, C4_LENGTHS = 400, (10, 50)
 # the c5 model (configs/c5_scaled_synthetic.json) on synthetic graphs of
 # 100-500 nodes: the node buckets 128/256/512 with the bank and edge-cell
 # ladders widened (as tests/test_ring_block_sparse.py widens them); the
@@ -307,9 +341,11 @@ def time_ms(fn, iters=30, warmup=3):
 
 
 def phase_build():
-    """Every kernel source, one nvcc each, all started together."""
+    """Every kernel source, one nvcc each, and the native path extractor
+    (g++), all started together; the extractor must build."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from gtos_tpu_torch import native
     from gtos_tpu_torch.ops import block_sparse_attention as bsa
     from gtos_tpu_torch.ops import block_sparse_attention_bwd as bsab
     from gtos_tpu_torch.ops import build
@@ -323,9 +359,21 @@ def phase_build():
         log = build.build(source)
         return source, time.perf_counter() - t0, log
 
+    def one_native():
+        t0 = time.perf_counter()
+        built = native.build()
+        return time.perf_counter() - t0, built
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        cpp = pool.submit(one_native)
         results = list(pool.map(one, SOURCES))
+    try:
+        seconds, built = cpp.result()
+    except (OSError, RuntimeError) as e:
+        fail(f"the native path extractor did not build: {e}")
+    print(f"[build] native/paths.cpp (g++): {seconds:.2f} s"
+          + ("" if built else " (library already built)"))
     for source, seconds, log in results:
         print(f"[build] {source}: {seconds:.2f} s"
               + ("" if log else " (library already built)"))
@@ -1157,12 +1205,13 @@ def read_counts():
     return {name: _wrapper(name).launches for name in KERNELS}
 
 
-def table_row(name, rows, launches):
-    """The JSON line's row of one kernel: the mean over the main path's
-    inputs of each number, the largest error."""
+def table_row(name, rows, launches, model="c2"):
+    """The JSON line's row of one kernel on one model's main path (its
+    "model": "c2", "c4" or "c5"): the mean over that path's inputs of each
+    number, the largest error."""
     _, source, replaces = KERNELS[name]
-    row = dict(name=name, route="cuda", source=source, replaces=replaces,
-               launches=launches[name], library_ms=None,
+    row = dict(name=name, model=model, route="cuda", source=source,
+               replaces=replaces, launches=launches[name], library_ms=None,
                design=DESIGNS[name])
     if all("library_ms" in r for r in rows):
         row["library_ms"] = sum(r["library_ms"] for r in rows) / len(rows)
@@ -1175,20 +1224,22 @@ def table_row(name, rows, launches):
 
 
 def phase_main_shapes(b1_inputs, serve_launches, train_inputs,
-                      train_launches):
-    """Each kernel on the inputs its main path gave it, held against its
-    plain version and timed: B1 on layer 0 of each served batch (bf16),
-    B1p and B2 on layer 0 of CAPTURE_BATCHES train batches (bf16). The
-    launches are those of the serving run (B1) and of the training run
-    (B1p, B2)."""
-    b1 = [check_b1(f"serve{i}", args) for i, args in enumerate(b1_inputs)]
+                      train_launches, model="c2"):
+    """Each kernel on the inputs a model's main path gave it, held against
+    its plain version and timed: B1 on layer 0 of each served batch
+    (bf16), B1p and B2 on layer 0 of CAPTURE_BATCHES train batches (bf16;
+    a planted B2 with g_a zeroed must fail B2's gate). The launches are
+    those of the serving run (B1) and of the training run (B1p, B2)."""
+    pre = "" if model == "c2" else f"{model} "
+    b1 = [check_b1(f"{pre}serve{i}", args)
+          for i, args in enumerate(b1_inputs)]
     b1p, b2 = [], []
     for i, (fwd, bwd) in enumerate(train_inputs):
-        b1p.append(check_b1p(f"train{i}", fwd))
-        b2.append(check_b2(f"train{i}", bwd, fwd[6], plant=True))
-    return [table_row(B1, b1, serve_launches),
-            table_row(B1P, b1p, train_launches),
-            table_row(B2, b2, train_launches)]
+        b1p.append(check_b1p(f"{pre}train{i}", fwd))
+        b2.append(check_b2(f"{pre}train{i}", bwd, fwd[6], plant=True))
+    return [table_row(B1, b1, serve_launches, model),
+            table_row(B1P, b1p, train_launches, model),
+            table_row(B2, b2, train_launches, model)]
 
 
 def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
@@ -1218,33 +1269,59 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
     return [table_row(name, rows[name], launches) for name in (B3, B3I, B4)]
 
 
+def raw_corpus(family="c2", seed=0, n=None):
+    """(graphs, targets) of a family's synthetic corpus: c2's AMR
+    2.0-scale graphs (2000 by default), c4's dependency trees of
+    C4_LENGTHS tokens (C4_GRAPHS by default)."""
+    from gtos_tpu_torch.data.synthetic import (
+        synthetic_amr2_corpus, synthetic_dependency_corpus)
+
+    if family == "c4":
+        lo, hi = C4_LENGTHS
+        return synthetic_dependency_corpus(n or C4_GRAPHS, seed=seed,
+                                           min_len=lo, max_len=hi)
+    return synthetic_amr2_corpus(n or 2000, seed=seed)
+
+
 @functools.lru_cache(maxsize=None)
-def corpus():
-    """The port's synthetic AMR 2.0-scale corpus (2000 instances, seed 0),
-    preprocessed, with its vocabularies: the training data and the
-    vocabularies of every model here."""
+def corpus(family="c2"):
+    """A family's synthetic corpus (seed 0), preprocessed, with its
+    vocabularies: the training data and the vocabularies of every model
+    of the family here."""
     from gtos_tpu_torch.data.dataloader import preprocess
     from gtos_tpu_torch.data.extract import build_vocabs
-    from gtos_tpu_torch.data.synthetic import synthetic_amr2_corpus
 
-    graphs, targets = synthetic_amr2_corpus(2000, seed=0)
+    graphs, targets = raw_corpus(family)
     return preprocess(graphs, targets), build_vocabs(graphs, targets)
 
 
-def c2_configs():
-    """The ModelConfig and TrainConfig of configs/c2_amr2.json with the
-    corpus's vocabulary sizes."""
+FAMILY_CONFIG = {"c2": "c2_amr2.json", "c4": "c4_nmt_ende.json"}
+
+
+def configs(family="c2"):
+    """The ModelConfig and TrainConfig of the family's config file
+    (configs/c2_amr2.json, configs/c4_nmt_ende.json: no copy, node
+    positions) with the corpus's vocabulary sizes."""
     from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 
-    with open(os.path.join(ROOT, "configs", "c2_amr2.json")) as f:
+    with open(os.path.join(ROOT, "configs", FAMILY_CONFIG[family])) as f:
         conf = json.load(f)
-    tv, cv, rv, chv, _ = corpus()[1]
+    tv, cv, rv, chv, _ = corpus(family)[1]
     pick = lambda cls: {f.name: conf[f.name]  # noqa: E731
                         for f in dataclasses.fields(cls) if f.name in conf}
+    nmt = conf["task"] == "nmt"   # as the train CLI sets them per task
     cfg = ModelConfig(**pick(ModelConfig), token_vocab=len(tv),
                       concept_vocab=len(cv), relation_vocab=len(rv),
-                      char_vocab=len(chv))
+                      char_vocab=len(chv), use_copy=not nmt,
+                      use_node_positions=nmt)
     return cfg, TrainConfig(**pick(TrainConfig))
+
+
+def tag_of(base, impl="pallas_local", family="c2"):
+    """A phase's print tag: `base`, the impl unless "pallas_local", the
+    family unless "c2" ("serve", "train pallas", "c4 grads")."""
+    return " ".join(([family] if family != "c2" else []) + [base]
+                    + ([impl] if impl != "pallas_local" else []))
 
 
 def route_of(impl, arrays, cfg):
@@ -1280,32 +1357,31 @@ def describe(batch):
             f"P={batch.rel_bank.shape[0]}{loc}")
 
 
-def serving_setup(impl="pallas_local"):
-    """The c2_amr2 model at full width (random weights from seed 0) with
+def serving_setup(impl="pallas_local", family="c2"):
+    """The family's model at full width (random weights from seed 0) with
     the corpus's vocabularies under attention_impl `impl`, and a
-    DataLoader of held-out requests (another seed of the same corpus)
-    with the impl's loader flags."""
+    DataLoader of 1024 held-out requests (another seed of the same
+    corpus) with the impl's loader flags."""
     import torch
 
     from gtos_tpu_torch.data import DataLoader
     from gtos_tpu_torch.data.dataloader import preprocess
-    from gtos_tpu_torch.data.synthetic import synthetic_amr2_corpus
     from gtos_tpu_torch.models import Generator
     from gtos_tpu_torch.train.train import loader_flags
 
-    cfg, _ = c2_configs()
+    cfg, _ = configs(family)
     cfg = dataclasses.replace(cfg, attention_impl=impl)
-    tv, cv, rv, chv, lm = corpus()[1]
+    tv, cv, rv, chv, lm = corpus(family)[1]
     model = Generator(cfg, device="cuda",
                       rng=torch.Generator().manual_seed(0))
-    req_g, req_t = synthetic_amr2_corpus(1024, seed=1)
+    req_g, req_t = raw_corpus(family, seed=1, n=1024)
     loader = DataLoader(preprocess(req_g, req_t), tv, cv, rv, chv, lm,
                         batch_size_tokens=4096, for_train=False,
                         **loader_flags(impl))
     return cfg, model, loader, tv
 
 
-def phase_serve(impl="pallas_local"):
+def phase_serve(impl="pallas_local", family="c2"):
     """Serve SERVE_BATCHES batches, the fullest of each of the smallest
     node buckets, through decode_batch, after one warm-up decode; under
     "pallas" also the fullest batch whose bank takes B3', under "auto" the
@@ -1317,12 +1393,14 @@ def phase_serve(impl="pallas_local"):
 
     from gtos_tpu_torch.infer.decode import decode_batch
 
-    tag = "serve" if impl == "pallas_local" else f"serve {impl}"
-    cfg, model, loader, tv = serving_setup(impl)
+    tag = tag_of("serve", impl, family)
+    cfg, model, loader, tv = serving_setup(impl, family)
     print(f"[{tag}] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
           f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
-          f"{cfg.attention_impl}; vocab token={cfg.token_vocab} "
-          f"concept={cfg.concept_vocab} relation={cfg.relation_vocab}")
+          f"{cfg.attention_impl} use_copy={cfg.use_copy} "
+          f"use_node_positions={cfg.use_node_positions}; vocab token="
+          f"{cfg.token_vocab} concept={cfg.concept_vocab} relation="
+          f"{cfg.relation_vocab}")
     steps = 0
     served = model.serving_copy()   # what decode_batch runs: kept until
     decode_step = served.decode_step  # the parameters change
@@ -1469,7 +1547,7 @@ def planted_b1(kind):
     return wrong
 
 
-def phase_encoder_check(cfg, model, batch):
+def phase_encoder_check(cfg, model, batch, tag="encode"):
     """Generator.encode on the card (kernel) vs the same weights on the
     CPU in f32 (plain version), over the batch's real nodes: the served
     bf16 model, and the same weights in f32 on the card. Each planted
@@ -1496,7 +1574,7 @@ def phase_encoder_check(cfg, model, batch):
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
         tol = ENCODER_TOL[dtype_name]
         ok = max_abs <= tol["max_abs"] and mean_abs <= tol["mean_abs"]
-        print(f"[encode] card {dtype_name} with {b1} vs cpu f32 over "
+        print(f"[{tag}] card {dtype_name} with {b1} vs cpu f32 over "
               f"{int(mask.sum())} real nodes: max_abs={max_abs:.4e} "
               f"mean_abs={mean_abs:.4e} (tol {tol}): "
               + ("within" if ok else "outside"), flush=True)
@@ -1580,20 +1658,20 @@ class StepLog:
         return [r["loss"] for r in self.records if r.get("kind") == "train"]
 
 
-def train_loader(seed=None, impl="pallas_local"):
-    """for_train=True DataLoader over the corpus with the loader flags of
-    attention_impl `impl`, as the train CLI builds it (c2's 8192-token
-    batches)."""
+def train_loader(seed=None, impl="pallas_local", family="c2", **kw):
+    """for_train=True DataLoader over the family's corpus with the loader
+    flags of attention_impl `impl`, as the train CLI builds it (8192-token
+    batches), and the DataLoader keywords `kw` (workers, batch_multiple)."""
     from gtos_tpu_torch.data import BucketSpec, DataLoader
     from gtos_tpu_torch.train.train import loader_flags
 
-    cfg, tcfg = c2_configs()
-    instances, vocabs = corpus()
+    cfg, tcfg = configs(family)
+    instances, vocabs = corpus(family)
     return DataLoader(instances, *vocabs,
                       batch_size_tokens=tcfg.batch_size_tokens,
                       spec=BucketSpec().for_model_max_oov(cfg.max_oov),
                       for_train=True, **loader_flags(impl),
-                      seed=tcfg.seed if seed is None else seed)
+                      seed=tcfg.seed if seed is None else seed, **kw)
 
 
 def route_plan(impl, cfg, head, picks):
@@ -1618,7 +1696,7 @@ def route_plan(impl, cfg, head, picks):
     return plan, extra
 
 
-def new_trainer(cfg, tcfg, seed, ckpt=None, log=None):
+def new_trainer(cfg, tcfg, seed, ckpt=None, log=None, family="c2"):
     import torch
 
     from gtos_tpu_torch.models import Generator
@@ -1626,7 +1704,7 @@ def new_trainer(cfg, tcfg, seed, ckpt=None, log=None):
 
     model = Generator(cfg, device="cuda",
                       rng=torch.Generator().manual_seed(seed))
-    example = next(iter(train_loader()))
+    example = next(iter(train_loader(family=family)))
     return Trainer(model, cfg, tcfg, example.arrays(), metrics_writer=log,
                    checkpoint_manager=ckpt, device="cuda")
 
@@ -1646,23 +1724,24 @@ def train_expect(impl, cfg, batches):
     return expect
 
 
-def phase_train(impl="pallas_local"):
-    """Trainer.fit of the c2 model at full width (bf16, dropout 0.2, label
-    smoothing 0.1, the c2 schedule) under attention_impl `impl`, counting
-    the launches of that run: "pallas_local" TRAIN_STEPS steps from the
-    DataLoader, then the overfit; "pallas" PALLAS_STEPS steps, the
-    loader's first batches (4096-row banks: B3) and then
-    PALLAS_INLINE_STEPS batches of the same epoch whose banks fit
+def phase_train(impl="pallas_local", family="c2"):
+    """Trainer.fit of the family's model at full width (bf16, dropout
+    0.2, label smoothing 0.1, the config's schedule) under attention_impl
+    `impl`, counting the launches of that run: "pallas_local" TRAIN_STEPS
+    steps from the DataLoader, then for c2 the overfit; "pallas"
+    PALLAS_STEPS steps, the loader's first batches (4096-row banks: B3)
+    and then PALLAS_INLINE_STEPS batches of the same epoch whose banks fit
     _inline_fits (B3'). Returns the trainer, its mean ms per step after
     the first logged interval, the launches and the batches trained on."""
     import torch
 
-    cfg, tcfg = c2_configs()
+    cfg, tcfg = configs(family)
     cfg = dataclasses.replace(cfg, attention_impl=impl)
-    tag = "train" if impl == "pallas_local" else f"train {impl}"
+    tag = tag_of("train", impl, family)
     if impl == "pallas_local":
-        steps, source = TRAIN_STEPS, train_loader()
-        batches = [b for _, b in zip(range(steps), train_loader())]
+        steps, source = TRAIN_STEPS, train_loader(family=family)
+        batches = [b for _, b in zip(range(steps),
+                                     train_loader(family=family))]
     else:
         steps = PALLAS_STEPS
         head, extra = route_plan(impl, cfg, steps - PALLAS_INLINE_STEPS,
@@ -1670,13 +1749,14 @@ def phase_train(impl="pallas_local"):
         batches = source = head + extra[B3I]
     log = StepLog(tag)
     trainer = new_trainer(cfg, dataclasses.replace(
-        tcfg, total_steps=steps, checkpoint_every=10 ** 9), 0, log=log)
+        tcfg, total_steps=steps, checkpoint_every=10 ** 9), 0, log=log,
+        family=family)
     print(f"[{tag}] model d={cfg.d_model} ff={cfg.d_ff} heads={cfg.heads} "
           f"enc={cfg.enc_layers} dec={cfg.dec_layers} {cfg.compute_dtype} "
           f"{cfg.attention_impl} dropout={cfg.dropout} label_smoothing="
           f"{cfg.label_smoothing}; {steps} steps of "
           f"{tcfg.batch_size_tokens}-token batches", flush=True)
-    if impl != "pallas_local":
+    if impl != "pallas_local" or family != "c2":
         for i, batch in enumerate(batches):
             print(f"[{tag}] step {i + 1} batch: {describe(batch)} -> "
                   f"{route_of(impl, batch.arrays(), cfg)[1]}")
@@ -1703,7 +1783,7 @@ def phase_train(impl="pallas_local"):
           f"{ {k: v for k, v in launches.items() if v} } = "
           f"{cfg.enc_layers} layers x {steps} steps", flush=True)
 
-    if impl == "pallas_local":
+    if impl == "pallas_local" and family == "c2":
         overfit(cfg, tcfg)
     return trainer, ms_step, launches, batches
 
@@ -1832,7 +1912,7 @@ def grad_gap(ref, got):
     return abs(loss - ref_loss), worst, name
 
 
-def phase_grads(impl="pallas_local"):
+def phase_grads(impl="pallas_local", family="c2"):
     """The loss and every parameter gradient of one train batch (dropout
     0) under attention_impl `impl` on the card with the kernels, the f32
     model and the bf16 one, against the same f32 weights on the CPU with
@@ -1842,11 +1922,11 @@ def phase_grads(impl="pallas_local"):
 
     from gtos_tpu_torch.models import Generator
 
-    tag = "grads" if impl == "pallas_local" else f"grads {impl}"
-    cfg, _ = c2_configs()
+    tag = tag_of("grads", impl, family)
+    cfg, _ = configs(family)
     cfg = dataclasses.replace(cfg, dropout=0.0, attention_impl=impl)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    loader = train_loader(seed=3, impl=impl)
+    loader = train_loader(seed=3, impl=impl, family=family)
     batch = next(b for b in loader if b.concept_mask.shape[1] == 32)
     arrays = batch.arrays()
     weights = Generator(cfg, device="cpu",
@@ -1894,7 +1974,7 @@ def phase_grads(impl="pallas_local"):
             fail(f"the gradient check passes a {bwd} with {kind}")
 
 
-def phase_resume(impl="pallas_local"):
+def phase_resume(impl="pallas_local", family="c2"):
     """The c2 model under attention_impl `impl` trained RESUME_AT steps,
     saved, restored into a fresh model and trainer and trained RESUME_MORE
     more, against the unbroken run of the same seeds: the losses of the
@@ -1902,28 +1982,29 @@ def phase_resume(impl="pallas_local"):
     each run of bank rows, in a fixed order; no atomics)."""
     from gtos_tpu_torch.train.checkpoint import CheckpointManager
 
-    tag = "resume" if impl == "pallas_local" else f"resume {impl}"
-    cfg, tcfg = c2_configs()
+    tag = tag_of("resume", impl, family)
+    cfg, tcfg = configs(family)
     cfg = dataclasses.replace(cfg, attention_impl=impl)
     total = RESUME_AT + RESUME_MORE
     tcfg = dataclasses.replace(tcfg, total_steps=total,
                                checkpoint_every=RESUME_AT)
+    loader = functools.partial(train_loader, impl=impl, family=family)
     whole = StepLog(tag)
-    new_trainer(cfg, tcfg, 5, log=whole).fit(train_loader(impl=impl),
-                                             log_every=1)
+    new_trainer(cfg, tcfg, 5, log=whole, family=family).fit(
+        loader(), log_every=1)
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
         ckpt = CheckpointManager(tmp, cfg, tcfg)
         new_trainer(cfg, dataclasses.replace(tcfg, total_steps=RESUME_AT),
-                    5, ckpt=ckpt, log=StepLog(tag)).fit(
-                        train_loader(impl=impl), log_every=1)
+                    5, ckpt=ckpt, log=StepLog(tag), family=family).fit(
+                        loader(), log_every=1)
         cont = StepLog(tag)
         trainer = new_trainer(cfg, tcfg, 6, ckpt=CheckpointManager(
-            tmp, cfg, tcfg), log=cont)
+            tmp, cfg, tcfg), log=cont, family=family)
         if trainer.restore_if_available() != RESUME_AT:
             fail("restore did not find the checkpoint of step "
                  f"{RESUME_AT}")
-        trainer.fit(train_loader(impl=impl), log_every=1)
+        trainer.fit(loader(), log_every=1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want, got = whole.losses()[RESUME_AT:], cont.losses()
@@ -2070,7 +2151,7 @@ def phase_auto():
     from gtos_tpu_torch.models import Generator
     from gtos_tpu_torch.models.generator import batch_to_device
 
-    cfg, tcfg = c2_configs()
+    cfg, tcfg = configs()
     cfg = dataclasses.replace(cfg, attention_impl="auto")
     local, extra = route_plan("auto", cfg, AUTO_STEPS_PER_ROUTE,
                               [(B3, AUTO_STEPS_PER_ROUTE)])
@@ -2136,6 +2217,22 @@ def penman(graph) -> str:
     return node(0)
 
 
+def run_cli(tag, cmd):
+    """A CLI as a subprocess from the repo root; its stderr's last line
+    and its wall time printed. Returns the completed process."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *cmd], cwd=ROOT, env=env,
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        fail(f"{cmd[0]} failed:\n{res.stderr[-3000:]}")
+    print(f"[{tag}] {' '.join(cmd)}: "
+          f"{res.stderr.strip().splitlines()[-1]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return res
+
+
 def phase_work():
     """The CLIs a user runs, as subprocesses on the card: the train CLI
     with the c2 config under "auto" on WORK_SYNTHETIC synthetic instances
@@ -2150,24 +2247,14 @@ def phase_work():
     from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
     from gtos_tpu_torch.infer import work
 
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT, os.environ.get("PYTHONPATH", "")]))
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_work_", dir=ROOT)
     try:
         ckpt, sembank, output = (os.path.join(tmp, n) for n in (
             "ckpt", "test.amr", "hyps.txt"))
-        cmd = [sys.executable, "-m", "gtos_tpu_torch.train.train",
-               "--config", "configs/c2_amr2.json", "--attention_impl",
-               "auto", "--synthetic", str(WORK_SYNTHETIC), "--total_steps",
-               str(WORK_STEPS), "--ckpt_dir", ckpt]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            fail(f"the train CLI failed:\n{res.stderr[-3000:]}")
-        print(f"[work] {' '.join(cmd[1:])}: "
-              f"{res.stderr.strip().splitlines()[-1]} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        run_cli("work", [
+            "gtos_tpu_torch.train.train", "--config", "configs/c2_amr2.json",
+            "--attention_impl", "auto", "--synthetic", str(WORK_SYNTHETIC),
+            "--total_steps", str(WORK_STEPS), "--ckpt_dir", ckpt])
         graphs, targets = synthetic_amr_corpus(WORK_GRAPHS, seed=7)
         refs = [" ".join(t) for t in targets]
         with open(sembank, "w") as f:
@@ -2175,20 +2262,14 @@ def phase_work():
                 f.write(f"# ::id s{i} ::snt {ref}\n{penman(g)}\n\n")
         args = ["--ckpt_dir", ckpt, "--test_data", sembank, "--output",
                 output, "--max_time_step", "32"]
-        cmd = [sys.executable, "-m", "gtos_tpu_torch.infer.work", *args,
-               "--eval_bleu", "--eval_chrf"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            fail(f"the work CLI failed:\n{res.stderr[-3000:]}")
+        res = run_cli("work", ["gtos_tpu_torch.infer.work", *args,
+                               "--eval_bleu", "--eval_chrf"])
         scores = dict(re.findall(r"^(BLEU|chrF) = ([0-9.]+)$", res.stderr,
                                  re.M))
         with open(output) as f:
             hyps = f.read().splitlines()
-        print(f"[work] {' '.join(cmd[1:])}: {len(hyps)} hypotheses for "
-              f"{len(graphs)} graphs, BLEU {scores.get('BLEU')}, chrF "
-              f"{scores.get('chrF')} ({time.perf_counter() - t0:.1f} s); "
+        print(f"[work] {len(hyps)} hypotheses for {len(graphs)} graphs, "
+              f"BLEU {scores.get('BLEU')}, chrF {scores.get('chrF')}; "
               f"first: {hyps[0][:60]!r}", flush=True)
         if len(hyps) != len(graphs) or set(scores) != {"BLEU", "chrF"}:
             fail("the work CLI must write one hypothesis per graph and "
@@ -2213,41 +2294,358 @@ def phase_work():
 
         # the c5 model under the block-sparse tier, on one card
         ckpt5, out5 = os.path.join(tmp, "ckpt5"), os.path.join(tmp, "h5.txt")
-        cmd = [sys.executable, "-m", "gtos_tpu_torch.train.train",
-               "--config", "configs/c5_scaled_synthetic.json",
-               "--attention_impl", "block_sparse", "--graph", "1", "--dp",
-               "0", "--synthetic", str(WORK_SYNTHETIC), "--total_steps",
-               str(WORK_STEPS), "--ckpt_dir", ckpt5]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            fail(f"the c5 train CLI failed:\n{res.stderr[-3000:]}")
-        print(f"[work] {' '.join(cmd[1:])}: "
-              f"{res.stderr.strip().splitlines()[-1]} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        cmd = [sys.executable, "-m", "gtos_tpu_torch.infer.work",
-               "--ckpt_dir", ckpt5, "--test_data", sembank, "--output", out5,
-               "--max_time_step", "32", "--eval_bleu", "--eval_chrf"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            fail(f"the work CLI on the c5 checkpoint failed:\n"
-                 f"{res.stderr[-3000:]}")
+        run_cli("work", [
+            "gtos_tpu_torch.train.train", "--config",
+            "configs/c5_scaled_synthetic.json", "--attention_impl",
+            "block_sparse", "--graph", "1", "--dp", "0", "--synthetic",
+            str(WORK_SYNTHETIC), "--total_steps", str(WORK_STEPS),
+            "--ckpt_dir", ckpt5])
+        res = run_cli("work", [
+            "gtos_tpu_torch.infer.work", "--ckpt_dir", ckpt5, "--test_data",
+            sembank, "--output", out5, "--max_time_step", "32",
+            "--eval_bleu", "--eval_chrf"])
         with open(out5) as f:
             hyps = f.read().splitlines()
         scores = dict(re.findall(r"^(BLEU|chrF) = ([0-9.]+)$", res.stderr,
                                  re.M))
-        print(f"[work] {' '.join(cmd[1:])}: {len(hyps)} hypotheses for "
-              f"{len(graphs)} graphs, BLEU {scores.get('BLEU')}, chrF "
-              f"{scores.get('chrF')} ({time.perf_counter() - t0:.1f} s)",
+        print(f"[work] c5: {len(hyps)} hypotheses for {len(graphs)} graphs, "
+              f"BLEU {scores.get('BLEU')}, chrF {scores.get('chrF')}",
               flush=True)
         if len(hyps) != len(graphs) or set(scores) != {"BLEU", "chrF"}:
             fail("the work CLI on the c5 checkpoint must write one "
                  "hypothesis per graph and print BLEU and chrF")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- c4
+
+
+def describe_loader(tag, loader):
+    """One epoch of a loader per node bucket N: its batches, the sentences
+    in them, the batch sizes B (padded) and the instances per batch, the
+    bank P (padded) and the rows in use, and P_loc, after the
+    bank-overflow bisect."""
+    shapes = {}
+    for batch, insts in loader.iter_with_instances():
+        B, N = batch.concept_mask.shape
+        shapes.setdefault(N, []).append(
+            (B, len(insts), batch.rel_bank.shape[0],
+             int((batch.rel_length > 0).sum()) + 1,
+             batch.bank_map.shape[1]))
+    for N, rows in sorted(shapes.items()):
+        col = lambda i: sorted({r[i] for r in rows})  # noqa: E731
+        print(f"[{tag}] node bucket N={N}: {len(rows)} batches, "
+              f"{sum(r[1] for r in rows)} sentences; B {col(0)}, "
+              f"sentences per batch {min(col(1))}-{max(col(1))}; P "
+              f"{col(2)}, bank rows in use {min(col(3))}-{max(col(3))}; "
+              f"P_loc {min(col(4))}-{max(col(4))}", flush=True)
+
+
+def phase_c4(profile=False):
+    """The c4 translator (configs/c4_nmt_ende.json at full width: no copy,
+    node positions) under "pallas_local" on C4_GRAPHS synthetic dependency
+    trees of C4_LENGTHS tokens: the train loader's batch shapes, serving
+    the fullest batch of each node bucket (B1 = enc_layers per batch, no
+    other kernel), the encoder against f32 on the CPU with the planted
+    B1s, TRAIN_STEPS training steps (B1p = B2 = enc_layers per step), the
+    loss and every gradient against f32 on the CPU with the planted B2s,
+    a bit-identical resume, and B1, B1p and B2 on c4's own inputs: the
+    JSON line's rows of model "c4". With `profile`, one more profiled step
+    on each captured train batch."""
+    import torch
+
+    describe_loader("c4 loader", train_loader(family="c4"))
+    cfg, model, _, batches, _, serve_launches = phase_serve(family="c4")
+    phase_encoder_check(cfg, model, batches[0], tag="c4 encode")
+    b1_inputs = capture_b1_inputs(model, batches)
+    del model
+    torch.cuda.empty_cache()
+    trainer, ms_step, train_launches, _ = phase_train(family="c4")
+    captured = [b for _, b in zip(range(CAPTURE_BATCHES),
+                                  train_loader(family="c4"))]
+    train_inputs = capture_train_inputs(trainer, captured)
+    if profile:
+        for i, batch in enumerate(captured):
+            phase_profile_train(trainer, ms_step, batch=batch,
+                                label=f"c4 pallas_local train step {i + 1}")
+    del trainer
+    torch.cuda.empty_cache()
+    phase_grads(family="c4")
+    phase_resume(family="c4")
+    torch.cuda.empty_cache()
+    return phase_main_shapes(b1_inputs, serve_launches, train_inputs,
+                             train_launches, "c4")
+
+
+def conll(graph) -> str:
+    """A dependency Graph as CoNLL lines `idx token head deprel` (head 0
+    and the label "root" for the token without a head)."""
+    heads = {t: (src, label) for src, label, t in graph.edges}
+    rows = []
+    for i, tok in enumerate(graph.nodes):
+        h, label = heads.get(i, (-1, "root"))
+        rows.append(f"{i + 1}\t{tok}\t{h + 1}\t{label}")
+    return "\n".join(rows)
+
+
+def phase_work_nmt():
+    """The translator's CLIs as subprocesses on the card: the train CLI
+    with configs/c4_nmt_ende.json on a CoNLL file and its target file
+    (WORK_SYNTHETIC synthetic trees of C4_LENGTHS tokens; dev: 48 more)
+    for WORK_STEPS steps, its batches built by 4 worker processes, writes
+    a checkpoint; the work CLI rebuilds the model from it and decodes
+    WORK_GRAPHS of the training sentences as a CoNLL test file with
+    --test_target (beam 8), printing BLEU and chrF. One hypothesis per
+    sentence, in file order, which a second, in-process run checks with
+    a decode that answers each sentence's reference, spelled from its
+    batch's token_out."""
+    import re
+
+    from gtos_tpu_torch.infer import decode, work
+
+    graphs, targets = raw_corpus("c4", seed=7, n=WORK_SYNTHETIC + 48)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_nmt_", dir=ROOT)
+    try:
+        def write(name, sl):
+            with open(os.path.join(tmp, f"{name}.conll"), "w") as f:
+                f.write("\n\n".join(conll(g) for g in graphs[sl]) + "\n")
+            with open(os.path.join(tmp, f"{name}.tgt"), "w") as f:
+                f.writelines(" ".join(t) + "\n" for t in targets[sl])
+            return os.path.join(tmp, name)
+
+        train = write("train", slice(0, WORK_SYNTHETIC))
+        dev = write("dev", slice(WORK_SYNTHETIC, None))
+        # training sentences: every target word is in the token vocab, so
+        # token_out spells each reference
+        test = write("test", slice(0, WORK_GRAPHS))
+        refs = [" ".join(t) for t in targets[:WORK_GRAPHS]]
+        ckpt, output = os.path.join(tmp, "ckpt"), os.path.join(tmp, "h.txt")
+        run_cli("work nmt", [
+            "gtos_tpu_torch.train.train", "--config",
+            "configs/c4_nmt_ende.json", "--task", "nmt", "--train_data",
+            train + ".conll", "--train_target", train + ".tgt",
+            "--dev_data", dev + ".conll", "--dev_target", dev + ".tgt",
+            "--total_steps", str(WORK_STEPS), "--batchify_workers", "4",
+            "--ckpt_dir", ckpt])
+        args = ["--ckpt_dir", ckpt, "--task", "nmt", "--test_data",
+                test + ".conll", "--test_target", test + ".tgt", "--output",
+                output, "--max_time_step", "32"]
+        res = run_cli("work nmt", ["gtos_tpu_torch.infer.work", *args,
+                                   "--eval_bleu", "--eval_chrf"])
+        scores = dict(re.findall(r"^(BLEU|chrF) = ([0-9.]+)$", res.stderr,
+                                 re.M))
+        with open(output) as f:
+            hyps = f.read().splitlines()
+        print(f"[work nmt] {len(hyps)} hypotheses for {WORK_GRAPHS} "
+              f"sentences, BLEU {scores.get('BLEU')}, chrF "
+              f"{scores.get('chrF')}; first: {hyps[0][:60]!r}", flush=True)
+        if len(hyps) != WORK_GRAPHS or set(scores) != {"BLEU", "chrF"}:
+            fail("the nmt work CLI must write one hypothesis per sentence "
+                 "and print BLEU and chrF")
+
+        def answer(model, batch, tv, **kw):  # each sentence's reference
+            out = []
+            for row in batch.token_out[: len(batch.meta)].tolist():
+                out.append([tv.itos[i] for i in row[: row.index(
+                    tv.end_id)]])
+            return out
+
+        real, decode.decode_batch = decode.decode_batch, answer
+        try:
+            bleu = work.main(args + ["--eval_bleu"])
+        finally:
+            decode.decode_batch = real
+        with open(output) as f:
+            ordered = f.read().splitlines() == refs
+        print(f"[work nmt] file order: a decode that answers each "
+              f"sentence's reference gives BLEU {bleu:.2f} and the "
+              f"references in file order: {'yes' if ordered else 'no'}",
+              flush=True)
+        if not ordered or abs(bleu - 100.0) > 1e-6:
+            fail("the nmt work CLI does not write hypotheses in file order")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- host
+
+
+def epoch_digests(loader):
+    """One epoch of a loader: per batch, a digest of every array (name,
+    dtype, shape, bytes) and of its instances; the seconds it took."""
+    import hashlib
+
+    t0 = time.perf_counter()
+    out = []
+    for batch, insts in loader.iter_with_instances():
+        h = hashlib.sha256(repr([i.orig_index for i in insts]).encode())
+        for k, v in sorted(batch.arrays().items()):
+            h.update(f"{k} {v.dtype} {v.shape}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        out.append(h.hexdigest())
+    return out, time.perf_counter() - t0
+
+
+def phase_host():
+    """Host numbers of the card machine, with its CPU count: the native
+    extractor's build (it must build: a failed build fails the phase);
+    preprocess ms per graph with the native extractor and with the Python
+    BFS on the c2 and c4 corpora, the two giving the same PackedPaths
+    (per graph the same pair_idx and interned ids, one path table); two
+    epochs of each family's train loader at workers 0, 2 and 4 (process)
+    and 4 (thread), ms per batch, every array of every batch equal to
+    workers=0's; 10 c2 training steps from a 4-worker loader (its pool
+    created in the trainer's prefetch thread, after the CUDA context)
+    with the same losses, bit for bit, as from a loader without
+    workers."""
+    import torch
+
+    from gtos_tpu_torch import native
+    from gtos_tpu_torch.data import dataloader
+    from gtos_tpu_torch.graph.paths import pack_relation_paths
+
+    host = f"host of {card_line()}, os.cpu_count() {os.cpu_count()}"
+    try:
+        native.load()
+    except (OSError, RuntimeError) as e:
+        fail(f"the native path extractor does not load: {e}")
+    print(f"[host] {host}; native extractor "
+          f"{native.library_path().name} (built in the build phase)",
+          flush=True)
+    real_packer = dataloader._path_packer
+    for family in ("c2", "c4"):
+        graphs, targets = raw_corpus(family)
+        runs = {}
+        for name in ("native", "python"):
+            if name == "python":
+                dataloader._path_packer = lambda: ("python",
+                                                   pack_relation_paths)
+            try:
+                t0 = time.perf_counter()
+                runs[name] = dataloader.preprocess(graphs, targets)
+                ms = (time.perf_counter() - t0) * 1e3 / len(graphs)
+            finally:
+                dataloader._path_packer = real_packer
+            if dataloader.EXTRACTOR != name:
+                fail(f"preprocess ran the {dataloader.EXTRACTOR} extractor, "
+                     f"{name} expected")
+            runs[name + "_ms"] = ms
+        same = (runs["native"][0].pair_paths.interner.paths
+                == runs["python"][0].pair_paths.interner.paths
+                and all(np.array_equal(a.pair_paths.pair_idx,
+                                       b.pair_paths.pair_idx)
+                        and np.array_equal(a.pair_paths.uniq_gid,
+                                           b.pair_paths.uniq_gid)
+                        for a, b in zip(runs["native"], runs["python"])))
+        nodes = sum(g.num_nodes for g in graphs) / len(graphs)
+        print(f"[host] {family} preprocess of {len(graphs)} graphs "
+              f"({nodes:.1f} nodes each): native {runs['native_ms']:.4f} "
+              f"ms/graph, python {runs['python_ms']:.4f} ms/graph "
+              f"({runs['python_ms'] / runs['native_ms']:.2f}x); the same "
+              f"PackedPaths: {'yes' if same else 'NO'} ({host})", flush=True)
+        if not same:
+            fail(f"the native and Python extractors differ on {family}")
+
+        ref = None
+        for workers, mode in ((0, "process"), (2, "process"),
+                              (4, "process"), (4, "thread")):
+            loader = train_loader(family=family, workers=workers,
+                                  worker_mode=mode)
+            try:
+                got = [epoch_digests(loader) for _ in range(2)]
+            finally:
+                loader.close()
+            digests = [d for d, _ in got]
+            ref = ref or digests
+            n = len(digests[0])
+            kind = f"workers={workers}" + (f" {mode}" if workers else "")
+            print(f"[host] {family} train loader, {kind}: "
+                  f"{n} batches an epoch; epoch 1 (with the pool's start) "
+                  f"{got[0][1] * 1e3 / n:.3f} ms/batch, epoch 2 "
+                  f"{got[1][1] * 1e3 / len(digests[1]):.3f} ms/batch; every "
+                  f"array equal to workers=0's: "
+                  f"{'yes' if digests == ref else 'NO'} ({host})", flush=True)
+            if digests != ref:
+                fail(f"the {family} loader with {workers} {mode} workers "
+                     "gives other batches than without workers")
+
+    cfg, tcfg = configs()
+    tcfg = dataclasses.replace(tcfg, total_steps=10,
+                               checkpoint_every=10 ** 9)
+    losses = {}
+    for workers in (0, 4):
+        log = StepLog(f"host fit workers={workers}")
+        loader = train_loader(workers=workers)
+        try:
+            t0 = time.perf_counter()
+            new_trainer(cfg, tcfg, 0, log=log).fit(loader, log_every=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loader.close()
+        losses[workers] = log.losses()
+        print(f"[host] c2 Trainer.fit, 10 steps, batchify workers={workers}: "
+              f"{wall:.3f} s", flush=True)
+    same = losses[0] == losses[4] and len(losses[0]) == 10
+    print(f"[host] c2 losses with 4 workers {losses[4]}, without "
+          f"{losses[0]}: " + ("bit-identical" if same else "DIFFER"),
+          flush=True)
+    if not same:
+        fail("training from a 4-worker loader gives other losses")
+    torch.cuda.empty_cache()
+
+
+def phase_batch_multiple():
+    """One c2 train batch of 16 graphs loaded with batch_multiple=3 (B
+    padded to 18, not a power of two) and without (B=16): B1p and B2
+    launch enc_layers times each on the padded batch, and its loss
+    (dropout 0, the same weights; the bf16 c2 model and the same weights
+    in f32) equals the unpadded batch's within 1e-6 relative. The largest
+    relative gradient gap is printed beside it, not gated: the padded
+    rows change the GEMM shapes, so the sums run in another order."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+
+    cfg, _ = configs()
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    pair = next(((a, b) for a, b in zip(train_loader(),
+                                        train_loader(batch_multiple=3))
+                 if a.concept.shape[0] == 16), None)
+    if pair is None:
+        fail("the c2 train loader has no batch of B=16")
+    plain, padded = pair
+    if (padded.concept.shape[0] != 18
+            or not np.array_equal(padded.concept[:16], plain.concept)):
+        fail(f"batch_multiple=3 gave B={padded.concept.shape[0]}, 18 "
+             "expected, or other rows")
+    weights = Generator(cfg, device="cpu",
+                        rng=torch.Generator().manual_seed(8)).state_dict()
+    for dtype_name in ("bfloat16", "float32"):
+        model = Generator(dataclasses.replace(cfg, compute_dtype=dtype_name),
+                          device="cuda")
+        model.load_state_dict(weights)
+        ref = loss_and_grads(model, plain.arrays())
+        zero_counts()
+        got = loss_and_grads(model, padded.arrays())
+        launches = read_counts()
+        expect = train_expect("pallas_local", model.cfg, [padded])
+        rel = abs(got[0] - ref[0]) / abs(ref[0])
+        _, grad_rel, name = grad_gap(ref, got)
+        print(f"[batch_multiple] {dtype_name}: c2 batch of "
+              f"{int(plain.concept_mask[:, 0].sum())} graphs "
+              f"({describe(plain)}) padded to B=18: loss {got[0]!r} vs "
+              f"{ref[0]!r} at B=16, relative gap {rel:.3e} (tol 1e-6); "
+              f"largest relative gradient gap {grad_rel:.3e} ({name}); "
+              f"launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+        if launches != expect:
+            fail(f"the B=18 batch launched {launches}, expected {expect}")
+        if not rel <= 1e-6:
+            fail("the padded batch's loss differs from the unpadded one's")
+        del model
+    torch.cuda.empty_cache()
 
 
 def phase_profile_train(trainer, ms_step, impl="pallas_local", batch=None,
@@ -3197,7 +3595,8 @@ def phase_block_shapes(serve_inputs, serve_launches, train_inputs,
             rows[name].append(got[kernel])
     launches = {name: serve_launches[name] + train_launches[name]
                 for name in KERNELS}
-    return [table_row(name, found, launches) for name, found in rows.items()]
+    return [table_row(name, found, launches, "c5")
+            for name, found in rows.items()]
 
 
 def phase_block_sparse(profile=False):
@@ -3227,7 +3626,8 @@ def phase_block_sparse(profile=False):
         trainer, train_batches[:CAPTURE_BATCHES])
     if profile:
         for i, batch in enumerate(train_batches[:CAPTURE_BATCHES]):
-            phase_profile_train(trainer, ms_step, batch=batch,
+            phase_profile_train(trainer, ms_step, "block_sparse",
+                                batch=batch,
                                 label=f"c5 block_sparse train step {i + 1}")
     del trainer
     torch.cuda.empty_cache()
@@ -3253,7 +3653,7 @@ def phase_auto_tiles():
     from gtos_tpu_torch.models import Generator
     from gtos_tpu_torch.models.generator import batch_to_device
 
-    cfg, _ = c2_configs()
+    cfg, _ = configs()
     cfg = dataclasses.replace(cfg, attention_impl="auto", dropout=0.0)
     graphs, targets = synthetic_amr_corpus(8, seed=2, min_nodes=102,
                                            max_nodes=126)
@@ -3349,6 +3749,14 @@ def main():
     phase_work()
     rows += phase_global_shapes(g_serve_inputs, g_serve_launches,
                                 g_train_inputs, g_train_launches)
+    del g_serve_inputs, g_train_inputs
+    torch.cuda.empty_cache()
+    # the c4 translator under "pallas_local", its CLIs on CoNLL files; the
+    # host pipeline (native extractor, worker pools); batch_multiple
+    rows += phase_c4(args.profile)
+    phase_work_nmt()
+    phase_host()
+    phase_batch_multiple()
     if not args.profile:
         del trainer, model
     torch.cuda.empty_cache()

@@ -39,7 +39,6 @@ from gtos_tpu_torch.graph.paths import GLOBAL_LABEL, PackedPaths
 from gtos_tpu_torch.ops.block_sparse import (
     TILE, pack_block_sparse, pack_block_sparse_src,
 )
-from gtos_tpu_torch.ops.localize import build_localize_aux
 
 
 class BatchCapacityError(ValueError):
@@ -147,6 +146,22 @@ class GraphBatch:
             if f.name not in ("oov_lists", "meta")
             and getattr(self, f.name) is not None
         }
+
+
+def build_localize_aux(bank_map: np.ndarray, P: int):
+    """Host-side sort order of the localize gather.
+
+    bank_map: [B, P_loc] int32 global bank row per local slot (rows sorted
+    ascending per graph; pad slots map to row 0). Returns (loc_perm
+    [B*P_loc] int32, loc_bnd [2, P] int32) with loc_bnd[0/1][p] = start/end
+    of bank row p's run in the sorted flat ids."""
+    flat = np.asarray(bank_map).reshape(-1)
+    perm = np.argsort(flat, kind="stable").astype(np.int32)
+    sorted_ids = flat[perm]
+    rows = np.arange(P, dtype=flat.dtype)
+    starts = np.searchsorted(sorted_ids, rows, side="left")
+    ends = np.searchsorted(sorted_ids, rows, side="right")
+    return perm, np.stack([starts, ends]).astype(np.int32)
 
 
 def _encode_chars(word: str, char_vocab: Vocab, width: int) -> List[int]:

@@ -1,18 +1,24 @@
 """Host-side data pipeline: preprocessing, bucketing, token-based batching.
 
 Port of gtos_tpu/data/dataloader.py: the same batch plan (bucket by padded
-(N, T) signature, token-count batch sizing, shuffle per epoch for training)
-and the same bank-overflow bisect, built in order in this process. The
-JAX package's process and thread pools, multi-host sharding, batch-size
-multiple (for data parallelism) and per-batch instance cap come later
-(ROADMAP A4, A9).
+(N, T) signature, token-count batch sizing with an optional cap on
+instances per batch, shuffle per epoch for training), the same
+bank-overflow bisect, the batch dimension padded to a power of two and
+then to `batch_multiple`, and batches built in this process or by a pool
+of worker processes or threads, yielded in plan order with the same
+arrays. Multi-host row sharding comes with ROADMAP A9.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import multiprocessing
+import pickle
 import random
+from collections import deque
 from typing import Iterator, List, Optional, Sequence, Union
 
+from gtos_tpu_torch import native
 from gtos_tpu_torch.data.batching import (
     BatchCapacityError, BucketSpec, GraphBatch, Instance, batchify,
 )
@@ -21,6 +27,23 @@ from gtos_tpu_torch.graph.ir import Graph
 from gtos_tpu_torch.graph.paths import (
     PathInterner, RelationPathConfig, pack_relation_paths,
 )
+
+# which extractor the last preprocess call ran: "native" (the C++
+# extractor, gtos_tpu_torch/native) or "python" (its build or load failed)
+EXTRACTOR: Optional[str] = None
+# seconds a pool may take for one group's batches before the loader
+# raises instead of waiting on
+POOL_TIMEOUT_S = 300.0
+
+
+def _path_packer():
+    """(name, pack function): the C++ extractor when it builds and loads,
+    else the Python BFS, as the JAX package's preprocess chooses."""
+    try:
+        native.load()
+    except (OSError, RuntimeError):
+        return "python", pack_relation_paths
+    return "native", native.pack_relation_paths_native
 
 
 def preprocess(
@@ -32,17 +55,21 @@ def preprocess(
 ) -> List[Instance]:
     """Graph + target -> Instance with precomputed shortest-path relations.
 
-    The all-pairs BFS runs here, on the host, once per instance. Every
-    instance's unique paths are interned into one corpus-level PathInterner
-    (pass `interner` to share a table across calls), so batchify's bank
-    dedup runs vectorized."""
+    The all-pairs BFS runs here, on the host, once per instance: in C++
+    when the native extractor builds, in Python otherwise (the same
+    PackedPaths; `EXTRACTOR` names the one that ran). Every instance's
+    unique paths are interned into one corpus-level PathInterner (pass
+    `interner` to share a table across calls), so batchify's bank dedup
+    runs vectorized."""
+    global EXTRACTOR
+    EXTRACTOR, pack = _path_packer()
     if interner is None:
         interner = PathInterner()
     out: List[Instance] = []
     for i, (g, tgt) in enumerate(zip(graphs, targets)):
         if max_nodes is not None and g.num_nodes + 1 > max_nodes:
             continue
-        pp = pack_relation_paths(g, path_cfg)
+        pp = pack(g, path_cfg)
         pp.uniq_gid = interner.intern_many(pp.uniq)
         pp.interner = interner
         pp.uniq = None  # strings live once, in the interner
@@ -51,13 +78,50 @@ def preprocess(
     return out
 
 
+# the process pool's workers: each unpickles the loader once (the
+# initializer), then packs groups addressed by instance indices with the
+# loader's own _emit
+_POOL_LOADER = None
+
+
+def _pool_init(loader_bytes):
+    global _POOL_LOADER
+    _POOL_LOADER = pickle.loads(loader_bytes)
+
+
+def _pool_emit(idxs):
+    ld = _POOL_LOADER
+    return ld._emit_sizes([ld.instances[i] for i in idxs])
+
+
 class DataLoader:
     """Iterates GraphBatches with token-count batch sizing.
 
-    batch_size is measured in target tokens + nodes per batch; for_train
-    shuffles instance order and batch order each epoch. build_edges,
-    cp_shards, sparse_khop, build_block_tiles and build_local_banks go to
-    batchify ("auto" for the last two under attention_impl "auto")."""
+    batch_size is measured in target tokens + nodes per batch;
+    max_batch_instances caps the instances of a planned batch; for_train
+    shuffles instance order and batch order each epoch. The batch
+    dimension is padded to a power of two, then up to a multiple of
+    batch_multiple (the data-parallel width). build_edges, cp_shards,
+    sparse_khop, build_block_tiles and build_local_banks go to batchify
+    ("auto" for the last two under attention_impl "auto"). host_count > 1
+    (multi-host row sharding) raises: ROADMAP A9.
+
+    workers > 1 builds the batches in a pool, `workers` wide with up to
+    2 x workers groups in flight, and yields them in plan order with the
+    same arrays as workers=0. worker_mode "process" starts the workers
+    from a forkserver (spawn where there is none), never by forking this
+    process: a trainer creates the pool lazily, in its prefetch thread,
+    after the CUDA context exists, and a fork of a process that holds one
+    and other threads can hang in the child on a lock taken at the fork.
+    Each worker unpickles the loader once and is sent instance indices;
+    packing is numpy and calls no torch op, so the workers never touch
+    the card. "thread" runs the same packing on a thread pool. A group
+    not packed within POOL_TIMEOUT_S seconds raises TimeoutError. close()
+    (or the loader's collection) shuts the pool down. As with any spawn
+    or forkserver pool, a worker imports the main module first (as
+    `__mp_main__`), so a script that iterates a pooled loader keeps its
+    entry point under `if __name__ == "__main__":`.
+    """
 
     def __init__(
         self,
@@ -68,15 +132,29 @@ class DataLoader:
         char_vocab: Vocab,
         lexical_map: LexicalMap,
         batch_size_tokens: int = 4096,
+        max_batch_instances: Optional[int] = None,
         spec: BucketSpec = BucketSpec(),
         for_train: bool = True,
         seed: int = 19940117,
+        batch_multiple: int = 1,
         build_edges: bool = False,
         cp_shards: int = 1,
         sparse_khop: int = 0,
         build_block_tiles: Union[bool, str] = False,
         build_local_banks: Union[bool, str] = False,
+        host_rank: int = 0,
+        host_count: int = 1,
+        workers: int = 0,
+        worker_mode: str = "process",
     ):
+        self._pool = None  # created at first use, kept across epochs
+        if host_count > 1:
+            raise NotImplementedError(
+                "multi-host row sharding (host_count > 1) is not ported yet "
+                "(ROADMAP A9)")
+        if worker_mode not in ("process", "thread"):
+            raise ValueError(f"worker_mode {worker_mode!r}: 'process' or "
+                             "'thread'")
         self.instances = list(instances)
         self.vocabs = dict(
             token=token_vocab, concept=concept_vocab,
@@ -84,15 +162,21 @@ class DataLoader:
         )
         self.lexical_map = lexical_map
         self.batch_size_tokens = batch_size_tokens
+        self.max_batch_instances = max_batch_instances
         self.spec = spec
         self.for_train = for_train
         self.seed = seed
         self.epoch = 0
+        self.batch_multiple = batch_multiple
         self.build_edges = build_edges
         self.cp_shards = cp_shards
         self.sparse_khop = sparse_khop
         self.build_block_tiles = build_block_tiles
         self.build_local_banks = build_local_banks
+        self.host_rank = host_rank
+        self.host_count = host_count
+        self.workers = workers
+        self.worker_mode = worker_mode
 
     def _cost(self, inst: Instance) -> int:
         return max(len(inst.target) + 1, len(inst.concepts) + 1)
@@ -112,11 +196,13 @@ class DataLoader:
         cur: List[Instance] = []
         cur_cost = 0
         cur_sig = None
+        cap = self.max_batch_instances
         for inst in insts:
             sig = self._signature(inst)
             c = self._cost(inst)
             if cur and (sig != cur_sig
-                        or cur_cost + c > self.batch_size_tokens):
+                        or cur_cost + c > self.batch_size_tokens
+                        or (cap and len(cur) >= cap)):
                 batches.append(cur)
                 cur, cur_cost = [], 0
             cur.append(inst)
@@ -131,10 +217,12 @@ class DataLoader:
     def _emit(self, group) -> Iterator:
         """Batchify a group as (GraphBatch, instances); if its relation bank
         overflows the bucket cap, bisect until it fits."""
-        # Pad the batch dim to a power of two.
+        # Pad the batch dim to a power of two, then to batch_multiple.
         bsz = 1
         while bsz < len(group):
             bsz *= 2
+        m = self.batch_multiple
+        bsz = -(-bsz // m) * m
         try:
             yield batchify(
                 group,
@@ -154,9 +242,87 @@ class DataLoader:
             yield from self._emit(group[:mid])
             yield from self._emit(group[mid:])
 
+    def _emit_sizes(self, group) -> List[tuple]:
+        """_emit's batches, each with the count of the group's instances
+        it holds, in order (a pool sends back no instance)."""
+        return [(batch, len(part)) for batch, part in self._emit(group)]
+
+    def _get_pool(self) -> concurrent.futures.Executor:
+        if self._pool is None:
+            if self.worker_mode == "thread":
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    self.workers, thread_name_prefix="gtos-batchify")
+            else:
+                clone = DataLoader.__new__(DataLoader)
+                clone.__dict__.update(self.__dict__)
+                clone.workers, clone._pool = 0, None
+                method = ("forkserver" if "forkserver"
+                          in multiprocessing.get_all_start_methods()
+                          else "spawn")
+                self._pool = concurrent.futures.ProcessPoolExecutor(
+                    self.workers,
+                    mp_context=multiprocessing.get_context(method),
+                    initializer=_pool_init,
+                    initargs=(pickle.dumps(clone),))
+        return self._pool
+
+    def close(self):
+        """Shut the worker pool down (idempotent)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
+    def __del__(self):
+        self.close()
+
     def _iter_emitted(self) -> Iterator:
-        for group in self._plan_batches():
-            yield from self._emit(group)
+        """(batch, group) pairs in plan order, built here or, with
+        workers > 1, by the pool with up to 2 x workers groups in
+        flight."""
+        groups = self._plan_batches()
+        if self.workers <= 1 or len(groups) < 2:
+            for group in groups:
+                yield from self._emit(group)
+            return
+        pool = self._get_pool()
+        if self.worker_mode == "thread":
+            task, items = self._emit_sizes, groups
+        else:
+            pos = {id(inst): i for i, inst in enumerate(self.instances)}
+            task = _pool_emit
+            items = [[pos[id(inst)] for inst in group] for group in groups]
+        todo = iter(zip(items, groups))
+        futs: deque = deque()
+
+        def submit():
+            item, group = next(todo, (None, None))
+            if item is not None:
+                futs.append((pool.submit(task, item), group))
+
+        for _ in range(2 * self.workers):
+            submit()
+        try:
+            while futs:
+                fut, group = futs.popleft()
+                try:
+                    done = fut.result(timeout=POOL_TIMEOUT_S)
+                except concurrent.futures.TimeoutError:
+                    self.close()
+                    raise TimeoutError(
+                        f"the batchify pool ({self.workers} "
+                        f"{self.worker_mode} workers) packed no group in "
+                        f"{POOL_TIMEOUT_S} s")
+                start = 0
+                for batch, n in done:
+                    yield batch, group[start:start + n]
+                    start += n
+                submit()
+        finally:
+            # a consumer that stops early (a trainer at total_steps, the
+            # train CLI's example batch) leaves no queued group to pack
+            # ahead of the next epoch's
+            for fut, _ in futs:
+                fut.cancel()
 
     def iter_with_instances(self) -> Iterator:
         """Yield (GraphBatch, instances-in-batch-order) pairs, so a decode

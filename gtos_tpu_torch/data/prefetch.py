@@ -26,7 +26,10 @@ def prefetch_iter(
     depth <= 0 degrades to a plain synchronous map. Exceptions raised by
     the source iterable or by `fn` propagate to the consumer at the point
     of the failed item. If the consumer abandons the iterator early, the
-    worker thread is signalled to stop and exits promptly."""
+    worker thread is signalled to stop and joined: it finishes the item
+    in hand and exits, so none of its torch work outlives the consumer (a
+    daemon thread still inside torch when the interpreter exits can abort
+    the process)."""
     if depth <= 0:
         for item in iterable:
             yield fn(item) if fn is not None else item
@@ -70,3 +73,4 @@ def prefetch_iter(
             yield item
     finally:
         stop.set()
+        t.join()

@@ -1,4 +1,5 @@
 from gtos_tpu_torch.graph.ir import Graph
+from gtos_tpu_torch.graph.dependency import dependency_graph
 from gtos_tpu_torch.graph.paths import (
     GLOBAL_LABEL, NONE_LABEL, SELF_LABEL, PackedPaths, PathInterner,
     RelationPathConfig, collect_relation_labels, pack_relation_paths,
@@ -6,7 +7,7 @@ from gtos_tpu_torch.graph.paths import (
 )
 
 __all__ = [
-    "Graph", "GLOBAL_LABEL", "NONE_LABEL", "SELF_LABEL", "PackedPaths",
-    "PathInterner", "RelationPathConfig", "collect_relation_labels",
-    "pack_relation_paths", "relation_paths",
+    "Graph", "dependency_graph", "GLOBAL_LABEL", "NONE_LABEL",
+    "SELF_LABEL", "PackedPaths", "PathInterner", "RelationPathConfig",
+    "collect_relation_labels", "pack_relation_paths", "relation_paths",
 ]

@@ -10,9 +10,8 @@ carry the result (§3.1: "the training data contract already contains
 per-pair path-label sequences").
 
 Pure-Python copy of gtos_tpu/graph/paths.py (the port imports nothing of the
-JAX package). The JAX package also has a C++ extractor (gtos_tpu/native);
-the port's counterpart is still to come, and this module produces the same
-arrays.
+JAX package). The port's C++ extractor (gtos_tpu_torch/native, which the
+DataLoader's preprocess uses when it builds) produces the same PackedPaths.
 """
 
 from __future__ import annotations
@@ -175,14 +174,22 @@ class PackedPaths:
     uniq_gid: Optional[np.ndarray] = None  # [U] int32
     interner: Optional[PathInterner] = None
 
+    def expand(self) -> List[List[Tuple[str, ...]]]:
+        """The nested-list form of relation_paths."""
+        n = self.pair_idx.shape[0]
+        uniq = (self.uniq if self.uniq is not None
+                else [self.interner.paths[g] for g in self.uniq_gid])
+        return [[uniq[self.pair_idx[i, j]] for j in range(n)]
+                for i in range(n)]
+
 
 def pack_relation_paths(
     graph: Graph, cfg: RelationPathConfig = RelationPathConfig()
 ) -> PackedPaths:
-    """PackedPaths with the layout of the JAX package's C++ extractor (its
-    production path, gtos_tpu/native): uniq[0] is NONE, then the paths of
-    the off-diagonal reachable pairs in row-major first appearance, then
-    SELF last. The unique-path order fixes the relation bank's row order,
+    """PackedPaths with the layout of the C++ extractor
+    (gtos_tpu_torch/native, as gtos_tpu/native in the JAX package):
+    uniq[0] is NONE, then the paths of the off-diagonal reachable pairs in
+    row-major first appearance, then SELF last. The unique-path order fixes the relation bank's row order,
     so this is what makes the port's batches equal the JAX package's.
     Semantics identical to relation_paths."""
     nested = relation_paths(graph, cfg)

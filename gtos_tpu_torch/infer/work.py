@@ -7,6 +7,11 @@ chrF (utils/bleu.py, sacrebleu's defaults).
   python -m gtos_tpu_torch.infer.work --ckpt_dir ckpt --test_data test.amr \\
       --output out.txt --beam_size 8 --alpha 0.6 [--eval_bleu] [--eval_chrf]
 
+  # the translator: CoNLL dependency parses, references one line each
+  python -m gtos_tpu_torch.infer.work --ckpt_dir ckpt --task nmt \\
+      --test_data test.conll --test_target test.tgt --output out.txt \\
+      --eval_bleu
+
 Decoding runs on the CUDA card unless `--device cpu` is given, and raises
 without a card. attention_impl "auto" is resolved per batch (decode_batch).
 """
@@ -23,7 +28,10 @@ def parse_args(argv=None):
     p.add_argument("--ckpt_dir", required=True)
     p.add_argument("--task", choices=["amr", "nmt"], default="amr")
     p.add_argument("--test_data", required=True,
-                   help="AMR sembank; references from ::tok or ::snt")
+                   help="AMR sembank (references from ::tok or ::snt) or "
+                        "CoNLL file (nmt)")
+    p.add_argument("--test_target",
+                   help="references, one line per sentence (nmt)")
     p.add_argument("--output", required=True)
     p.add_argument("--beam_size", type=int, default=8)
     p.add_argument("--alpha", type=float, default=0.6,
@@ -62,7 +70,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     model_cfg = CheckpointManager.load_model_config(args.ckpt_dir)
     tv, cv, rv, chv, lm = load_vocabs(os.path.join(args.ckpt_dir, "vocabs"))
-    graphs, targets = load_corpus(args.task, args.test_data)
+    graphs, targets = load_corpus(args.task, args.test_data,
+                                  args.test_target)
     dl = DataLoader(preprocess(graphs, targets), tv, cv, rv, chv, lm,
                     batch_size_tokens=args.batch_size_tokens,
                     for_train=False,

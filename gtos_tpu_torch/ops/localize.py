@@ -18,25 +18,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-def build_localize_aux(bank_map: np.ndarray, P: int):
-    """Host-side sort order of the localize gather.
-
-    bank_map: [B, P_loc] int32 global bank row per local slot (rows sorted
-    ascending per graph; pad slots map to row 0). Returns (loc_perm
-    [B*P_loc] int32, loc_bnd [2, P] int32) with loc_bnd[0/1][p] = start/end
-    of bank row p's run in the sorted flat ids."""
-    flat = np.asarray(bank_map).reshape(-1)
-    perm = np.argsort(flat, kind="stable").astype(np.int32)
-    sorted_ids = flat[perm]
-    rows = np.arange(P, dtype=flat.dtype)
-    starts = np.searchsorted(sorted_ids, rows, side="left")
-    ends = np.searchsorted(sorted_ids, rows, side="right")
-    return perm, np.stack([starts, ends]).astype(np.int32)
+# the host side (numpy) lives with batchify, so that the data layer
+# imports no torch
+from gtos_tpu_torch.data.batching import build_localize_aux  # noqa: F401
 
 
 def sorted_segment_sum(g: torch.Tensor, loc_perm: torch.Tensor,

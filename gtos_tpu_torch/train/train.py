@@ -19,6 +19,13 @@
   python -m gtos_tpu_torch.train.train --config configs/c2_amr2.json \\
       --train_data train.amr --dev_data dev.amr --ckpt_dir ckpt
 
+  # the c4 translator: CoNLL dependency parses and target sentences (one
+  # line each), batches built by 4 worker processes
+  python -m gtos_tpu_torch.train.train --config configs/c4_nmt_ende.json \\
+      --train_data train.conll --train_target train.tgt \\
+      --dev_data dev.conll --dev_target dev.tgt --batchify_workers 4 \\
+      --ckpt_dir ckpt
+
 --attention_impl takes "xla", "pallas" (the global-bank kernels B3/B3'
 and B4), "pallas_local" (B1p/B2), "sparse" (the edge-list attention,
 plain torch), "block_sparse" (the tile kernels B5s and B6) and "auto" (per
@@ -29,9 +36,7 @@ unless `--device cpu` is given, and raises without a card. The configs and
 vocabs go into the checkpoint directory (the args-in-checkpoint contract),
 so inference rebuilds the model from it alone (`python -m
 gtos_tpu_torch.infer.work`). Options whose feature is not ported raise and
-name the ROADMAP item that ports it: --dp/--mp/--graph/--coordinator and
-batchify worker pools (A9, A4), reading CoNLL files for the nmt task (A4:
-graph/dependency.py).
+name the ROADMAP item that ports it: --dp/--mp/--graph/--coordinator (A9).
 """
 
 from __future__ import annotations
@@ -40,13 +45,12 @@ import argparse
 import json
 import os
 import sys
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
-import torch
-
+# torch and the model are imported where they are used: the DataLoader's
+# worker processes import this module (the main module of a `-m` run) and
+# need only the data layer, which imports no torch
 from gtos_tpu_torch.graph.paths import RelationPathConfig
-from gtos_tpu_torch.models.graph_transformer import check_impl
-from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 
 IMPLS = ["xla", "pallas", "pallas_interpret", "pallas_local",
          "pallas_local_interpret", "sparse", "block_sparse",
@@ -155,14 +159,12 @@ def parse_args(argv=None):
 
 def check_ported(args):
     """Raise for the options whose feature the port does not have yet."""
+    from gtos_tpu_torch.models.graph_transformer import check_impl
+
     if args.dp or args.mp > 1 or args.graph > 1 or args.coordinator:
         raise NotImplementedError(
             "--dp/--mp/--graph/--coordinator: the multi-device tier is not "
             "ported yet (ROADMAP A9)")
-    if args.batchify_workers > 1:
-        raise NotImplementedError(
-            "--batchify_workers: DataLoader worker pools are not ported yet "
-            "(ROADMAP A4)")
     if args.sparse_khop > 0 and not args.attention_impl.startswith(
             ("sparse", "block_sparse")):
         raise SystemExit(
@@ -172,23 +174,33 @@ def check_ported(args):
     check_impl(args.attention_impl)
 
 
-def load_corpus(task: str, data_path: str
+def load_corpus(task: str, data_path: str,
+                target_path: Optional[str] = None
                 ) -> Tuple[list, List[List[str]]]:
-    """An AMR sembank as (graphs, targets): each graph whose metadata
-    carries `::tok` (else `::snt`) with that sentence split on spaces, as
-    the JAX package's CLI reads it. The nmt task's CoNLL files are not
-    ported yet (ROADMAP A4)."""
-    if task != "amr":
-        raise NotImplementedError(
-            "reading CoNLL files (graph/dependency.py) for the nmt task is "
-            "not ported yet (ROADMAP A4); use --synthetic N")
-    from gtos_tpu_torch.graph.amr import read_amr_file
-    graphs, targets = [], []
-    for g in read_amr_file(data_path):
-        snt = (g.meta or {}).get("tok") or (g.meta or {}).get("snt")
-        if snt is not None:
-            graphs.append(g)
-            targets.append(snt.split())
+    """(graphs, targets), as the JAX package's CLI reads them. amr: the
+    sembank's graphs whose metadata carries `::tok` (else `::snt`), with
+    that sentence split on spaces. nmt: the CoNLL file's dependency trees
+    and the target file's lines, split on whitespace, one per tree; a
+    count that differs raises."""
+    if task == "amr":
+        from gtos_tpu_torch.graph.amr import read_amr_file
+        graphs, targets = [], []
+        for g in read_amr_file(data_path):
+            snt = (g.meta or {}).get("tok") or (g.meta or {}).get("snt")
+            if snt is not None:
+                graphs.append(g)
+                targets.append(snt.split())
+        return graphs, targets
+    from gtos_tpu_torch.graph.dependency import read_conll_file
+    if target_path is None:
+        raise SystemExit(f"the nmt task needs a target file for {data_path}")
+    graphs = read_conll_file(data_path)
+    with open(target_path) as f:
+        targets = [line.split() for line in f]
+    if len(graphs) != len(targets):
+        raise SystemExit(
+            f"{data_path} holds {len(graphs)} sentences but {target_path} "
+            f"{len(targets)} targets")
     return graphs, targets
 
 
@@ -225,8 +237,11 @@ def make_dev_bleu_fn(tv, cv, rv, chv, lm, dev_instances, dl_kw,
     from gtos_tpu_torch.infer.decode import decode_batch
     from gtos_tpu_torch.utils.bleu import corpus_bleu
 
+    # every instance decoded once: no batch padded to the DP multiple
     dl = DataLoader(dev_instances, tv, cv, rv, chv, lm,
-                    batch_size_tokens=2048, for_train=False, **dl_kw)
+                    batch_size_tokens=2048, for_train=False,
+                    **{k: v for k, v in dl_kw.items()
+                       if k != "batch_multiple"})
 
     def dev_bleu(model) -> float:
         hyps: List[str] = []
@@ -247,6 +262,8 @@ def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
 
+    import torch
+
     from gtos_tpu_torch.data.batching import BucketSpec
     from gtos_tpu_torch.data.dataloader import DataLoader, preprocess
     from gtos_tpu_torch.data.extract import (
@@ -254,6 +271,7 @@ def main(argv=None):
     from gtos_tpu_torch.models import Generator
     from gtos_tpu_torch.train.checkpoint import CheckpointManager
     from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
     from gtos_tpu_torch.utils.device import resolve_device
     from gtos_tpu_torch.utils.metrics import MetricsWriter
 
@@ -266,9 +284,11 @@ def main(argv=None):
     else:
         if not args.train_data:
             raise SystemExit("--train_data or --synthetic required")
-        graphs, targets = load_corpus(args.task, args.train_data)
-        dev_graphs, dev_targets = (load_corpus(args.task, args.dev_data)
-                                   if args.dev_data else ([], []))
+        graphs, targets = load_corpus(args.task, args.train_data,
+                                      args.train_target)
+        dev_graphs, dev_targets = (
+            load_corpus(args.task, args.dev_data, args.dev_target)
+            if args.dev_data else ([], []))
 
     vocab_dir = os.path.join(args.ckpt_dir, "vocabs")
     if os.path.exists(os.path.join(vocab_dir, "token_vocab.json")):
@@ -298,8 +318,10 @@ def main(argv=None):
 
     # spec.max_oov follows the model so extended target ids always fit
     spec = BucketSpec().for_model_max_oov(model_cfg.max_oov)
-    dl_kw = dict(spec=spec, **loader_flags(args.attention_impl,
-                                           args.sparse_khop))
+    dl_kw = dict(spec=spec, batch_multiple=max(args.dp or 1, 1),
+                 workers=args.batchify_workers,
+                 worker_mode=args.batchify_worker_mode,
+                 **loader_flags(args.attention_impl, args.sparse_khop))
     instances = preprocess(graphs, targets, path_cfg)
     dev_instances = preprocess(dev_graphs, dev_targets, path_cfg)
     dl = DataLoader(instances, tv, cv, rv, chv, lm,
@@ -327,12 +349,17 @@ def main(argv=None):
     if args.resume:
         step = trainer.restore_if_available()
         print(f"resumed at step {step}", file=sys.stderr)
-    if args.profile:
-        from gtos_tpu_torch.utils.profiling import trace
-        with trace(args.profile):
+    try:
+        if args.profile:
+            from gtos_tpu_torch.utils.profiling import trace
+            with trace(args.profile):
+                last = trainer.fit(dl, dev_dl)
+        else:
             last = trainer.fit(dl, dev_dl)
-    else:
-        last = trainer.fit(dl, dev_dl)
+    finally:
+        for loader in (dl, dev_dl):
+            if loader is not None:
+                loader.close()
     metrics.close()
     print(f"done: {last}", file=sys.stderr)
     return last

@@ -14,6 +14,9 @@ from gtos_tpu.data.dataloader import preprocess as jax_preprocess
 from gtos_tpu.data.extract import build_vocabs as jax_build_vocabs
 from gtos_tpu.data.synthetic import synthetic_amr2_corpus as jax_amr2
 from gtos_tpu.data.synthetic import synthetic_amr_corpus as jax_amr
+from gtos_tpu.data.synthetic import (
+    synthetic_dependency_corpus as jax_dependency,
+)
 from gtos_tpu.graph.amr import AMRParseError as JaxAMRParseError
 from gtos_tpu.graph.amr import parse_amr as jax_parse_amr
 from gtos_tpu.graph.amr import read_amr_file as jax_read_amr_file
@@ -23,7 +26,7 @@ from gtos_tpu_torch.data.batching import BatchCapacityError, Instance
 from gtos_tpu_torch.data.dataloader import preprocess
 from gtos_tpu_torch.data.extract import build_vocabs, load_vocabs, save_vocabs
 from gtos_tpu_torch.data.synthetic import (
-    synthetic_amr2_corpus, synthetic_amr_corpus,
+    synthetic_amr2_corpus, synthetic_amr_corpus, synthetic_dependency_corpus,
 )
 from gtos_tpu_torch.graph.amr import AMRParseError, parse_amr, read_amr_file
 from gtos_tpu_torch.graph.paths import relation_paths
@@ -38,12 +41,20 @@ def _same_graphs(jg, pg):
         assert [tuple(e) for e in a.edges] == [tuple(e) for e in b.edges]
 
 
-@pytest.mark.parametrize("corpus", ["amr", "amr2"])
+SYNTHETIC = {"amr": (jax_amr, synthetic_amr_corpus, {}),
+             "amr2": (jax_amr2, synthetic_amr2_corpus, {}),
+             # the translator's trees at the default lengths (4-15 tokens)
+             # and at the c4 phase's 10-50
+             "dependency": (jax_dependency, synthetic_dependency_corpus, {}),
+             "dependency_10_50": (jax_dependency, synthetic_dependency_corpus,
+                                  dict(min_len=10, max_len=50))}
+
+
+@pytest.mark.parametrize("corpus", sorted(SYNTHETIC))
 def test_synthetic_corpora_match(corpus):
     """Same random.Random stream, same graphs and targets."""
-    jf, pf = ((jax_amr, synthetic_amr_corpus) if corpus == "amr"
-              else (jax_amr2, synthetic_amr2_corpus))
-    (jg, jt), (pg, pt) = jf(40, seed=5), pf(40, seed=5)
+    jf, pf, kw = SYNTHETIC[corpus]
+    (jg, jt), (pg, pt) = jf(40, seed=5, **kw), pf(40, seed=5, **kw)
     _same_graphs(jg, pg)
     assert jt == pt
 
@@ -150,13 +161,39 @@ def test_long_targets_truncated_like_the_reference():
     dict(build_edges=True), dict(build_block_tiles=True),
     dict(host_shard=(0, 2)),
     dict(build_local_banks=True, for_train=True, host_shard=(0, 2)),
+    # the DataLoader's multi-host sharding: A9 as well
+    dict(loader=dict(host_count=2)),
+    # the DataLoader's batch options and pools, ported since (A4)
+    dict(loader=dict(batch_multiple=3, max_batch_instances=1, workers=2,
+                     worker_mode="thread")),
 ])
 def test_unported_batch_options_raise(flag):
-    """Options whose port comes in a later slice (host_shard: ROADMAP A9)
-    raise and name the ROADMAP item; they never drop the request silently.
-    The sparse tier's options, ported since (A8), give the JAX package's
-    arrays: the edge cells, or the four tile arrays."""
+    """Options whose port comes in a later slice (host_shard and the
+    DataLoader's host_count: ROADMAP A9) raise and name the ROADMAP item;
+    they never drop the request silently. The sparse tier's options,
+    ported since (A8), give the JAX package's arrays: the edge cells, or
+    the four tile arrays; so do the DataLoader's batch_multiple,
+    max_batch_instances and workers (A4): one instance a batch, each
+    padded to 3 rows."""
     g, t = synthetic_amr_corpus(2, seed=0)
+    if "loader" in flag:
+        kw = dict(for_train=False, **flag["loader"])
+        if "host_count" in kw:
+            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+                DataLoader(preprocess(g, t), *build_vocabs(g, t), **kw)
+            return
+        jg, jt = jax_amr(2, seed=0)
+        ref = list(JaxDataLoader(jax_preprocess(jg, jt),
+                                 *jax_build_vocabs(jg, jt), **kw))
+        got = list(DataLoader(preprocess(g, t), *build_vocabs(g, t), **kw))
+        assert len(ref) == len(got) == 2
+        for jb, pb in zip(ref, got):
+            assert pb.concept.shape[0] == 3
+            ja, pa = jb.arrays(), pb.arrays()
+            assert ja.keys() == pa.keys()
+            for k in ja:
+                np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
+        return
     kw = dict(dict(for_train=False), **flag)
     if "host_shard" in flag:
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):

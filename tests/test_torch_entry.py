@@ -64,7 +64,15 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     hyps = [h for b in loader for h in decode_batch(model, b, tv,
                                                      beam_size=2,
                                                      max_steps=6)]
+    from gtos_tpu_torch.data import dataloader
+    from gtos_tpu_torch.graph.dependency import dependency_graph
+    from gtos_tpu_torch.native import pack_relation_paths_native
+    tree = dependency_graph(["a", "b", "c"], [2, 0, 2], ["x", "root", "y"])
+    packed = pack_relation_paths_native(tree)
     print(json.dumps({"modules": len(mods), "hyps": len(hyps),
+                      "port_modules": sorted(mods),
+                      "extractor": dataloader.EXTRACTOR,
+                      "tree_paths": len(packed.uniq),
                       "strings": all(isinstance(w, str)
                                      for h in hyps for w in h),
                       "imported": sorted(
@@ -123,10 +131,17 @@ def _run_port_script(script):
 
 def test_port_imports_no_jax_and_decodes_on_the_cpu():
     """In a fresh interpreter (this one has JAX: conftest imports it):
-    every gtos_tpu_torch module imports, a CPU decode runs, and neither
+    every gtos_tpu_torch module imports (the native extractor's binding
+    and the CoNLL reader among them), a CPU decode runs on instances from
+    the native extractor, a dependency tree goes through it, and neither
     jax, flax nor gtos_tpu is in sys.modules afterwards."""
     report = _run_port_script(NO_JAX_SCRIPT)
     assert report["modules"] >= 20
+    assert {"gtos_tpu_torch.native", "gtos_tpu_torch.graph.dependency"
+            } <= set(report["port_modules"])
+    assert report["extractor"] == "native"
+    # NONE, the six paths of the 3-token tree's off-diagonal pairs, SELF
+    assert report["tree_paths"] == 8
     assert report["hyps"] == 6 and report["strings"]
     assert report["imported"] == []
 

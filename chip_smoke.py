@@ -3110,6 +3110,327 @@ def phase_block_kernels():
           "term)")
 
 
+# ---------------------------------------------------------------- mesh
+
+# the ring's cases: c5's sizes cut into S node blocks (graphs, seed, min and
+# max nodes, N, khop, S): N=512 B=2 at S=2 and 4, N=256 B=4 at S=2
+MESH_CASES = {"N512_B2_khop4_S2": (2, 5, 410, 510, 512, 4, 2),
+              "N512_B2_khop4_S4": (2, 5, 410, 510, 512, 4, 4),
+              "N256_B4_khop4_S2": (4, 3, 205, 254, 256, 4, 2)}
+MESH_KERNELS = (B5S, B6D, B6S, B6B)
+# the edge schedules (plain torch in f32, so a bf16 input's gradient is the
+# f32 sum rounded once) against f32 "sparse" on the same values, element by
+# element: |x - y| <= rtol |y| + of_largest max|y|; bf16's rtol twice its
+# rounding bound (2^-8), of_largest for the summation order near zero
+MESH_EDGE_TOL = {"float32": dict(rtol=1e-4, of_largest=1e-5),
+                 "bfloat16": dict(rtol=2 ** -7, of_largest=1e-4)}
+
+
+def mesh_batches(n_graphs, seed, min_nodes, max_nodes, N, khop, S):
+    """The same instances batchified at cp_shards=S (edge cells and the
+    per-cell tile layouts) and at 1 (edge cells and tiles): training
+    batches, c5's bucket spec at node bucket N."""
+    from gtos_tpu_torch.data import BucketSpec, batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+
+    graphs, targets = synthetic_amr_corpus(
+        n_graphs, seed=seed, min_nodes=min_nodes, max_nodes=max_nodes)
+    inst, vocabs = preprocess(graphs, targets), build_vocabs(graphs, targets)
+    kw = dict(batch_size_bucket=n_graphs, for_train=True, build_edges=True,
+              build_block_tiles=True, sparse_khop=khop,
+              spec=BucketSpec(**dict(C5_SPEC, nodes=(N,))))
+    return (batchify(inst, *vocabs, cp_shards=S, **kw),
+            batchify(inst, *vocabs, cp_shards=1, **kw))
+
+
+def mesh_gap(got, ref, dtype_name):
+    """(within the gate, largest absolute error, largest error relative to
+    each output's largest value): every output finite and within
+    KERNEL_TOL's rtol of its own largest value; in f32 each output, in
+    bf16 the first (the attention's output) also within KERNEL_TOL
+    element by element. (In bf16 two summation orders of a gradient, each
+    rounded to bf16, differ element by element beyond KERNEL_TOL near
+    zero: the single-device kernels' gradients do against f32 too.)"""
+    import torch
+
+    tol = KERNEL_TOL[dtype_name]
+    whole = got if dtype_name == "float32" else got[:1]
+    ok = all(torch.isfinite(x.float()).all().item() for x in got) and all(
+        torch.allclose(x.float(), y.float(), **tol)
+        for x, y in zip(whole, ref))
+    err = max((x.float() - y.float()).abs().max().item()
+              for x, y in zip(got, ref))
+    rel = rel_to_largest(got, ref)
+    return ok and rel <= tol["rtol"], err, rel
+
+
+def no_alpha_merge(state, out_t, m_t, l_t):
+    """A planted wrong merge: the running partials are not rescaled by
+    alpha when a step raises the running max."""
+    import torch
+
+    m, l, o = state
+    new_m = torch.maximum(m, m_t)
+    beta = torch.where(l_t > 0, torch.exp(m_t - new_m), 0.0)
+    return new_m, l + l_t * beta, o + out_t.float() * (l_t * beta)[..., None]
+
+
+def edge_gap(got, ref, dtype_name):
+    """(within MESH_EDGE_TOL, the largest of |x - y| / (rtol |y| +
+    of_largest max|y|) over the outputs' elements: 1 at the limit)."""
+    import torch
+
+    tol = MESH_EDGE_TOL[dtype_name]
+    worst, ok = 0.0, True
+    for x, y in zip(got, ref):
+        x, y = x.float(), y.float()
+        ok = ok and bool(torch.isfinite(x).all().item())
+        lim = tol["rtol"] * y.abs() + tol["of_largest"] * y.abs().max()
+        worst = max(worst, ((x - y).abs() / lim.clamp_min(1e-30))
+                    .max().item())
+    return ok and worst <= 1.0, worst
+
+
+def drop_cell(edge_mask):
+    """A planted fault: the edge mask without the off-diagonal cell that
+    keeps the fewest pairs (of those that keep any); (mask, cell, pairs)."""
+    S = edge_mask.shape[1]
+    kept = {(d, s): int(edge_mask[:, d, s].sum().item())
+            for d in range(S) for s in range(S) if d != s}
+    cell = min((c for c in kept if kept[c]), key=kept.get)
+    mask = edge_mask.clone()
+    mask[:, cell[0], cell[1]] = False
+    return mask, cell, kept[cell]
+
+
+def phase_mesh_cli():
+    """(a) The train CLI on the c5 config under "block_sparse" as a mesh
+    of one rank (--graph 1 --dp 1: init_process_group with NCCL,
+    shard_arrays, the loss over the all-reduced token count, the gradient
+    all-reduce) against --dp 0 on the same synthetic corpus and seed: the
+    same losses and parameters after WORK_STEPS steps, bit for bit; and
+    the mesh run stopped at half the steps and resumed (rank 0 reads the
+    checkpoint and broadcasts it, every data rank's dropout generator in
+    it) ends with the same bits too. (c) --dp 2 on this one-card machine
+    raises naming the card count."""
+    import re
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_mesh_", dir=ROOT)
+    try:
+        runs = {}
+        half = str(WORK_STEPS // 2)
+        for tag, flags in (("dp0", ["--dp", "0"]), ("dp1", ["--dp", "1"]),
+                           ("cut", ["--dp", "1", "--total_steps", half]),
+                           ("cut", ["--dp", "1", "--resume"])):
+            ckpt = os.path.join(tmp, tag)
+            t0 = time.perf_counter()
+            res = run_cli("mesh", [
+                "gtos_tpu_torch.train.train", "--config",
+                "configs/c5_scaled_synthetic.json", "--attention_impl",
+                "block_sparse", "--graph", "1", *flags[:2], "--synthetic",
+                str(WORK_SYNTHETIC), "--total_steps", str(WORK_STEPS),
+                "--ckpt_dir", ckpt, *flags[2:]])
+            wall = time.perf_counter() - t0
+            if "--total_steps" in flags:
+                continue
+            with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+                lines = [json.loads(x) for x in f]
+            mesh = re.findall(r"^\[mesh\] (.*)$", res.stderr, re.M)
+            params = torch.load(os.path.join(ckpt, f"step_{WORK_STEPS}",
+                                             "params.pt"))
+            runs[tag] = (lines[-1], params)
+            print(f"[mesh] c5 CLI --dp {flags[1]} {' '.join(flags[2:])}: "
+                  f"{mesh[0] if mesh else 'no mesh'}; loss "
+                  f"{lines[-1]['loss']!r} at step {lines[-1]['step']}, "
+                  f"{lines[-1]['tokens_per_s']:.1f} target tokens/s, "
+                  f"{1e3 * wall / WORK_STEPS:.1f} ms a step of CLI wall "
+                  f"({wall:.1f} s, start-up included)", flush=True)
+            if tag == "dp1" and (not mesh or "nccl" not in mesh[0]
+                                 or "world 1" not in mesh[0]):
+                fail("the --dp 1 run did not report an NCCL mesh of one "
+                     f"rank: {mesh}")
+        (l0, p0), (l1, p1) = runs["dp0"], runs["dp1"]
+        same = (l0["loss"] == l1["loss"] and p0.keys() == p1.keys()
+                and all(torch.equal(p0[k], p1[k]) for k in p0))
+        print(f"[mesh] --dp 1 against --dp 0: losses {l1['loss']!r} / "
+              f"{l0['loss']!r}, {len(p0)} parameter tensors, the same bits: "
+              f"{'yes' if same else 'no'}", flush=True)
+        if not same:
+            fail("the NCCL mesh of one rank does not train the --dp 0 run's "
+                 "bits")
+        l2, p2 = runs["cut"]
+        same = (l2["loss"] == l1["loss"] and p2.keys() == p1.keys()
+                and all(torch.equal(p1[k], p2[k]) for k in p1))
+        print(f"[mesh] --dp 1 resumed at step {half} against unbroken: "
+              f"losses {l2['loss']!r} / {l1['loss']!r}, the same bits: "
+              f"{'yes' if same else 'no'}", flush=True)
+        if not same:
+            fail("the resumed NCCL mesh run does not end with the unbroken "
+                 "run's bits")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT, os.environ.get("PYTHONPATH", "")]))
+        res = subprocess.run(
+            [sys.executable, "-m", "gtos_tpu_torch.train.train", "--config",
+             "configs/c5_scaled_synthetic.json", "--attention_impl",
+             "block_sparse", "--graph", "1", "--dp", "2", "--synthetic",
+             "16", "--total_steps", "1", "--ckpt_dir",
+             os.path.join(tmp, "dp2")], cwd=ROOT, env=env,
+            capture_output=True, text=True)
+        cards = torch.cuda.device_count()
+        said = f"{cards} card(s) are visible" in res.stderr
+        print(f"[mesh] --dp 2 on {cards} card(s): rc {res.returncode}, "
+              f"{res.stderr.strip().splitlines()[-1][:200]}", flush=True)
+        if res.returncode == 0 or not said:
+            fail("--dp 2 on a one-card machine must raise naming the card "
+                 "count")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mesh_rings():
+    """(b) The three CP schedules of S ranks emulated in one process on the
+    card (parallel/*: the loops the distributed modules run, each exchange
+    a rotation of a list) at c5 widths (H=8, Dh=64), f32 and bf16, on
+    MESH_CASES: the B5s/B6 ring (out, dq, dk, dv, g_a, g_b) against
+    single-device "block_sparse" (B5s, B6) on the cp_shards=1 layout, with
+    B5s = B6d = B6s = B6b = S*S launches; a planted merge without the
+    alpha rescale must fail that gate; the edge-cell ring and a2a against
+    f32 single-device "sparse" on the same values (MESH_EDGE_TOL), where
+    the same schedule without one cell's pairs must fail. Then each kernel
+    on rank 0's S
+    cells (bf16) against its plain version, timed beside its bound: the
+    JSON line's rows of model "c5 mesh". Returns those rows."""
+    import torch
+
+    from gtos_tpu_torch.ops.block_sparse_attention import (
+        block_sparse_relation_attention_trainable)
+    from gtos_tpu_torch.ops.sparse_relation import (
+        flatten_edge_cells, sparse_relation_attention)
+    from gtos_tpu_torch.parallel import (
+        a2a_attention, ring_attention, ring_block_sparse as rbs)
+
+    H, Dh = 8, 64
+    t0 = time.perf_counter()
+    rows = {name: [] for name in MESH_KERNELS}
+    launches = {name: 0 for name in MESH_KERNELS}
+    cuda = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    for case, spec in MESH_CASES.items():
+        S = spec[-1]
+        cp, one = mesh_batches(*spec)
+        print(f"[mesh] case {case}: {describe(one)}, ctile_src "
+              f"{tuple(cp.ctile_src.shape)}, ctile_dst "
+              f"{tuple(cp.ctile_dst.shape)}, "
+              f"{int(cp.edge_mask.sum())} kept pairs", flush=True)
+        ctiles = [cuda(getattr(cp, k)) for k in (
+            "ctile_src", "ctile_rel", "ctile_dst", "ctile_rel_src")]
+        edges = [cuda(getattr(cp, k)) for k in (
+            "edge_src", "edge_dst", "edge_rel", "edge_mask")]
+        N = one.concept_mask.shape[1]
+        flat = flatten_edge_cells(*(cuda(getattr(one, k)) for k in (
+            "edge_src", "edge_dst", "edge_rel", "edge_mask")), N)
+        for dtype in (torch.float32, torch.bfloat16):
+            args, src, g = block_inputs(one, H, Dh, dtype)
+            dtype_name = _dtype_name(args[0])
+            leaves = [x.detach().requires_grad_() for x in args[:5]]
+            ref_out = block_sparse_relation_attention_trainable(
+                *leaves, *args[5:], tile_dst=src[0], tile_rel_src=src[1])
+            ref = [ref_out] + list(torch.autograd.grad(ref_out, leaves, g))
+            zero_counts()
+            got = rbs.emulate(*args[:5], *ctiles[:2], S, *ctiles[2:],
+                              g_out=g)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = {name: (S * S if name in MESH_KERNELS else 0)
+                    for name in KERNELS}
+            print(f"[mesh] {case} {dtype_name} launches of one B5s/B6 ring "
+                  f"call over {S} ranks: "
+                  + ", ".join(f"{k}={v}" for k, v in counts.items() if v),
+                  flush=True)
+            if counts != want:
+                fail(f"the ring at S={S} launched {counts}, not {want}")
+            for name in MESH_KERNELS:
+                launches[name] += counts[name]
+            ok, err, rel = mesh_gap(got, ref, dtype_name)
+            print(f"[mesh] {case} {dtype_name} B5s/B6 ring against "
+                  f"single-device block_sparse (out, dq, dk, dv, g_a, g_b): "
+                  f"max_abs_err {err:.3e}, {rel:.3e} of the largest value "
+                  f"(tol {KERNEL_TOL[dtype_name]})", flush=True)
+            if not ok:
+                fail(f"the B5s/B6 ring disagrees with single-device "
+                     f"block_sparse at {case} {dtype_name}")
+            planted = rbs.emulate(*args[:5], *ctiles[:2], S,
+                                  merge_fn=no_alpha_merge)
+            caught = not mesh_gap([planted], ref[:1], dtype_name)[0]
+            print(f"[mesh] {case} {dtype_name} planted merge without the "
+                  f"alpha rescale fails the gate: "
+                  f"{'yes' if caught else 'no'}", flush=True)
+            if not caught:
+                fail("a ring merge without the alpha rescale passes the gate")
+            # the edge schedules against f32 single-device "sparse" on the
+            # same values (MESH_EDGE_TOL); a dropped cell must fail
+            leaves = [x.detach().float().requires_grad_() for x in args[:5]]
+            out = sparse_relation_attention(*leaves, *flat)
+            exact = [out] + list(torch.autograd.grad(out, leaves, g.float()))
+            mask, cell, pairs = drop_cell(edges[3])
+            for name, fn in (("edge-cell ring", ring_attention.emulate_ring),
+                             ("a2a", a2a_attention.emulate_a2a)):
+                leaves = [x.detach().requires_grad_() for x in args[:5]]
+                out = fn(*leaves, *edges, S)
+                got = [out] + list(torch.autograd.grad(out, leaves, g))
+                ok, worst = edge_gap(got, exact, dtype_name)
+                err = max((x.float() - y).abs().max().item()
+                          for x, y in zip(got, exact))
+                planted = fn(*args[:5], *edges[:3], mask, S)
+                caught = not edge_gap([planted], exact[:1], dtype_name)[0]
+                print(f"[mesh] {case} {dtype_name} {name} against f32 "
+                      "single-device sparse (out, dq, dk, dv, g_a, g_b): "
+                      f"{worst:.3f} of the limit {MESH_EDGE_TOL[dtype_name]}"
+                      f", max_abs_err {err:.3e}; cell {cell} ({pairs} "
+                      f"pairs) dropped fails the gate: "
+                      f"{'yes' if caught else 'no'}", flush=True)
+                if not ok:
+                    fail(f"the {name} disagrees with single-device sparse at "
+                         f"{case} {dtype_name}")
+                if not caught:
+                    fail(f"the {name} without cell {cell} passes the gate")
+            del leaves, ref, got, exact
+            torch.cuda.empty_cache()
+        # each kernel on rank 0's cells (0, j), bf16: a rank's per-step work
+        args, _, g = block_inputs(one, H, Dh, torch.bfloat16)
+        Nl = N // S
+        blk = lambda x, s: x[:, :, s * Nl:(s + 1) * Nl].contiguous()  # noqa
+        for j, cell in enumerate(rbs.rank_cells(0, S, *ctiles)):
+            label = f"{case} cell (0,{j})"
+            cargs = (blk(args[0], 0), blk(args[1], j), blk(args[2], j),
+                     args[3], args[4], *cell[:2])
+            if int((cell[1] >= 0).sum()) == 0:
+                print(f"[mesh] {label}: no kept pair, not timed", flush=True)
+                continue
+            rows[B5S].append(check_b5(label, cargs, with_stats=True))
+            b6 = check_b6(label, cargs, cell[2:], blk(g, 0))
+            for name, kern in ((B6D, "B6d"), (B6S, "B6s"), (B6B, "B6b")):
+                rows[name].append(b6[kern])
+        torch.cuda.empty_cache()
+    print(f"[mesh] the ring phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return [table_row(name, rows[name], launches, model="c5 mesh")
+            for name in MESH_KERNELS]
+
+
+def phase_mesh():
+    """The multi-device tier on one card: phase_mesh_cli, then
+    phase_mesh_rings (their docstrings); returns the JSON rows."""
+    t0 = time.perf_counter()
+    phase_mesh_cli()
+    rows = phase_mesh_rings()
+    print(f"[mesh] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 @functools.lru_cache(maxsize=None)
 def c5_corpus():
     """C5_GRAPHS synthetic AMR graphs of C5_NODES nodes (seed 0),
@@ -3762,6 +4083,9 @@ def main():
     torch.cuda.empty_cache()
     # "block_sparse": the c5 model and the kernels B5, B5s, B6d, B6s, B6b
     rows += phase_block_sparse(args.profile)
+    torch.cuda.empty_cache()
+    # the multi-device tier: a mesh of one NCCL rank, the rings emulated
+    rows += phase_mesh()
     if args.profile:
         phase_profile(model, tv, batches, seconds)
         phase_profile_train(trainer, ms_step)

@@ -22,9 +22,15 @@ bank ladder raises BatchCapacityError (the DataLoader bisects it), except
 at a tile-aligned node bucket, where it falls back to the tile layouts
 (which resolve_attention_impl routes to "block_sparse").
 
-Not ported yet, and raising NotImplementedError when asked for: the
-context-parallel cells (cp_shards > 1) and multi-host row sharding
-(host_shard) — ROADMAP A9.
+Context parallelism (cp_shards = S > 1) cuts the node dim into S blocks:
+the edge cells become [B, S, S, Ec], cell (d, s) holding the kept pairs
+with dst in block d and src in block s, ids block-local; with tiles, each
+cell is packed on its own (`ctile_src/ctile_rel`, and for training
+batches their src-major twin `ctile_dst/ctile_rel_src`), which needs N to
+be a multiple of S*128. host_shard=(rank, world) fills the row arrays of
+rank's contiguous slice of the batch only: the bucket sizes and the
+relation bank come from every row, so they agree on every rank without
+communication (parallel/mesh.py takes each rank's rows).
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ import numpy as np
 from gtos_tpu_torch.data.vocab import LexicalMap, Vocab
 from gtos_tpu_torch.graph.paths import GLOBAL_LABEL, PackedPaths
 from gtos_tpu_torch.ops.block_sparse import (
-    TILE, pack_block_sparse, pack_block_sparse_src,
+    TILE, pack_block_sparse, pack_block_sparse_cells,
+    pack_block_sparse_cells_src, pack_block_sparse_src,
 )
 
 
@@ -109,7 +116,7 @@ class GraphBatch:
     copy_mask: np.ndarray     # [B, N] bool, True where copying is allowed
     # sparse edge cells (build_edges=True): [B, S, S, Ec], cell (d, s) holds
     # the kept pairs with dst in node block d and src in node block s, ids
-    # block-local (S = cp_shards = 1 here: plain batched COO)
+    # block-local (S = cp_shards; S = 1: plain batched COO)
     edge_src: Optional[np.ndarray] = None   # [B, S, S, Ec] int32
     edge_dst: Optional[np.ndarray] = None   # [B, S, S, Ec] int32
     edge_rel: Optional[np.ndarray] = None   # [B, S, S, Ec] int32 bank rows
@@ -119,6 +126,11 @@ class GraphBatch:
     tile_rel: Optional[np.ndarray] = None      # [B, Td, Smax, 128, 128] int32
     tile_dst: Optional[np.ndarray] = None      # [B, Ts, Smax_s] int32
     tile_rel_src: Optional[np.ndarray] = None  # [B, Ts, Smax_s, 128, 128]
+    # per-cell tile layouts of the context-parallel ring (cp_shards > 1)
+    ctile_src: Optional[np.ndarray] = None      # [B, S, S, Tdl, Smax_c]
+    ctile_rel: Optional[np.ndarray] = None      # [..., Smax_c, 128, 128]
+    ctile_dst: Optional[np.ndarray] = None      # [B, S, S, Tsl, Smax_cs]
+    ctile_rel_src: Optional[np.ndarray] = None  # [..., Smax_cs, 128, 128]
     # per-graph LOCALIZED relation bank (build_local_banks=True): each graph
     # references only its own P_loc distinct paths
     bank_map: Optional[np.ndarray] = None       # [B, P_loc] int32 -> bank row
@@ -191,7 +203,8 @@ def batchify(
     Same arrays as gtos_tpu.data.batching.batchify (module docstring).
     sparse_khop: 0 keeps every real ordered pair; k > 0 keeps the pairs
     whose shortest path has at most k labels (the sparse impls only).
-    cp_shards > 1 and host_shard raise NotImplementedError (ROADMAP A9)."""
+    cp_shards: node blocks of the context-parallel cells; host_shard:
+    (rank, world), the row slice to fill (module docstring)."""
     # the "auto" aux mode: local banks at every bucket, tiles only as the
     # overflow fallback below
     aux_auto = "auto" in (build_block_tiles, build_local_banks)
@@ -199,10 +212,6 @@ def batchify(
         build_block_tiles = False
     if build_local_banks == "auto":
         build_local_banks = True
-    if cp_shards != 1 or host_shard is not None:
-        raise NotImplementedError(
-            "context-parallel edge cells (cp_shards > 1) and multi-host row "
-            "sharding are not ported yet (ROADMAP A9)")
     # khop pruning is for the sparse consumers, which mask pruned pairs
     # out; a dense impl would attend to them with the NONE path's vector
     if sparse_khop > 0 and not (build_edges or build_block_tiles):
@@ -212,6 +221,14 @@ def batchify(
     B = batch_size_bucket or len(instances)
     if B < len(instances):
         raise ValueError(f"batch bucket {B} < {len(instances)} instances")
+    own_lo, own_hi = 0, B
+    if host_shard is not None:
+        rank, world = host_shard
+        if B % world != 0:
+            raise BatchCapacityError(
+                f"batch bucket {B} not divisible by host count {world}; "
+                "set DataLoader batch_multiple to a multiple of it")
+        own_lo, own_hi = rank * (B // world), (rank + 1) * (B // world)
 
     N = BucketSpec.fit(spec.nodes, max(len(i.concepts) + 1 for i in instances))
     T = BucketSpec.fit(spec.target, max(len(i.target) + 1 for i in instances))
@@ -274,18 +291,23 @@ def batchify(
             raise BatchCapacityError(
                 f"instance with {n_real} nodes exceeds node cap {N}")
 
+        # the mask and the relations of EVERY row: the bank and the sizes
+        # must agree on every rank (host_shard)
         concept_mask[b, :nodes_here] = True
+        rel_index[b, 0, :nodes_here] = global_row
+        rel_index[b, :nodes_here, 0] = global_row
+        rel_index[b, 1:n_real + 1, 1:n_real + 1] = \
+            local2bank_all[b][inst.pair_paths.pair_idx]
+        if not own_lo <= b < own_hi:
+            oov_lists.append([])
+            metas.append(inst.meta)
+            continue
+
         concept[b, 0] = concept_vocab.cls_id
         concept_char[b, 0, :] = char_vocab.pad_id
         for i, c in enumerate(inst.concepts):
             concept[b, i + 1] = concept_vocab.encode(c)
             concept_char[b, i + 1] = _encode_chars(c, char_vocab, C)
-
-        # relations: global node row/col, then real pairs via the bank
-        rel_index[b, 0, :nodes_here] = global_row
-        rel_index[b, :nodes_here, 0] = global_row
-        rel_index[b, 1:n_real + 1, 1:n_real + 1] = \
-            local2bank_all[b][inst.pair_paths.pair_idx]
 
         # copy targets -> extended vocab ids (capped at spec.max_oov so
         # extended ids never exceed the model's ext_vocab; OOVs past the
@@ -359,21 +381,40 @@ def batchify(
 
     edge_arrays = {}
     if build_edges or build_block_tiles:
+        own = (own_lo, own_hi)
         edge_arrays, keep = _build_edge_cells(
-            concept_mask, rel_index, bank_len_p, bank_none, spec, sparse_khop)
+            concept_mask, rel_index, bank_len_p, bank_none, spec, cp_shards,
+            sparse_khop, own)
         if build_block_tiles:
+            if cp_shards > 1 and N % (cp_shards * TILE) != 0:
+                # the edge cells (built on N) and the tile cells must
+                # describe the same node blocks
+                raise BatchCapacityError(
+                    f"node bucket {N} must be a multiple of "
+                    f"cp_shards*{TILE} = {cp_shards * TILE} for the "
+                    "block-sparse CP layout; use a BucketSpec with node "
+                    "buckets of that granularity")
             Np = -(-N // TILE) * TILE
             keep_p = np.zeros((B, Np, Np), bool)
             keep_p[:, :N, :N] = keep
             rel_p = np.zeros((B, Np, Np), np.int32)
             rel_p[:, :N, :N] = rel_index
-            ts, tr = pack_block_sparse(keep_p, rel_p)
-            td, trs = pack_block_sparse_src(keep_p, rel_p)
-            edge_arrays.update(tile_src=ts, tile_rel=tr, tile_dst=td,
-                               tile_rel_src=trs)
+            if cp_shards > 1:
+                cts, ctr = pack_block_sparse_cells(keep_p, rel_p, cp_shards,
+                                                   own=own)
+                edge_arrays.update(ctile_src=cts, ctile_rel=ctr)
+                if for_train:
+                    ctd, ctrs = pack_block_sparse_cells_src(
+                        keep_p, rel_p, cp_shards, own=own)
+                    edge_arrays.update(ctile_dst=ctd, ctile_rel_src=ctrs)
+            else:
+                ts, tr = pack_block_sparse(keep_p, rel_p, own=own)
+                td, trs = pack_block_sparse_src(keep_p, rel_p, own=own)
+                edge_arrays.update(tile_src=ts, tile_rel=tr, tile_dst=td,
+                                   tile_rel_src=trs)
         if not build_edges:
             edge_arrays = {k: v for k, v in edge_arrays.items()
-                           if k.startswith("tile_")}
+                           if k.startswith(("tile_", "ctile_"))}
 
     return GraphBatch(
         **edge_arrays,
@@ -422,35 +463,52 @@ def _build_local_banks(rel_index, spec: BucketSpec):
 
 
 def _build_edge_cells(concept_mask, rel_index, bank_len, bank_none,
-                      spec: BucketSpec, sparse_khop: int):
-    """COO edge cells of the sparse encoder with one node block: returns
-    ({'edge_src', 'edge_dst', 'edge_rel', 'edge_mask'}, each [B, 1, 1, Ec],
-    the kept pairs (i = dst query, j = src key) of each graph in (i, j)
-    order; keep [B, N, N] bool)."""
+                      spec: BucketSpec, cp_shards: int, sparse_khop: int,
+                      own=None):
+    """COO edge cells of the sparse encoder: returns ({'edge_src',
+    'edge_dst', 'edge_rel', 'edge_mask'}, each [B, S, S, Ec]: cell (d, s)
+    holds the kept pairs (i = dst query, j = src key) with i in node block
+    d and j in node block s, ids block-local, in (i, j) order; keep
+    [B, N, N] bool). Ec comes from every row, only the rows of `own` are
+    filled."""
     B, N = concept_mask.shape
+    own_lo, own_hi = own if own is not None else (0, B)
+    S = cp_shards
+    if N % S:
+        raise ValueError(f"node bucket {N} not divisible by cp_shards {S}")
+    nl = N // S
     keep = concept_mask[:, :, None] & concept_mask[:, None, :]
     if sparse_khop > 0:
         within = (bank_len[rel_index] <= sparse_khop) & ~bank_none[rel_index]
         always = np.eye(N, dtype=bool)          # self
         always[0, :] = always[:, 0] = True      # global node row/col
         keep &= within | always[None]
-    counts = keep.reshape(B, -1).sum(1)
-    max_cell = max(1, int(counts.max()))
+    per_b, max_cell = [], 1
+    for b in range(B):
+        ii, jj = np.nonzero(keep[b])          # row-major: (i, j) order
+        cell = (ii // nl) * S + (jj // nl)
+        order = np.argsort(cell, kind="stable")
+        ii, jj, cell = ii[order], jj[order], cell[order]
+        cnt = np.bincount(cell, minlength=S * S)
+        max_cell = max(max_cell, int(cnt.max(initial=0)))
+        per_b.append((ii, jj, cell, cnt))
     Ec = BucketSpec.fit(spec.edge_cells, max_cell)
     if max_cell > Ec:
         raise BatchCapacityError(
             f"edge cell overflow: {max_cell} edges in one (dst,src) block "
             f"pair > cap {Ec}; raise spec.edge_cells or cp_shards")
-    esrc = np.zeros((B, 1, 1, Ec), dtype=np.int32)
-    edst = np.zeros((B, 1, 1, Ec), dtype=np.int32)
-    erel = np.zeros((B, 1, 1, Ec), dtype=np.int32)
-    emask = np.zeros((B, 1, 1, Ec), dtype=bool)
-    for b in range(B):
-        ii, jj = np.nonzero(keep[b])          # row-major: (i, j) order
-        n = len(ii)
-        esrc[b, 0, 0, :n] = jj
-        edst[b, 0, 0, :n] = ii
-        erel[b, 0, 0, :n] = rel_index[b, ii, jj]
-        emask[b, 0, 0, :n] = True
-    return (dict(edge_src=esrc, edge_dst=edst, edge_rel=erel,
-                 edge_mask=emask), keep)
+    esrc = np.zeros((B, S * S, Ec), dtype=np.int32)
+    edst = np.zeros((B, S * S, Ec), dtype=np.int32)
+    erel = np.zeros((B, S * S, Ec), dtype=np.int32)
+    emask = np.zeros((B, S * S, Ec), dtype=bool)
+    for b in range(own_lo, own_hi):
+        ii, jj, cell, cnt = per_b[b]
+        pos = np.arange(len(cell)) - (np.cumsum(cnt) - cnt)[cell]
+        esrc[b, cell, pos] = jj % nl
+        edst[b, cell, pos] = ii % nl
+        erel[b, cell, pos] = rel_index[b, ii, jj]
+        emask[b, cell, pos] = True
+    shape = (B, S, S, Ec)
+    return (dict(edge_src=esrc.reshape(shape), edge_dst=edst.reshape(shape),
+                 edge_rel=erel.reshape(shape),
+                 edge_mask=emask.reshape(shape)), keep)

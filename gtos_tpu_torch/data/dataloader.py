@@ -6,7 +6,8 @@ instances per batch, shuffle per epoch for training), the same
 bank-overflow bisect, the batch dimension padded to a power of two and
 then to `batch_multiple`, and batches built in this process or by a pool
 of worker processes or threads, yielded in plan order with the same
-arrays. Multi-host row sharding comes with ROADMAP A9.
+arrays. Under data parallelism (host_count > 1) every rank plans the same
+batches and fills only its own rows (batchify's host_shard).
 """
 
 from __future__ import annotations
@@ -103,8 +104,11 @@ class DataLoader:
     dimension is padded to a power of two, then up to a multiple of
     batch_multiple (the data-parallel width). build_edges, cp_shards,
     sparse_khop, build_block_tiles and build_local_banks go to batchify
-    ("auto" for the last two under attention_impl "auto"). host_count > 1
-    (multi-host row sharding) raises: ROADMAP A9.
+    ("auto" for the last two under attention_impl "auto"). host_rank and
+    host_count > 1: the batch plan is the same on every rank (same seed
+    and epoch), and batchify fills only this rank's contiguous rows
+    (host_shard); batch_multiple must be a multiple of host_count, so that
+    every batch divides evenly.
 
     workers > 1 builds the batches in a pool, `workers` wide with up to
     2 x workers groups in flight, and yields them in plan order with the
@@ -148,10 +152,9 @@ class DataLoader:
         worker_mode: str = "process",
     ):
         self._pool = None  # created at first use, kept across epochs
-        if host_count > 1:
-            raise NotImplementedError(
-                "multi-host row sharding (host_count > 1) is not ported yet "
-                "(ROADMAP A9)")
+        if host_count > 1 and batch_multiple % host_count:
+            raise ValueError(f"batch_multiple {batch_multiple} must be a "
+                             f"multiple of host_count {host_count}")
         if worker_mode not in ("process", "thread"):
             raise ValueError(f"worker_mode {worker_mode!r}: 'process' or "
                              "'thread'")
@@ -234,6 +237,8 @@ class DataLoader:
                 sparse_khop=self.sparse_khop,
                 build_block_tiles=self.build_block_tiles,
                 build_local_banks=self.build_local_banks,
+                host_shard=((self.host_rank, self.host_count)
+                            if self.host_count > 1 else None),
             ), group
         except BatchCapacityError:
             if len(group) == 1:

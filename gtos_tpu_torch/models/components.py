@@ -29,10 +29,25 @@ NEG_INF = -1e9
 
 class Dense(nn.Linear):
     """nn.Linear that rounds its f32 weight and bias to the input's type at
-    use (flax Dense with dtype = the compute type)."""
+    use (flax Dense with dtype = the compute type). Under tensor
+    parallelism (parallel/tensor_parallel.py) `tp` is ("column" | "row",
+    group): a column layer's input has its gradient summed over the group;
+    a row layer's output is all-reduced over it before the bias is
+    added."""
+
+    tp = None
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        if self.tp is None:
+            return F.linear(x, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype))
+        from gtos_tpu_torch.parallel import comm
+        kind, group = self.tp
+        if kind == "column":
+            return F.linear(comm.sum_grads(x, group),
+                            self.weight.to(x.dtype), self.bias.to(x.dtype))
+        y = comm.all_reduce(F.linear(x, self.weight.to(x.dtype)), group)
+        return y + self.bias.to(x.dtype)
 
 
 class Embedding(nn.Embedding):
@@ -51,7 +66,11 @@ class Dropout(nn.Module):
     """flax.linen.Dropout: an identity in eval mode or at rate 0; in
     training, where(keep, x / (1 - p), 0) with keep ~ Bernoulli(1 - p).
     The bits come from `rng`, a torch.Generator on the activations' device
-    that the owning model sets (models/generator.py)."""
+    that the owning model sets (models/generator.py). `shard` = (r, n):
+    x is column block r of n of a wider tensor (tensor parallelism); the
+    whole width's mask is drawn and its block kept."""
+
+    shard = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -62,8 +81,15 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.rng,
-                          device=x.device) < keep_prob
+        if self.shard is None:
+            keep = torch.rand(x.shape, generator=self.rng,
+                              device=x.device) < keep_prob
+        else:
+            r, n = self.shard
+            w = x.shape[-1]
+            keep = (torch.rand((*x.shape[:-1], w * n), generator=self.rng,
+                               device=x.device) < keep_prob
+                    )[..., r * w:(r + 1) * w]
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -120,7 +146,11 @@ class LayerNorm(nn.LayerNorm):
 
 
 class MultiheadAttention(nn.Module):
-    """Projections + attention, full-sequence or one step with a cache."""
+    """Projections + attention, full-sequence or one step with a cache.
+    Under tensor parallelism `heads` is this rank's and `tp_group` set
+    (parallel/tensor_parallel.py)."""
+
+    tp_group = None
 
     def __init__(self, d_model: int, heads: int):
         super().__init__()

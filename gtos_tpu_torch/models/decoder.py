@@ -104,6 +104,10 @@ class Decoder(nn.Module):
         align = None
         for blk in self.blocks():
             x, align = blk(x, mem, mem_mask, smask)
+        group = blk.cross_attn.tp_group
+        if group is not None:   # tensor parallel: this rank's heads
+            from gtos_tpu_torch.parallel.comm import gather_blocks
+            align = gather_blocks(align, group, 1)
         return x, align
 
     def init_cache(self, B: int, mem, horizon=None):
@@ -120,4 +124,8 @@ class Decoder(nn.Module):
         for blk, cache in zip(self.blocks(), caches):
             x, cache, align = blk.step(x, cache, pos, mem_mask)
             new_caches.append(cache)
+        group = blk.cross_attn.tp_group
+        if group is not None:   # tensor parallel: this rank's heads
+            from gtos_tpu_torch.parallel.comm import gather_blocks
+            align = gather_blocks(align, group, 1)
         return x[:, 0], new_caches, align[:, :, 0]

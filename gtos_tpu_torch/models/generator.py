@@ -109,8 +109,9 @@ class Generator(nn.Module):
     torch.Generator of the init (default: seeded with 0). Parameters are
     f32; activations in cfg.compute_dtype. `dropout_rng` is the
     torch.Generator (on `device`, seeded with 0) that every dropout draws
-    from in train mode; the model starts in eval mode. cp_mesh (the JAX
-    package's context-parallel mesh) raises: ROADMAP A9."""
+    from in train mode; the model starts in eval mode. cp_mesh: the
+    context-parallel mesh (parallel/mesh.py) of the encoder's sparse
+    attention, with cfg.cp_schedule (models/graph_transformer.py)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  rng: Optional[torch.Generator] = None, cp_mesh=None):
@@ -130,7 +131,8 @@ class Generator(nn.Module):
             cfg.dropout, dt)
         self.graph_transformer = GraphTransformer(
             cfg.enc_layers, cfg.d_model, cfg.d_ff, cfg.heads,
-            impl=cfg.attention_impl, dropout=cfg.dropout, cp_mesh=cp_mesh)
+            impl=cfg.attention_impl, dropout=cfg.dropout, cp_mesh=cp_mesh,
+            cp_schedule=cfg.cp_schedule)
         self.decoder = Decoder(
             cfg.token_vocab, cfg.dec_layers, cfg.d_model, cfg.d_ff,
             cfg.heads, cfg.max_target_len, cfg.dropout, dt)
@@ -167,6 +169,11 @@ class Generator(nn.Module):
         if self._serving[0] != key:
             self._serving[1] = None
             memo = {id(self.dropout_rng): None}   # not needed in eval
+            for mod in self.modules():   # tensor parallel groups: shared
+                for group in (getattr(mod, "tp_group", None),
+                              (getattr(mod, "tp", None) or (0, None))[1]):
+                    if group is not None:
+                        memo[id(group)] = group
             with torch.inference_mode(False):  # plain tensors, even in search
                 clone = copy.deepcopy(self, memo)
                 for mod in clone.modules():
@@ -237,14 +244,21 @@ class Generator(nn.Module):
 
     # ---------------- training ----------------
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
+    def forward(self, batch: Dict[str, torch.Tensor], data_group=None):
         """Teacher-forced loss of a batch (GraphBatch.arrays() on the
         model's device, batch_to_device): token NLL over the copy-mixed
         extended vocabulary, label-smoothed over the real token vocab
         (cfg.label_smoothing), averaged over real target positions.
         Dropout is active in train mode; attention_impl "auto" is resolved
         for this batch (encode). Returns (loss, {"loss", "acc", "n_tok"}),
-        scalars on the device."""
+        scalars on the device.
+
+        data_group: under data parallelism, the group over which the batch
+        rows are split. The sums are then divided by the GLOBAL target
+        token count (all-reduced), as the JAX package reduces over the
+        whole sharded batch, so `loss` is this rank's term of the global
+        loss (the terms, and their gradients, sum to the global ones) and
+        the metrics are the global values."""
         cfg = self.cfg
         mem = self.encode(batch["concept"], batch["concept_char"],
                           batch["concept_mask"], batch["rel_bank"],
@@ -257,7 +271,11 @@ class Generator(nn.Module):
         tgt = batch["token_out"].long()
         mask = batch["token_mask"].float()
         nll = -logp.gather(-1, tgt[..., None])[..., 0]
-        n_tok = mask.sum() + EPS
+        count = mask.sum()
+        if data_group is not None:
+            count = count.detach().clone()
+            torch.distributed.all_reduce(count, group=data_group)
+        n_tok = count + EPS
         loss = (nll * mask).sum() / n_tok
         if cfg.label_smoothing > 0.0:
             # the uniform mass goes to the real token vocab only: the OOV
@@ -267,7 +285,12 @@ class Generator(nn.Module):
             loss = ((1.0 - cfg.label_smoothing) * loss
                     + cfg.label_smoothing * smooth)
         acc = ((logp.argmax(-1) == tgt) * mask).sum() / n_tok
-        return loss, {"loss": loss, "acc": acc, "n_tok": mask.sum()}
+        metrics = {"loss": loss, "acc": acc, "n_tok": count}
+        if data_group is not None:
+            summed = torch.stack([loss.detach(), acc.detach()])
+            torch.distributed.all_reduce(summed, group=data_group)
+            metrics.update(loss=summed[0], acc=summed[1])
+        return loss, metrics
 
     # ---------------- incremental decoding ----------------
 
@@ -290,8 +313,9 @@ def batch_edges(batch: Dict[str, torch.Tensor]):
     localized-bank arrays of "pallas_local" and the localize sort order of
     training batches."""
     keys = ("edge_src", "edge_dst", "edge_rel", "edge_mask", "tile_src",
-            "tile_rel", "tile_dst", "tile_rel_src", "bank_map",
-            "rel_index_loc", "loc_perm", "loc_bnd")
+            "tile_rel", "tile_dst", "tile_rel_src", "ctile_src", "ctile_rel",
+            "ctile_dst", "ctile_rel_src", "bank_map", "rel_index_loc",
+            "loc_perm", "loc_bnd")
     out = {k: batch[k] for k in keys if k in batch}
     return out or None
 

@@ -37,10 +37,16 @@ one set of parameters:
 
 "auto" is resolved per batch (models/generator.py resolve_attention_impl)
 into "block_sparse", "pallas" or "pallas_local" and handed to `forward` as
-`impl`; the module is built once and runs any route. A context-parallel
-mesh (cp_mesh) raises NotImplementedError naming ROADMAP A9. Dropout where
-the JAX package has it: on the attention and FFN outputs before each
-residual add, and after the FFN's ReLU.
+`impl`; the module is built once and runs any route.
+
+With a context-parallel mesh (`cp_mesh`, parallel/mesh.py) whose 'graph'
+axis has S > 1 ranks, "block_sparse" runs the ring with B5s/B6 per step
+(parallel/ring_block_sparse.py, on batchify's per-cell layouts ctile_*;
+the B6 plans of the rank's S cells built once per stack) and "sparse"
+the edge-cell ring or, with cp_schedule "a2a", the all-to-all schedule
+(parallel/ring_attention.py, a2a_attention.py). Dropout where the JAX
+package has it: on the attention and FFN outputs before each residual
+add, and after the FFN's ReLU.
 """
 
 from __future__ import annotations
@@ -99,7 +105,14 @@ class RelationMultiheadAttention(nn.Module):
     """Relation-aware MHA: e_ij = scale * (q_i + a_ij).(k_j + b_ij).
 
     The relation vectors are projected per layer into per-head a/b banks
-    (`rel_proj`, one Linear chunked in two)."""
+    (`rel_proj`, one Linear chunked in two). Under tensor parallelism
+    `heads` is this rank's and `tp_cols` the columns of its heads in both
+    halves of the whole `rel_proj` output (parallel/tensor_parallel.py).
+    `cp_mesh`/`cp_schedule`: the context-parallel mesh (module
+    docstring)."""
+
+    tp_group = tp_cols = cp_mesh = None
+    cp_schedule = "ring"
 
     def __init__(self, d_model: int, heads: int, impl: str = "xla"):
         super().__init__()
@@ -130,10 +143,18 @@ class RelationMultiheadAttention(nn.Module):
         k = split_heads(self.k_proj(x), H)
         v = split_heads(self.v_proj(x), H)
         ab = self.rel_proj(rel_vecs)
+        if self.tp_cols is not None:
+            from gtos_tpu_torch.parallel.comm import sum_grads
+            ab = torch.index_select(sum_grads(ab, self.tp_group), -1,
+                                    self.tp_cols)
         a, b = split_banks(ab, H)
         edges = edges or {}
         grad = torch.is_grad_enabled() and q.requires_grad
-        if impl == "pallas_local":
+        mesh = self.cp_mesh
+        if impl in ("sparse", "block_sparse") and mesh is not None \
+                and mesh.size("graph") > 1:
+            out = self._context_parallel(impl, q, k, v, a, b, edges)
+        elif impl == "pallas_local":
             qkv = (q.contiguous(), k.contiguous(), v.contiguous())
             if grad:
                 out = local_relation_attention_trainable(
@@ -173,6 +194,29 @@ class RelationMultiheadAttention(nn.Module):
                                              node_mask)
         return self.out_proj(merge_heads(out.to(x.dtype)))
 
+    def _context_parallel(self, impl, q, k, v, a, b, edges):
+        """The CP attention over the mesh's 'graph' axis: whole q, k, v in,
+        whole output out (module docstring)."""
+        from gtos_tpu_torch.parallel import (
+            a2a_attention, ring_attention, ring_block_sparse)
+        mesh = self.cp_mesh
+        cells = tuple(edges.get(name) for name in (
+            "edge_src", "edge_dst", "edge_rel", "edge_mask"))
+        if impl == "block_sparse":
+            if "ctile_src" not in edges:
+                raise ValueError(
+                    "block_sparse under a graph mesh needs the per-cell tile "
+                    "layout (batchify build_block_tiles with cp_shards > 1)")
+            return ring_block_sparse.ring_block_sparse_relation_attention(
+                mesh, q, k, v, a, b, edges["ctile_src"], edges["ctile_rel"],
+                *cells, ctile_dst=edges.get("ctile_dst"),
+                ctile_rel_src=edges.get("ctile_rel_src"),
+                cells=edges.get("ring_cells"), plans=edges.get("ring_plans"))
+        fn = (a2a_attention.a2a_sparse_relation_attention
+              if self.cp_schedule == "a2a"
+              else ring_attention.ring_sparse_relation_attention)
+        return fn(mesh, q, k, v, a, b, *cells)
+
 
 class GraphTransformerLayer(nn.Module):
     def __init__(self, d_model: int, d_ff: int, heads: int,
@@ -192,18 +236,22 @@ class GraphTransformerLayer(nn.Module):
 
 class GraphTransformer(nn.Module):
     def __init__(self, layers: int, d_model: int, d_ff: int, heads: int,
-                 impl: str = "xla", dropout: float = 0.0, cp_mesh=None):
+                 impl: str = "xla", dropout: float = 0.0, cp_mesh=None,
+                 cp_schedule: str = "ring"):
         super().__init__()
         check_impl(impl)
-        if cp_mesh is not None:
-            raise NotImplementedError(
-                "context parallelism over a mesh (the ring schedules) is not "
-                "ported yet (ROADMAP A9)")
-        self.impl = impl
+        if cp_schedule not in ("ring", "a2a"):
+            raise ValueError(f"cp_schedule {cp_schedule!r}: 'ring' or 'a2a'")
+        self.impl, self.cp_mesh = impl, cp_mesh
         for i in range(layers):
             self.add_module(f"layer{i}", GraphTransformerLayer(
                 d_model, d_ff, heads, impl, dropout))
+            attn = getattr(self, f"layer{i}").self_attn
+            attn.cp_mesh, attn.cp_schedule = cp_mesh, cp_schedule
         self.layers = layers
+
+    def _cp_size(self) -> int:
+        return 1 if self.cp_mesh is None else self.cp_mesh.size("graph")
 
     def forward(self, x, rel_vecs, rel_index, node_mask, edges=None,
                 impl: Optional[str] = None):
@@ -228,17 +276,31 @@ class GraphTransformer(nn.Module):
             edges = dict(edges or {}, row_order=rows, col_order=cols)
         elif impl in ("sparse", "block_sparse"):
             edges = dict(edges or {})
-            need = "edge_src" if impl == "sparse" else "tile_src"
+            S = self._cp_size()
+            need = ("edge_src" if impl == "sparse"
+                    else "ctile_src" if S > 1 else "tile_src")
             if need not in edges:
                 raise ValueError(
                     f"attention_impl={impl!r} needs batchify "
                     + ("build_edges=True" if impl == "sparse"
-                       else "build_block_tiles=True"))
-            if "edge_src" in edges:   # the COO form, flattened once
+                       else "build_block_tiles=True")
+                    + (f" with cp_shards={S}" if S > 1 else ""))
+            if S > 1:
+                if impl == "block_sparse":   # this rank's cells, once
+                    from gtos_tpu_torch.parallel.ring_block_sparse import (
+                        rank_cells, ring_plans)
+                    cells = edges["ring_cells"] = rank_cells(
+                        self.cp_mesh.index("graph"), S, edges["ctile_src"],
+                        edges["ctile_rel"], edges.get("ctile_dst"),
+                        edges.get("ctile_rel_src"))
+                    if torch.is_grad_enabled() and "ctile_dst" in edges:
+                        edges["ring_plans"] = ring_plans(
+                            cells, x.shape[1] // S, rel_vecs.shape[0])
+            elif "edge_src" in edges:   # the COO form, flattened once
                 edges["flat_edges"] = flatten_edge_cells(
                     edges["edge_src"], edges["edge_dst"], edges["edge_rel"],
                     edges["edge_mask"], x.shape[1])
-            if (impl == "block_sparse" and torch.is_grad_enabled()
+            if (S == 1 and impl == "block_sparse" and torch.is_grad_enabled()
                     and "tile_dst" in edges):
                 edges["blk_plan"] = backward_plan(
                     edges["tile_src"], edges["tile_rel"], edges["tile_dst"],

@@ -27,9 +27,13 @@ PARAMS, TRAIN_STATE = "params.pt", "train_state.pt"
 class CheckpointManager:
     def __init__(self, directory: str, model_cfg: ModelConfig,
                  train_cfg: Optional[TrainConfig] = None,
-                 max_to_keep: int = 3):
+                 max_to_keep: int = 3, write_configs: bool = True):
+        """write_configs=False: a reader only (the ranks but the first of
+        a multi-rank run, which write nothing)."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        if not write_configs:
+            return
         os.makedirs(self.directory, exist_ok=True)
         with open(os.path.join(self.directory, "model_config.json"),
                   "w") as f:

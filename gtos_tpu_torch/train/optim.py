@@ -49,12 +49,15 @@ class Optimizer:
     tensors updated in place). `step(grads)` takes one gradient per
     parameter. The update runs as a few foreach kernels over all
     parameters and never reads a value back to the host, so the host can
-    queue the next step while the card works."""
+    queue the next step while the card works. `norm_fn(grads)` is the
+    clip's global norm (tensor parallelism replaces it: a shard's norm
+    is summed over its group)."""
 
     def __init__(self, cfg: TrainConfig, d_model: int,
                  params: List[torch.Tensor]):
         self.cfg = cfg
         self.params = list(params)
+        self.norm_fn = global_norm
         self.schedule = inverse_sqrt_schedule(d_model, cfg.warmup_steps,
                                               cfg.lr_scale)
         dev = self.params[0].device
@@ -77,7 +80,7 @@ class Optimizer:
                 return
             grads = [a.clone() for a in st["acc"]]
             torch._foreach_zero_(st["acc"])
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         factor = torch.where(norm < cfg.grad_clip, 1.0,
                              cfg.grad_clip / norm)
         grads = torch._foreach_mul(grads, factor)

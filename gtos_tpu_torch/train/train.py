@@ -15,6 +15,16 @@
       --config configs/c5_scaled_synthetic.json --attention_impl block_sparse \
       --graph 1 --dp 0 --synthetic 256 --ckpt_dir ckpt
 
+  # its config as written: 4-way data parallel x 2-way context parallel,
+  # one rank per card (8 cards)
+  python -m gtos_tpu_torch.train.train \
+      --config configs/c5_scaled_synthetic.json --synthetic 256 --ckpt_dir ckpt
+
+  # 2 data-parallel ranks on the CPU (gloo)
+  python -m gtos_tpu_torch.train.train --synthetic 64 --device cpu \
+      --d_model 32 --d_ff 64 --heads 2 --enc_layers 2 --dec_layers 1 \
+      --total_steps 4 --dp 2 --ckpt_dir ckpt
+
   # an AMR sembank (PENMAN, `# ::snt` or `# ::tok` targets)
   python -m gtos_tpu_torch.train.train --config configs/c2_amr2.json \\
       --train_data train.amr --dev_data dev.amr --ckpt_dir ckpt
@@ -35,8 +45,22 @@ sparse impls, only the pairs within k hops. Training runs on the CUDA card
 unless `--device cpu` is given, and raises without a card. The configs and
 vocabs go into the checkpoint directory (the args-in-checkpoint contract),
 so inference rebuilds the model from it alone (`python -m
-gtos_tpu_torch.infer.work`). Options whose feature is not ported raise and
-name the ROADMAP item that ports it: --dp/--mp/--graph/--coordinator (A9).
+gtos_tpu_torch.infer.work`).
+
+--dp/--mp/--graph build a (data, model, graph) mesh of dp*mp*graph ranks
+(parallel/mesh.py; --dp 0 and the others 1: no mesh). The CLI starts the
+ranks itself, one process per card (or per CPU rank under --device cpu):
+all of them here, or with --num_hosts N --host_id h --coordinator
+HOST:PORT this host's share, ranks h*R..h*R+R-1 of R = world/N. They
+rendezvous on the coordinator, else on a file in a temporary directory
+under TMPDIR. A world
+larger than the cards visible raises. A rank reads its data rank's rows
+(the loader's host_rank/host_count, batch_multiple = dp), --graph > 1
+needs "sparse" or "block_sparse" (with --cp_schedule ring or a2a for
+"sparse"; "block_sparse" runs the ring on one node bucket of graph*128
+nodes), and dev BLEU sums its statistics over the data ranks. Rank 0
+writes the metrics, vocabs and checkpoints; --resume has rank 0 read
+the latest checkpoint and send it to every rank.
 """
 
 from __future__ import annotations
@@ -114,7 +138,7 @@ def parse_args(argv=None):
     p.add_argument("--profile", metavar="LOGDIR",
                    help="write a torch.profiler trace of the run to "
                         "LOGDIR/trace.json")
-    # parallelism (not ported: ROADMAP A9)
+    # parallelism
     p.add_argument("--dp", type=int, default=0)
     p.add_argument("--mp", type=int, default=1)
     p.add_argument("--graph", type=int, default=1)
@@ -158,20 +182,34 @@ def parse_args(argv=None):
 
 
 def check_ported(args):
-    """Raise for the options whose feature the port does not have yet."""
+    """Refuse option combinations the JAX package's CLI refuses, and an
+    attention impl the port does not have."""
     from gtos_tpu_torch.models.graph_transformer import check_impl
 
-    if args.dp or args.mp > 1 or args.graph > 1 or args.coordinator:
-        raise NotImplementedError(
-            "--dp/--mp/--graph/--coordinator: the multi-device tier is not "
-            "ported yet (ROADMAP A9)")
-    if args.sparse_khop > 0 and not args.attention_impl.startswith(
-            ("sparse", "block_sparse")):
+    sparse = args.attention_impl.startswith(("sparse", "block_sparse"))
+    if args.graph > 1 and not sparse:
+        raise SystemExit(
+            "--graph context parallelism requires an edge-partitioned impl: "
+            "--attention_impl sparse or block_sparse")
+    if args.sparse_khop > 0 and not sparse:
         raise SystemExit(
             "--sparse_khop prunes pairs only the sparse impls mask out; a "
             "dense impl would attend to pruned pairs with the "
             "unreachable-path embedding")
+    if args.cp_schedule == "a2a" and args.attention_impl.startswith(
+            "block_sparse"):
+        raise SystemExit(
+            "--cp_schedule a2a is implemented for --attention_impl sparse "
+            "only; block_sparse runs the ring schedule")
     check_impl(args.attention_impl)
+
+
+def mesh_world(args) -> int:
+    """Ranks of the run's mesh; 0 without one (--dp 0, --mp 1, --graph
+    1)."""
+    if not (args.dp or args.mp > 1 or args.graph > 1):
+        return 0
+    return max(args.dp, 1) * args.mp * args.graph
 
 
 def load_corpus(task: str, data_path: str,
@@ -204,16 +242,18 @@ def load_corpus(task: str, data_path: str,
     return graphs, targets
 
 
-def loader_flags(impl: str, sparse_khop: int = 0) -> dict:
+def loader_flags(impl: str, sparse_khop: int = 0,
+                 cp_shards: int = 1) -> dict:
     """The DataLoader's batchify flags for an attention impl, as the JAX
-    package's CLIs set them (one node block: cp_shards=1): "auto" lets
-    batchify pick per bucket (local banks, the tile layouts as the
-    overflow fallback); "sparse" and "block_sparse" build the edge cells
-    (and the latter the tiles), with the impl's sparse_khop; the others
-    build what their kernel reads."""
+    package's CLIs set them: "auto" lets batchify pick per bucket (local
+    banks, the tile layouts as the overflow fallback); "sparse" and
+    "block_sparse" build the edge cells (and the latter the tiles), with
+    the impl's sparse_khop and the mesh's node blocks (cp_shards); the
+    others build what their kernel reads."""
     auto = impl.startswith("auto")
     sparse = impl == "sparse" or impl.startswith("block_sparse")
-    return dict(build_edges=sparse, cp_shards=1, sparse_khop=sparse_khop,
+    return dict(build_edges=sparse, cp_shards=cp_shards,
+                sparse_khop=sparse_khop,
                 build_block_tiles="auto" if auto
                 else impl.startswith("block_sparse"),
                 build_local_banks="auto" if auto
@@ -229,19 +269,26 @@ def load_synthetic(task: str, n: int):
 
 def make_dev_bleu_fn(tv, cv, rv, chv, lm, dev_instances, dl_kw,
                      beam_size: int = 1, alpha: float = 0.0,
-                     max_steps: int = 0):
+                     max_steps: int = 0, mesh=None):
     """model -> corpus BLEU of the decoded dev set (a capped slice): the
     training-time quality signal. The decode horizon follows the model's
-    target length unless max_steps is given."""
+    target length unless max_steps is given. Under a mesh each data rank
+    decodes every dp-th instance and BLEU's sufficient statistics are
+    summed over the data group, so every rank reports the whole set's
+    BLEU (the JAX package's process_allgather)."""
     from gtos_tpu_torch.data.dataloader import DataLoader
     from gtos_tpu_torch.infer.decode import decode_batch
-    from gtos_tpu_torch.utils.bleu import corpus_bleu
+    from gtos_tpu_torch.utils.bleu import bleu_from_stats, bleu_stats
 
+    if mesh is not None:
+        dp = mesh.size("data")
+        dev_instances = dev_instances[mesh.index("data")::dp]
     # every instance decoded once: no batch padded to the DP multiple
     dl = DataLoader(dev_instances, tv, cv, rv, chv, lm,
                     batch_size_tokens=2048, for_train=False,
                     **{k: v for k, v in dl_kw.items()
-                       if k != "batch_multiple"})
+                       if k not in ("batch_multiple", "host_rank",
+                                    "host_count")})
 
     def dev_bleu(model) -> float:
         hyps: List[str] = []
@@ -253,14 +300,89 @@ def make_dev_bleu_fn(tv, cv, rv, chv, lm, dev_instances, dl_kw,
             for hyp, inst in zip(out, group):
                 hyps.append(" ".join(hyp))
                 refs.append(" ".join(inst.target))
-        return corpus_bleu(hyps, refs)
+        stats = bleu_stats(hyps, refs)
+        if mesh is not None:
+            import torch
+            t = torch.tensor(stats, dtype=torch.int64, device=mesh.device)
+            torch.distributed.all_reduce(t, group=mesh.group("data"))
+            stats = t.tolist()
+        return bleu_from_stats(stats)
 
     return dev_bleu
 
 
 def main(argv=None):
+    """Train; with a mesh (mesh_world > 0) start this host's ranks and
+    return rank 0's result."""
     args = parse_args(argv)
     check_ported(args)
+    world = mesh_world(args)
+    if world == 0:
+        return run(args)
+    import tempfile
+
+    import torch
+
+    if world % args.num_hosts:
+        raise SystemExit(f"a mesh of {world} ranks does not divide over "
+                         f"{args.num_hosts} hosts")
+    local = world // args.num_hosts
+    if args.device != "cpu":
+        from gtos_tpu_torch.utils.device import resolve_device
+        resolve_device(args.device)
+        cards = torch.cuda.device_count()
+        if cards < local:
+            raise RuntimeError(
+                f"the mesh --dp {args.dp} --mp {args.mp} --graph "
+                f"{args.graph} needs {local} ranks on this host, one per "
+                f"card, and {cards} card(s) are visible")
+    if args.num_hosts > 1 and not args.coordinator:
+        raise SystemExit("--num_hosts > 1 needs --coordinator HOST:PORT")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = (f"tcp://{args.coordinator}" if args.coordinator
+                else f"file://{os.path.join(tmp, 'rendezvous')}")
+        result = os.path.join(tmp, "result.json")
+        if local == 1:
+            _rank_main(0, args, init, world, result)
+        else:
+            import torch.multiprocessing as mp
+            mp.start_processes(_rank_main, args=(args, init, world, result),
+                               nprocs=local, start_method="spawn")
+        if not os.path.exists(result):   # rank 0 lives on another host
+            return {}
+        with open(result) as f:
+            return json.load(f)
+
+
+def _rank_main(local_rank: int, args, init_method: str, world: int,
+               result_path: str):
+    """One rank of the mesh (a process of its own unless it is the host's
+    only one): join the group, train, leave it."""
+    import torch.distributed as dist
+
+    from gtos_tpu_torch.parallel.mesh import init_distributed
+
+    import torch
+
+    local = world // args.num_hosts
+    rank = args.host_id * local + local_rank
+    device = "cpu" if args.device == "cpu" else f"cuda:{local_rank}"
+    if device == "cpu" and local > 1:   # the host's cores, shared out
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))
+    init_distributed(rank, world, init_method, device)
+    try:
+        last = run(args, device=device)
+        if rank == 0:
+            with open(result_path, "w") as f:
+                json.dump(last, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, device=None):
+    """The training run of one process: the whole run without a mesh, one
+    rank's share with one (torch.distributed initialized)."""
+    import dataclasses
 
     import torch
 
@@ -275,7 +397,17 @@ def main(argv=None):
     from gtos_tpu_torch.utils.device import resolve_device
     from gtos_tpu_torch.utils.metrics import MetricsWriter
 
-    device = resolve_device(args.device)
+    device = resolve_device(device or args.device)
+    mesh = None
+    if mesh_world(args):
+        from gtos_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp or None, mp=args.mp, graph=args.graph,
+                         device=device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None and lead:
+        world = torch.distributed.get_world_size()
+        print(f"[mesh] {mesh.shape}: world {world}, backend {mesh.backend}",
+              file=sys.stderr, flush=True)
     path_cfg = RelationPathConfig(max_path_len=args.max_path_len)
     if args.synthetic:
         graphs, targets = load_synthetic(args.task, args.synthetic)
@@ -291,11 +423,15 @@ def main(argv=None):
             if args.dev_data else ([], []))
 
     vocab_dir = os.path.join(args.ckpt_dir, "vocabs")
-    if os.path.exists(os.path.join(vocab_dir, "token_vocab.json")):
+    saved = os.path.exists(os.path.join(vocab_dir, "token_vocab.json"))
+    if mesh is not None:   # every rank looked before rank 0 writes
+        torch.distributed.barrier()
+    if saved:
         tv, cv, rv, chv, lm = load_vocabs(vocab_dir)
     else:
         tv, cv, rv, chv, lm = build_vocabs(graphs, targets, path_cfg=path_cfg)
-        save_vocabs(vocab_dir, tv, cv, rv, chv, lm)
+        if lead:
+            save_vocabs(vocab_dir, tv, cv, rv, chv, lm)
 
     model_cfg = ModelConfig(
         token_vocab=len(tv), concept_vocab=len(cv), relation_vocab=len(rv),
@@ -318,10 +454,17 @@ def main(argv=None):
 
     # spec.max_oov follows the model so extended target ids always fit
     spec = BucketSpec().for_model_max_oov(model_cfg.max_oov)
-    dl_kw = dict(spec=spec, batch_multiple=max(args.dp or 1, 1),
+    if args.graph > 1 and args.attention_impl.startswith("block_sparse"):
+        # every node block tile-aligned: one bucket of graph*128 nodes
+        spec = dataclasses.replace(spec, nodes=(args.graph * 128,))
+    dp = max(args.dp, 1)
+    dl_kw = dict(spec=spec, batch_multiple=dp,
                  workers=args.batchify_workers,
                  worker_mode=args.batchify_worker_mode,
-                 **loader_flags(args.attention_impl, args.sparse_khop))
+                 **loader_flags(args.attention_impl, args.sparse_khop,
+                                args.graph))
+    if mesh is not None and dp > 1:
+        dl_kw.update(host_rank=mesh.index("data"), host_count=dp)
     instances = preprocess(graphs, targets, path_cfg)
     dev_instances = preprocess(dev_graphs, dev_targets, path_cfg)
     dl = DataLoader(instances, tv, cv, rv, chv, lm,
@@ -333,19 +476,24 @@ def main(argv=None):
               if dev_instances else None)
 
     model = Generator(model_cfg, device=device,
-                      rng=torch.Generator().manual_seed(args.seed))
+                      rng=torch.Generator().manual_seed(args.seed),
+                      cp_mesh=mesh if args.graph > 1 else None)
     first = next(iter(dl))
-    metrics = MetricsWriter(os.path.join(args.ckpt_dir, "metrics.jsonl"))
-    ckpt = CheckpointManager(args.ckpt_dir, model_cfg, train_cfg)
+    metrics = MetricsWriter(os.path.join(args.ckpt_dir, "metrics.jsonl"),
+                            enabled=lead)
+    ckpt = CheckpointManager(args.ckpt_dir, model_cfg, train_cfg,
+                             write_configs=lead)
     dev_bleu_fn = None
     if args.eval_bleu and dev_instances:
         dev_bleu_fn = make_dev_bleu_fn(
             tv, cv, rv, chv, lm, dev_instances[: args.eval_bleu_max], dl_kw,
-            beam_size=args.eval_bleu_beam, alpha=args.eval_bleu_alpha)
+            beam_size=args.eval_bleu_beam, alpha=args.eval_bleu_alpha,
+            mesh=mesh)
     trainer = Trainer(model, model_cfg, train_cfg, first.arrays(),
                       metrics_writer=metrics, checkpoint_manager=ckpt,
-                      dev_bleu_fn=dev_bleu_fn, prefetch=args.prefetch,
-                      max_inflight=args.max_inflight, device=device)
+                      mesh=mesh, dev_bleu_fn=dev_bleu_fn,
+                      prefetch=args.prefetch, max_inflight=args.max_inflight,
+                      device=device)
     if args.resume:
         step = trainer.restore_if_available()
         print(f"resumed at step {step}", file=sys.stderr)
@@ -361,7 +509,8 @@ def main(argv=None):
             if loader is not None:
                 loader.close()
     metrics.close()
-    print(f"done: {last}", file=sys.stderr)
+    if lead:
+        print(f"done: {last}", file=sys.stderr)
     return last
 
 

@@ -12,8 +12,21 @@ training with a resumable checkpoint on disk.
 Under attention_impl "auto" the model resolves each batch's route itself
 (Generator.forward): one model, one parameter set and one optimizer state
 for every route, and no per-route step cache, since nothing is compiled.
-The JAX package's meshes (data, tensor and context parallelism) are not
-ported: `mesh` raises (ROADMAP A9).
+
+With a mesh (parallel/mesh.py; this process is one rank of it) the model
+is split for tensor parallelism before the optimizer is built, each batch
+goes through shard_arrays to this rank's part, and the step is
+parallel/train.py's (gradients summed over the data group; evaluation's
+metrics global). Each rank's dropout generator is seeded from (seed,
+data rank): the ranks of one data rank draw the same masks, as their
+activations are the same, and data rank 0 draws the single-device
+run's (the JAX package draws one mask over the global batch, which no
+per-rank draw reproduces). A checkpoint holds every data rank's generator
+state, so a resumed rank draws the masks it would have drawn. Metrics and
+checkpoints are written by rank 0 alone; under TP a checkpoint holds the
+whole parameters and moments, gathered over the model group. On resume
+rank 0 reads the checkpoint and broadcasts it: the other hosts need no
+view of its directory.
 """
 
 from __future__ import annotations
@@ -50,7 +63,7 @@ class Trainer:
     (raises when no card is visible); the model must already be there.
     The dropout generator is seeded with train_cfg.seed. Metrics go to a
     JSONL writer (utils/metrics.py). dev_bleu_fn(model) -> float is called
-    at each eval."""
+    at each eval. mesh: this rank's mesh (module docstring)."""
 
     def __init__(
         self,
@@ -67,10 +80,6 @@ class Trainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes (data/tensor/context parallelism) are not ported "
-                "yet (ROADMAP A9)")
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, training "
                              f"runs on {self.device}")
@@ -86,11 +95,24 @@ class Trainer:
         self.model = model
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
+        self.mesh = mesh
+        seed = train_cfg.seed
+        if mesh is not None:
+            from gtos_tpu_torch.parallel.tensor_parallel import shard_model
+            shard_model(model, mesh)
+            seed += 1000003 * mesh.index("data")
         self.params = [p for p in model.parameters()]
         self.opt = Optimizer(train_cfg, model_cfg.d_model, self.params)
         self.step = 0
-        model.dropout_rng.manual_seed(train_cfg.seed)
-        self.metrics = metrics_writer
+        model.dropout_rng.manual_seed(seed)
+        self.lead = mesh is None or torch.distributed.get_rank() == 0
+        if mesh is not None:
+            from gtos_tpu_torch.parallel.train import (
+                make_sharded_eval_step, make_sharded_train_step)
+            self._sharded_step = make_sharded_train_step(model, self.opt,
+                                                         mesh)
+            self._eval_step = make_sharded_eval_step(model, mesh)
+        self.metrics = metrics_writer if self.lead else None
         self.ckpt = checkpoint_manager
         self.dev_bleu_fn = dev_bleu_fn
         self.prefetch = prefetch
@@ -99,39 +121,100 @@ class Trainer:
 
     # ---------------- state ----------------
 
+    def _split(self) -> bool:
+        return self.mesh is not None and self.mesh.size("model") > 1
+
     def state_dict(self) -> dict:
         """Everything a resume needs: parameters, optimizer state, step and
-        the dropout generator's state."""
-        return {"params": self.model.state_dict(),
-                "opt_state": self.opt.state_dict(), "step": self.step,
-                "rng": self.model.dropout_rng.get_state()}
+        the dropout generator's state; under a mesh also every data rank's
+        generator state ("rng_data", by data rank) and under TP the whole
+        tensors (every rank must call it)."""
+        if not self._split():
+            params, opt_state = self.model.state_dict(), self.opt.state_dict()
+        else:
+            from gtos_tpu_torch.parallel import tensor_parallel as tp
+            params = tp.full_state_dict(self.model)
+            opt_state = dict(self.opt.state_dict())
+            for key in ("mu", "nu", "acc"):
+                if key in opt_state:
+                    opt_state[key] = [tp.gather_full(t, p) for t, p in
+                                      zip(opt_state[key], self.params)]
+        rng = self.model.dropout_rng.get_state()
+        state = {"params": params, "opt_state": opt_state, "step": self.step,
+                 "rng": rng}
+        if self.mesh is not None:
+            states = [None] * self.mesh.size("data")
+            torch.distributed.all_gather_object(
+                states, rng, group=self.mesh.group("data"))
+            state["rng_data"] = states
+        return state
 
     def load_state_dict(self, state: dict):
-        self.model.load_state_dict(state["params"])
-        self.opt.load_state_dict(state["opt_state"])
+        params, opt_state = state["params"], state["opt_state"]
+        if self._split():
+            from gtos_tpu_torch.parallel.tensor_parallel import take_shard
+            own = dict(self.model.named_parameters())
+            params = {k: (take_shard(v, own[k]) if k in own else v)
+                      for k, v in params.items()}
+            opt_state = {k: ([take_shard(t, p) for t, p in
+                              zip(v, self.params)]
+                             if isinstance(v, list) else v)
+                         for k, v in opt_state.items()}
+        self.model.load_state_dict(params)
+        self.opt.load_state_dict(opt_state)
         self.step = int(state["step"])
-        self.model.dropout_rng.set_state(state["rng"])
+        rng = state["rng"]
+        if self.mesh is not None and "rng_data" in state:
+            states, dp = state["rng_data"], self.mesh.size("data")
+            if len(states) != dp:
+                raise ValueError(f"the checkpoint holds the dropout states "
+                                 f"of {len(states)} data ranks, the mesh "
+                                 f"has {dp}")
+            rng = states[self.mesh.index("data")]
+        elif self.mesh is not None and self.mesh.index("data") > 0:
+            rng = None    # a one-device checkpoint: keep this rank's seed
+        if rng is not None:
+            self.model.dropout_rng.set_state(rng)
 
     def restore_if_available(self) -> int:
-        if self.ckpt is not None:
+        if self.ckpt is None:
+            return self.step
+        if self.mesh is None:
             state = self.ckpt.restore_latest()
-            if state is not None:
-                self.load_state_dict(state)
-                # resume mid-epoch in the same deterministic batch order
-                self._resume_cursor = self.ckpt.load_cursor()
+            cursor = None if state is None else self.ckpt.load_cursor()
+        else:
+            # rank 0 reads and every rank receives: the other hosts need
+            # no view of the checkpoint directory
+            box = ([self.ckpt.restore_latest(), self.ckpt.load_cursor()]
+                   if self.lead else [None, None])
+            torch.distributed.broadcast_object_list(box, src=0)
+            state, cursor = box
+        if state is not None:
+            self.load_state_dict(state)
+            # resume mid-epoch in the same deterministic batch order
+            self._resume_cursor = cursor
         return self.step
 
     # ---------------- steps ----------------
 
+    def _put(self, raw):
+        if self.mesh is None:
+            return batch_to_device(raw, self.device)
+        from gtos_tpu_torch.parallel.mesh import shard_arrays
+        return shard_arrays(self.mesh, raw, self.model_cfg.cp_schedule)
+
     def _prep(self, batch):
         """Host-side work per batch (runs in the prefetch thread): pack to
-        numpy, then copy to the device."""
+        numpy, then copy (this rank's part) to the device."""
         raw = batch.arrays()
-        return raw, batch_to_device(raw, self.device)
+        return raw, self._put(raw)
 
     def train_step(self, arrays: Dict[str, torch.Tensor]) -> dict:
         """One optimizer step on a batch on the device. Returns its metrics
         (loss, acc, n_tok, grad_norm) as device scalars, unread."""
+        if self.mesh is not None:
+            self.step += 1
+            return self._sharded_step(arrays)
         self.model.train()
         loss, metrics = self.model(arrays)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
@@ -147,7 +230,9 @@ class Trainer:
         self.model.eval()
         tot_loss, tot_tok, tot_acc = 0.0, 0.0, 0.0
         for batch in dev_loader:
-            m = self.model(batch_to_device(batch.arrays(), self.device))[1]
+            arrays = self._put(batch.arrays())
+            m = (self.model(arrays)[1] if self.mesh is None
+                 else self._eval_step(arrays))
             n = float(m["n_tok"])
             tot_loss += float(m["loss"]) * n
             tot_acc += float(m["acc"]) * n
@@ -182,9 +267,11 @@ class Trainer:
                 drained[0] = (s, m, loss_val)
 
         def save():
-            self.ckpt.save(self.step, self.state_dict(), cursor={
-                "epoch": getattr(train_loader, "epoch", 0),
-                "batch": batch_idx})
+            state = self.state_dict()   # every rank: TP gathers
+            if self.lead:
+                self.ckpt.save(self.step, state, cursor={
+                    "epoch": getattr(train_loader, "epoch", 0),
+                    "batch": batch_idx})
 
         if self._resume_cursor is not None and hasattr(train_loader,
                                                        "epoch"):

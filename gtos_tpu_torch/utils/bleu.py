@@ -44,9 +44,10 @@ def _ngrams(tokens: List[str]) -> Counter:
                    for i in range(len(tokens) - n + 1))
 
 
-def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> float:
-    """BLEU (0-100) of hypothesis strings against one reference string
-    each."""
+def bleu_stats(hyps: Sequence[str], refs: Sequence[str]) -> List[int]:
+    """BLEU's sufficient statistics, which add over parts of a corpus:
+    correct and total n-grams for n = 1..4, then the hypothesis and
+    reference lengths (10 ints)."""
     correct = [0] * MAX_ORDER
     total = [0] * MAX_ORDER
     sys_len = ref_len = 0
@@ -59,6 +60,20 @@ def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> float:
         for gram, count in _ngrams(h).items():
             total[len(gram) - 1] += count
             correct[len(gram) - 1] += min(count, ref_counts.get(gram, 0))
+    return correct + total + [sys_len, ref_len]
+
+
+def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    """BLEU (0-100) of hypothesis strings against one reference string
+    each."""
+    return bleu_from_stats(bleu_stats(hyps, refs))
+
+
+def bleu_from_stats(stats: Sequence[int]) -> float:
+    """BLEU (0-100) from bleu_stats (summed over parts of a corpus)."""
+    correct = list(stats[:MAX_ORDER])
+    total = list(stats[MAX_ORDER:2 * MAX_ORDER])
+    sys_len, ref_len = stats[2 * MAX_ORDER:]
     bp = 1.0
     if sys_len < ref_len:
         bp = math.exp(1 - ref_len / sys_len) if sys_len > 0 else 0.0

@@ -45,12 +45,12 @@ class ModelConfig:
     # numerics: activations in compute_dtype ("float32" | "bfloat16")
     compute_dtype: str = "float32"
     max_target_len: int = 128
-    # encoder attention implementation. The port runs "xla" (plain bank
-    # decomposition) and "pallas_local" (the localized relation-attention
-    # kernel, a CUDA kernel on the card); the other values of the JAX
-    # package raise and name the ROADMAP item that ports them
+    # encoder attention implementation: every value of the JAX package
+    # (models/graph_transformer.py); "*_interpret" raises (no interpret
+    # mode in the port)
     attention_impl: str = "xla"
     sparse_khop: int = 0
+    # "sparse" under a context-parallel mesh: "ring" or "a2a"
     cp_schedule: str = "ring"
 
     @property
@@ -92,7 +92,7 @@ class TrainConfig:
     checkpoint_every: int = 1000
     batch_size_tokens: int = 4096
     seed: int = 19940117
-    # mesh (the multi-device tier is not ported: ROADMAP A9)
+    # the data-parallel width of the run (the CLI's --dp; 0: no mesh)
     dp_size: int = 1
 
     def to_json(self) -> str:

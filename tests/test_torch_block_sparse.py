@@ -157,13 +157,17 @@ def test_sparse_dataloader_equals_jax(corpora):
 
 def test_sparse_khop_needs_a_sparse_consumer(corpora):
     """sparse_khop > 0 without edge cells or tiles is refused, as in the
-    JAX package; more than one node block names ROADMAP A9."""
-    _, (pi, pv) = corpora
+    JAX package; more than one node block (ported since, ROADMAP A9)
+    builds [B, S, S, Ec] cells equal to the JAX package's."""
+    (ji, jv), (pi, pv) = corpora
     with pytest.raises(ValueError, match="sparse_khop"):
         batchify(pi[:2], *pv, spec=BucketSpec(**SPEC), sparse_khop=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        batchify(pi[:2], *pv, spec=BucketSpec(**SPEC), build_edges=True,
-                 cp_shards=2)
+    pb = batchify(pi[:2], *pv, spec=BucketSpec(**SPEC), build_edges=True,
+                  cp_shards=2, sparse_khop=2)
+    jb = jax_batchify(ji[:2], *jv, spec=JaxBucketSpec(**SPEC),
+                      build_edges=True, cp_shards=2, sparse_khop=2)
+    assert pb.edge_src.shape[1:3] == (2, 2)
+    _same_arrays(jb.arrays(), pb.arrays())
 
 
 # ---------------------------------------------------- edge-list attention

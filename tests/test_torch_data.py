@@ -159,28 +159,33 @@ def test_long_targets_truncated_like_the_reference():
 
 @pytest.mark.parametrize("flag", [
     dict(build_edges=True), dict(build_block_tiles=True),
+    # multi-host row sharding, ported since (A9): the JAX package's arrays
     dict(host_shard=(0, 2)),
     dict(build_local_banks=True, for_train=True, host_shard=(0, 2)),
-    # the DataLoader's multi-host sharding: A9 as well
+    # the DataLoader's: batch_multiple must be a multiple of host_count
     dict(loader=dict(host_count=2)),
     # the DataLoader's batch options and pools, ported since (A4)
     dict(loader=dict(batch_multiple=3, max_batch_instances=1, workers=2,
                      worker_mode="thread")),
 ])
 def test_unported_batch_options_raise(flag):
-    """Options whose port comes in a later slice (host_shard and the
-    DataLoader's host_count: ROADMAP A9) raise and name the ROADMAP item;
-    they never drop the request silently. The sparse tier's options,
-    ported since (A8), give the JAX package's arrays: the edge cells, or
-    the four tile arrays; so do the DataLoader's batch_multiple,
-    max_batch_instances and workers (A4): one instance a batch, each
-    padded to 3 rows."""
+    """The batch options of later slices give the JAX package's arrays,
+    never dropping a request silently: the sparse tier's (A8) the edge
+    cells or the four tile arrays, host_shard (A9) rank 0's rows of two;
+    so do the DataLoader's batch_multiple, max_batch_instances and
+    workers (A4): one instance a batch, each padded to 3 rows. The
+    DataLoader's host_count=2 without a batch_multiple it divides raises,
+    as the JAX package's asserts."""
     g, t = synthetic_amr_corpus(2, seed=0)
     if "loader" in flag:
         kw = dict(for_train=False, **flag["loader"])
         if "host_count" in kw:
-            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            with pytest.raises(ValueError, match="batch_multiple"):
                 DataLoader(preprocess(g, t), *build_vocabs(g, t), **kw)
+            jg, jt = jax_amr(2, seed=0)
+            with pytest.raises(AssertionError, match="batch_multiple"):
+                JaxDataLoader(jax_preprocess(jg, jt),
+                              *jax_build_vocabs(jg, jt), **kw)
             return
         jg, jt = jax_amr(2, seed=0)
         ref = list(JaxDataLoader(jax_preprocess(jg, jt),
@@ -195,10 +200,6 @@ def test_unported_batch_options_raise(flag):
                 np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
         return
     kw = dict(dict(for_train=False), **flag)
-    if "host_shard" in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            batchify(preprocess(g, t), *build_vocabs(g, t), **kw)
-        return
     pa = batchify(preprocess(g, t), *build_vocabs(g, t), **kw).arrays()
     jg, jt = jax_amr(2, seed=0)
     ja = jax_batchify(jax_preprocess(jg, jt), *jax_build_vocabs(jg, jt),

@@ -137,12 +137,74 @@ def test_port_imports_no_jax_and_decodes_on_the_cpu():
     jax, flax nor gtos_tpu is in sys.modules afterwards."""
     report = _run_port_script(NO_JAX_SCRIPT)
     assert report["modules"] >= 20
-    assert {"gtos_tpu_torch.native", "gtos_tpu_torch.graph.dependency"
-            } <= set(report["port_modules"])
+    assert {"gtos_tpu_torch.native", "gtos_tpu_torch.graph.dependency",
+            "gtos_tpu_torch.parallel.ring_block_sparse",
+            "gtos_tpu_torch.parallel.mesh"} <= set(report["port_modules"])
     assert report["extractor"] == "native"
     # NONE, the six paths of the 3-token tree's off-diagonal pairs, SELF
     assert report["tree_paths"] == 8
     assert report["hyps"] == 6 and report["strings"]
+    assert report["imported"] == []
+
+
+# a world of one gloo rank in a fresh interpreter: the mesh, each rank's
+# part of a batch, a sharded train step under "block_sparse" (tensor and
+# data parallel code paths on one rank), and the emulated CP schedules
+NO_JAX_MESH_SCRIPT = textwrap.dedent("""
+    import json, os, sys, tempfile
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from gtos_tpu_torch.data import DataLoader
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.parallel import ring_attention, ring_block_sparse
+    from gtos_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, shard_arrays)
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+    init_distributed(0, 1, "file://" + os.path.join(tempfile.mkdtemp(),
+                                                     "rdv"), "cpu")
+    mesh = make_mesh(dp=1, mp=1, graph=1, device="cpu")
+    g, t = synthetic_amr_corpus(6, seed=0)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=16, d_ff=32, heads=2, enc_layers=1,
+                      dec_layers=1, char_dim=4, char_filters=8,
+                      rel_emb_dim=4, rel_hidden=8, max_oov=64,
+                      max_target_len=16, dropout=0.1, sparse_khop=2,
+                      attention_impl="block_sparse")
+    batch = next(iter(DataLoader(preprocess(g, t), tv, cv, rv, chv, lm,
+                                 build_edges=True, build_block_tiles=True,
+                                 sparse_khop=2)))
+    trainer = Trainer(Generator(cfg, device="cpu"), cfg, TrainConfig(),
+                      batch.arrays(), mesh=mesh, device="cpu")
+    m = trainer.train_step(shard_arrays(mesh, batch.arrays()))
+    q = torch.randn(1, 2, 256, 8)
+    cells = [torch.zeros(1, 2, 2, 4, dtype=torch.int32) for _ in range(3)]
+    out = ring_attention.emulate_ring(
+        q, q, q, torch.zeros(4, 2, 8), torch.zeros(4, 2, 8), *cells,
+        torch.ones(1, 2, 2, 4, dtype=torch.bool), 2)
+    dist.destroy_process_group()
+    print(json.dumps({"loss": m["loss"].item(), "step": trainer.step,
+                      "out": list(out.shape),
+                      "imported": sorted(
+                          m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "flax", "gtos_tpu")
+                          or m.startswith("jaxlib"))}))
+""")
+
+
+def test_mesh_tier_imports_no_jax():
+    """In a fresh interpreter, the multi-device tier (a one-rank gloo mesh,
+    shard_arrays, a sharded "block_sparse" train step, an emulated ring)
+    runs and leaves jax, flax and gtos_tpu out of sys.modules."""
+    report = _run_port_script(NO_JAX_MESH_SCRIPT)
+    assert report["step"] == 1 and report["loss"] > 0
+    assert report["out"] == [1, 2, 256, 8]
     assert report["imported"] == []
 
 
@@ -188,8 +250,13 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dp", "2"], "A9"), (["--graph", "2"], "A9"),
-    (["--coordinator", "localhost:1234"], "A9"),
+    # ported since (ROADMAP A9): 2 data-parallel ranks, 2 graph ranks of
+    # the edge-cell ring (spawned gloo processes); --coordinator without a
+    # mesh is not used, as in the JAX package's CLI on one host (ids kept)
+    pytest.param(["--dp", "2"], None, id="flags0-A9"),
+    pytest.param(["--graph", "2", "--attention_impl", "sparse"], None,
+                 id="flags1-A9"),
+    pytest.param(["--coordinator", "localhost:1234"], None, id="flags2-A9"),
     # ported since (ROADMAP A7): these train
     pytest.param(["--attention_impl", "auto"], None, id="flags3-A7"),
     pytest.param(["--attention_impl", "pallas"], None, id="flags4-A7"),
@@ -201,8 +268,8 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 def test_train_cli_refuses_unported_options(flags, item, tmp_path):
     """The train CLI's options whose feature is not ported raise and name
     the ROADMAP item that ports it, before any work; the options ported
-    since (item None: "auto", "pallas", "sparse" and "block_sparse") train
-    a step on the CPU."""
+    since (item None: the mesh options, "auto", "pallas", "sparse" and
+    "block_sparse") train a step on the CPU."""
     argv = ["--synthetic", "8", "--device", "cpu", "--ckpt_dir",
             str(tmp_path), *flags]
     if item is None:
@@ -213,7 +280,9 @@ def test_train_cli_refuses_unported_options(flags, item, tmp_path):
         assert last["step"] == 1 and np.isfinite(last["loss"])
         cfg = ModelConfig.from_json(
             (tmp_path / "model_config.json").read_text())
-        assert cfg.attention_impl == flags[1]
+        if "--attention_impl" in flags:
+            impl = flags[flags.index("--attention_impl") + 1]
+            assert cfg.attention_impl == impl
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train_main(argv)
@@ -252,12 +321,13 @@ def test_model_config_json_loads_in_both_packages():
                                   "block_sparse"])
 def test_unported_attention_impls_raise(impl):
     """Every attention impl of the JAX package is ported now ("pallas" and
-    "auto" since ROADMAP A7, the sparse ones since A8) and builds; a
-    context-parallel mesh still raises naming A9."""
+    "auto" since ROADMAP A7, the sparse ones since A8) and builds, with a
+    context-parallel mesh too (A9): every encoder layer holds it."""
     cfg = ModelConfig(**dict(TINY, attention_impl=impl))
     assert Generator(cfg, device="cpu").cfg.attention_impl == impl
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Generator(cfg, device="cpu", cp_mesh=object())
+    mesh = object()
+    gt = Generator(cfg, device="cpu", cp_mesh=mesh).graph_transformer
+    assert gt.cp_mesh is mesh and gt.layer0.self_attn.cp_mesh is mesh
 
 
 @pytest.mark.parametrize("impl", ["pallas_interpret", "auto_interpret",

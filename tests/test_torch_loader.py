@@ -1,8 +1,9 @@
 """The port's DataLoader options against the JAX package's on the CPU:
 batch_multiple and max_batch_instances give the same plan and arrays,
 worker pools (processes from a forkserver, or threads) give the same
-batches as building them in order, and host_count > 1 raises naming
-ROADMAP A9. Exact equality: the data layer has no floating point."""
+batches as building them in order, and host_count > 1 (a rank's rows)
+gives the JAX package's batches. Exact equality: the data layer has no
+floating point."""
 
 import dataclasses
 import inspect
@@ -140,15 +141,30 @@ def test_worker_pool_yields_the_loaders_own_instances(corpora):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(host_count=2), NotImplementedError, "ROADMAP A9"),
-    (dict(host_count=2, host_rank=1, batch_multiple=2), NotImplementedError,
-     "ROADMAP A9"),
+    # ids kept from when multi-host sharding raised naming ROADMAP A9
+    pytest.param(dict(host_count=2), ValueError, "batch_multiple",
+                 id="kw0-NotImplementedError-ROADMAP A9"),
+    pytest.param(dict(host_count=2, host_rank=1, batch_multiple=2), None,
+                 None, id="kw1-NotImplementedError-ROADMAP A9"),
     (dict(workers=2, worker_mode="fork"), ValueError, "worker_mode"),
 ])
 def test_unported_and_bad_loader_options_raise(corpora, kw, err, match):
-    """Multi-host row sharding (host_count > 1: batchify's host_shard) is
-    ROADMAP A9 and raises naming it; an unknown worker_mode raises."""
-    _, (pi, pv) = corpora
+    """Multi-host row sharding (host_count > 1: batchify's host_shard,
+    ported with ROADMAP A9) needs batch_multiple to be a multiple of
+    host_count, else it raises (the JAX package asserts it); with it, the
+    loader gives the JAX package's batches over an epoch, this rank's
+    rows filled (err None). An unknown worker_mode raises."""
+    (ji, jv), (pi, pv) = corpora
+    if err is None:
+        ref = list(JaxDataLoader(ji, *jv, seed=3, **kw))
+        got = list(DataLoader(pi, *pv, seed=3, **kw))
+        assert len(ref) == len(got) > 1
+        for jb, pb in zip(ref, got):
+            ja, pa = jb.arrays(), pb.arrays()
+            assert ja.keys() == pa.keys()
+            for k in ja:
+                np.testing.assert_array_equal(ja[k], pa[k], err_msg=k)
+        return
     with pytest.raises(err, match=match):
         DataLoader(pi, *pv, **kw)
 

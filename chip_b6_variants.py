@@ -66,8 +66,11 @@ main-path inputs.
 step of the other checkout on each captured batch (the first
 CAPTURE_BATCHES take B3, the last B3').
 
-Every mode sets the checkout's chip_smoke.SPIN_CYCLES to this script's
-checkout's, so that two checkouts are timed with the same spin.
+Every mode sets the checkout's `time_ms` spin (`set_spin`) to this
+script's checkout's, so that two checkouts are timed with the same spin.
+This script loads its own chip_smoke beside the checkout's, which imports
+utils/benchlib.py from the checkout's package: DIR is a checkout that has
+that module.
 """
 
 import argparse
@@ -100,7 +103,7 @@ def main():
         cs.fail("torch.cuda.is_available() is false: this script needs a "
                 "card")
     checkout = str(Path(cs.__file__).resolve().parent)
-    cs.SPIN_CYCLES = this_chip_smoke().SPIN_CYCLES
+    set_spin(cs, this_chip_smoke().SPIN_CYCLES)
     print(cs.card_line(), flush=True)
     print(f"[b6] checkout {checkout}; time_ms spin {cs.SPIN_CYCLES} cycles",
           flush=True)
@@ -238,6 +241,16 @@ def time_variants(cs, cases):
         for v, by in means.items()}}))
 
 
+def set_spin(cs, cycles):
+    """The spin before each call of the checkout's `time_ms`: its
+    chip_smoke's own constant, or utils/benchlib.py's where its chip_smoke
+    imports `time_ms` from there (this tree and later)."""
+    cs.SPIN_CYCLES = cycles
+    lib = sys.modules.get("gtos_tpu_torch.utils.benchlib")
+    if lib is not None:
+        lib.SPIN_CYCLES = cycles
+
+
 def this_chip_smoke():
     """This script's own chip_smoke, loaded beside the checkout's (whose
     modules it then uses): its profile reports the localized kernels'
@@ -369,12 +382,12 @@ def main_global(cs, checkout, args):
     spin = cs.SPIN_CYCLES
     try:
         for cycles in SPIN_STUDY:
-            cs.SPIN_CYCLES = cycles
+            set_spin(cs, cycles)
             ms = cs.time_ms(lambda: ra.fused_relation_attention_bwd(*bwd[0]))
             print(f"[b4] train0: time_ms with a {cycles}-cycle spin "
                   f"{ms:.6f} ms", flush=True)
     finally:
-        cs.SPIN_CYCLES = spin
+        set_spin(cs, spin)
 
 
 def time_b3_variants(cs, cases):

@@ -122,12 +122,20 @@ Phases, each of which exits non-zero on failure:
                on one batch, and a bit-identical resume;
   17. shapes — each kernel again, on the very inputs the serving runs (B1;
                B3, B3'; B5) and the training runs (B1p, B2; B3, B3', B4;
-               B5s, B6d, B6s, B6b) gave it, against its plain version and
-               timed: the table rows (a planted B2 with g_a zeroed, a
+               B5s, B6d, B6s, B6b) gave it (`utils/kernel_calls.py`
+               `capture`, as the bench records them), against its plain
+               version and timed per batch: the table rows (a planted B2 with g_a zeroed, a
                planted B4 with g_t3 zeroed and two planted B3s, one reading
                t3 at the query row and one without the t2 term, must fail
                the gate there);
-  18. profile — with --profile only: torch.profiler over each served batch
+  18. bench  — the port's bench (`python -m gtos_tpu_torch.bench`) in
+               this process on its north-star and kernels cells with two
+               repeats: its last line parses, every timing in it is
+               positive and finite, and no reading beats its bound; the
+               table rows of c2, c4 and c5 take its kernel times (one
+               time a row: the median of the kernels cell on layer 0 of
+               the model's first batch, `bench_timed`);
+  19. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c4 and one c5 train step on each
                captured batch ("pallas_local", "block_sparse"), the device busy time, idle share,
@@ -154,9 +162,24 @@ import time
 
 import numpy as np
 
+# the bench's cells' corpora and configs: raw_corpus(family, seed, n),
+# corpus(family) (preprocessed, with vocabularies) and configs(family,
+# impl) for "c2", "c4" and "c5"
+from gtos_tpu_torch.bench import (
+    C5_GRAPHS, C5_NODES, C5_SPEC, configs, corpus, raw_corpus)
+# one copy of the measurement code (SPIN_CYCLES: chip_b6_variants.py
+# reads this tree's)
+from gtos_tpu_torch.utils.benchlib import (
+    KERNEL_TOL, PROBS_TOL, SPIN_CYCLES, b4_largest, b6b_library,  # noqa
+    block_bound, card_line, disagreement, global_attention_bound,
+    honest_batch, local_attention_bound, local_attention_bwd_bound,
+    rel_to_largest, time_ms)
+from gtos_tpu_torch.utils.benchlib import dtype_name as _dtype_name
+# one way to record the kernel calls of a step and to plant a kernel
+from gtos_tpu_torch.utils import kernel_calls
+from gtos_tpu_torch.utils.kernel_calls import capture, replaced
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
 BEAM, MAX_STEPS, SERVE_BATCHES = 8, 64, 3
 TRAIN_STEPS, LOG_EVERY = 20, 5
 # "pallas" training: loader batches (4096-row banks: B3), then batches
@@ -167,35 +190,23 @@ WORK_SYNTHETIC, WORK_STEPS, WORK_GRAPHS = 256, 6, 48
 OVERFIT_STEPS, OVERFIT_RATIO = 100, 0.5  # last loss < 0.5 x the first
 RESUME_AT, RESUME_MORE = 4, 4
 CAPTURE_BATCHES = 3                      # train batches behind the B1p/B2 rows
-# the card's spin before each timed call (`time_ms`): ~0.5 ms at the
-# H100's 1.98 GHz, longer than the host takes to issue a wrapper's
-# launches (B2's three, B4's two), so host time stays out of the number
-SPIN_CYCLES = 1_000_000
 # stated tolerances (reasons in PERF.md): kernel vs plain version on the
-# same inputs; whole encoder on the card vs f32 on the CPU, each set
-# between the sound kernel's gap and that of the planted wrong kernels
-KERNEL_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
-              "bfloat16": dict(atol=3e-2, rtol=2e-2)}
+# same inputs (KERNEL_TOL, PROBS_TOL: utils/benchlib.py); whole encoder on
+# the card vs f32 on the CPU, each set between the sound kernel's gap and
+# that of the planted wrong kernels
 ENCODER_TOL = {"bfloat16": dict(max_abs=0.058, mean_abs=0.0076),
                "float32": dict(max_abs=2e-5, mean_abs=3e-6)}
-# B1p's probabilities are f32 from the same f32 scores in both versions
-PROBS_TOL = dict(atol=1e-5, rtol=1e-4)
 # whole-model gradients on the card vs f32 on the CPU: the largest
 # relative L2 gap over the parameters with a gradient, and the loss gap
 GRAD_TOL = {"float32": dict(rel=1e-2, loss=1e-4),
             "bfloat16": dict(rel=0.4, loss=1e-2)}
 # the c4 translator (configs/c4_nmt_ende.json: no copy, node positions)
-# on synthetic dependency trees of 10-50 tokens, a translator's sentence
-# lengths; served requests are another seed of the same corpus
-C4_GRAPHS, C4_LENGTHS = 400, (10, 50)
-# the c5 model (configs/c5_scaled_synthetic.json) on synthetic graphs of
-# 100-500 nodes: the node buckets 128/256/512 with the bank and edge-cell
-# ladders widened (as tests/test_ring_block_sparse.py widens them); the
+# on C4_GRAPHS synthetic dependency trees of C4_LENGTHS tokens, a
+# translator's sentence lengths; served requests are another seed of the
+# same corpus. The c5 model (configs/c5_scaled_synthetic.json) on
+# C5_GRAPHS synthetic graphs of C5_NODES nodes: the node buckets
+# 128/256/512 with C5_SPEC's widened bank and edge-cell ladders; the
 # loader bisects a batch whose bank overflows 65536 rows
-C5_GRAPHS, C5_NODES = 96, (100, 500)
-C5_SPEC = dict(nodes=(128, 256, 512),
-               bank=(1024, 2048, 4096, 8192, 16384, 32768, 65536),
-               edge_cells=(1024, 4096, 16384, 32768, 65536))
 C5_TRAIN_STEPS = 6
 C5_RESUME_AT, C5_RESUME_MORE = 2, 2
 C5_ENCODER_TOL = ENCODER_TOL
@@ -203,6 +214,8 @@ C5_ENCODER_TOL = ENCODER_TOL
 # (B5s, B6) on the same f32 weights and batch: one function, sums in
 # another order
 SPARSE_TOL = dict(rel=1e-3, loss=1e-5)
+# phase_bench: the bench's cells that chip_smoke runs, and their repeats
+BENCH_CELLS, BENCH_REPEATS = ("north_star_local", "kernels"), 2
 
 
 def fail(msg: str):
@@ -210,31 +223,7 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 # ---------------------------------------------------------------- inputs
-
-
-def honest_batch(n_graphs, seed, min_nodes, max_nodes):
-    """A serving batch from the port's batchify on the synthetic AMR corpus
-    (local banks), like bench.py's honest_batch."""
-    from gtos_tpu_torch.data import BucketSpec, batchify
-    from gtos_tpu_torch.data.dataloader import preprocess
-    from gtos_tpu_torch.data.extract import build_vocabs
-    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
-
-    graphs, targets = synthetic_amr_corpus(
-        n_graphs, seed=seed, min_nodes=min_nodes, max_nodes=max_nodes)
-    vocabs = build_vocabs(graphs, targets)
-    spec = BucketSpec(bank=(4096, 8192, 16384, 32768, 65536))
-    return batchify(preprocess(graphs, targets), *vocabs,
-                    batch_size_bucket=n_graphs, spec=spec, for_train=False,
-                    build_local_banks=True)
 
 
 def kernel_inputs(batch, H, Dh, dtype, seed=0):
@@ -257,121 +246,19 @@ def kernel_inputs(batch, H, Dh, dtype, seed=0):
             torch.from_numpy(batch.concept_mask).cuda())
 
 
-def _dtype_name(t):
-    return str(t.dtype).replace("torch.", "")
-
-
-def _bound(nbytes, ops, dtype_name):
-    """(bound_ms, bound_by): bytes over 3.35 TB/s against operations over
-    the card's peak for the type, whichever is larger."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _bank_rows(rel_index_loc):
-    """Bank rows these inputs reference: per graph, the distinct slots of
-    rel_index_loc [B, N, N]."""
-    return sum(len(np.unique(rel_index_loc[b]))
-               for b in range(rel_index_loc.shape[0]))
-
-
-def local_attention_bound(rel_index_loc, H, Dh, dtype_name,
-                          with_probs=False):
-    """(bound_ms, bound_by): the least time for B1's work (B1p's with
-    with_probs) on these inputs on an H100 SXM. Bytes: q, k, v read and
-    out written once, idx and mask read once, of a_loc/b_loc only the rows
-    these inputs reference, and B1p's f32 probs [B, H, N, N] written once.
-    Operations: per pair and head, Dh multiply-adds for the score and Dh
-    for the output."""
-    B, N, _ = rel_index_loc.shape
-    elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (4 * B * H * N * Dh * elt + B * N * N * 4 + B * N
-              + 2 * _bank_rows(rel_index_loc) * H * Dh * elt)
-    if with_probs:
-        nbytes += B * H * N * N * 4
-    return _bound(nbytes, B * H * N * N * 4 * Dh, dtype_name)
-
-
-def local_attention_bwd_bound(rel_index_loc, H, Dh, P_loc, dtype_name):
-    """(bound_ms, bound_by) of B2 on these inputs on an H100 SXM. Bytes:
-    q, k, v read once, the f32 cotangent and probs read once, idx and the
-    walk arrays (pair order, slot starts) read once, of a_loc/b_loc the
-    referenced rows, gq/gk/gv written once and the dense bank gradients
-    g_a_loc/g_b_loc [B, P_loc, H, Dh] written in full. Operations: per
-    pair and head, Dh multiply-adds each for g.v, gq, gk, gv, g_a, g_b."""
-    B, N, _ = rel_index_loc.shape
-    elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (3 * B * H * N * Dh * elt + B * H * N * Dh * 4
-              + B * H * N * N * 4 + 2 * B * N * N * 4 + B * (P_loc + 1) * 4
-              + 2 * _bank_rows(rel_index_loc) * H * Dh * elt
-              + 3 * B * H * N * Dh * elt + 2 * B * P_loc * H * Dh * elt)
-    return _bound(nbytes, B * H * N * N * 12 * Dh, dtype_name)
-
-
-def time_ms(fn, iters=30, warmup=3):
-    """Mean device ms per call: CUDA events around each call, with the
-    50 MB L2 flushed before each (a caller finds the banks cold). The card
-    spins for about 0.1 ms before each start event, so the host has queued
-    the call before the card reaches it: the wrapper's Python time is not
-    in the number, only gaps inside a call of several kernels are."""
-    import torch
-
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    ms = sum(s.elapsed_time(e) for s, e in events) / iters
-    if not (ms > 0 and np.isfinite(ms)):
-        fail(f"non-positive or non-finite timing {ms}")
-    return ms
-
-
 # ---------------------------------------------------------------- phases
 
 
 def phase_build():
     """Every kernel source, one nvcc each, and the native path extractor
-    (g++), all started together; the extractor must build."""
-    from concurrent.futures import ThreadPoolExecutor
+    (g++), all started together (benchlib.build_all); the extractor must
+    build."""
+    from gtos_tpu_torch.utils.benchlib import build_all
 
-    from gtos_tpu_torch import native
-    from gtos_tpu_torch.ops import block_sparse_attention as bsa
-    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bsab
-    from gtos_tpu_torch.ops import build
-    from gtos_tpu_torch.ops import local_relation_attention as lra
-    from gtos_tpu_torch.ops import relation_attention as ra
-
-    SOURCES = lra.SOURCES + ra.SOURCES + (bsa.FWD_SOURCE, bsab.BWD_SOURCE)
-
-    def one(source):
-        t0 = time.perf_counter()
-        log = build.build(source)
-        return source, time.perf_counter() - t0, log
-
-    def one_native():
-        t0 = time.perf_counter()
-        built = native.build()
-        return time.perf_counter() - t0, built
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
-        cpp = pool.submit(one_native)
-        results = list(pool.map(one, SOURCES))
-    try:
-        seconds, built = cpp.result()
-    except (OSError, RuntimeError) as e:
-        fail(f"the native path extractor did not build: {e}")
+    extractor, results, total = build_all()
+    if isinstance(extractor, Exception):
+        fail(f"the native path extractor did not build: {extractor}")
+    seconds, built = extractor
     print(f"[build] native/paths.cpp (g++): {seconds:.2f} s"
           + ("" if built else " (library already built)"))
     for source, seconds, log in results:
@@ -383,8 +270,7 @@ def phase_build():
                 print(f"[build]   entry {entry}")
             elif "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
-    print(f"[build] all sources: {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"[build] all sources: {total:.2f} s", flush=True)
 
 
 def check_b1(label, args):
@@ -415,7 +301,7 @@ def check_b1(label, args):
              f"value, above {KERNEL_TOL[dtype_name]['rtol']}")
     bound_ms, bound_by = local_attention_bound(
         rel_index_loc.cpu().numpy(), H, Dh, dtype_name)
-    ms = time_ms(lambda: lra(*args))
+    ms = time_ms(lambda: lra(*args), bound_ms=bound_ms)
     plain_ms = time_ms(lambda: local_relation_attention_reference(*args))
     print(f"[kernel] B1 {label} B={B} H={H} N={N} Dh={Dh} "
           f"P_loc={args[3].shape[1]} {dtype_name}: max_abs_err={err:.3e} "
@@ -459,7 +345,7 @@ def check_b1p(label, args):
              f"largest value, above {KERNEL_TOL[dtype_name]['rtol']}")
     bound_ms, bound_by = local_attention_bound(
         rel_index_loc.cpu().numpy(), H, Dh, dtype_name, with_probs=True)
-    ms = time_ms(lambda: lrap(*args))
+    ms = time_ms(lambda: lrap(*args), bound_ms=bound_ms)
     plain_ms = time_ms(lambda: plain(*args))
     print(f"[kernel] B1p {label} B={B} H={H} N={N} Dh={Dh} "
           f"P_loc={args[3].shape[1]} {dtype_name}: max_abs_err={err:.3e} "
@@ -493,27 +379,6 @@ def b2_args(args, seed=1):
 
 
 B2_NAMES = ("gq", "gk", "gv", "g_a_loc", "g_b_loc")
-
-
-def disagreement(names, got, refs, dtype_name, largest=None):
-    """Why a kernel's outputs `got` disagree with the reference ones, or
-    None: each within KERNEL_TOL and, as a training step's gradients can
-    lie far below its atol, each within its rtol of the reference's own
-    largest value (`rel_to_largest`, with `largest`)."""
-    import torch
-
-    for n, (name, x, ref) in enumerate(zip(names, got, refs)):
-        try:
-            torch.testing.assert_close(x.float(), ref.float(),
-                                       **KERNEL_TOL[dtype_name])
-        except AssertionError as e:
-            return f"{name} disagrees with its reference: {e}"
-        rel = rel_to_largest((x,), (ref,),
-                             None if largest is None else (largest[n],))
-        if rel > KERNEL_TOL[dtype_name]["rtol"]:
-            return (f"{name}'s error is {rel:.3e} of its largest value, "
-                    f"above {KERNEL_TOL[dtype_name]['rtol']}")
-    return None
 
 
 def check_b2(label, bargs, mask, plant=False):
@@ -570,7 +435,7 @@ def check_b2(label, bargs, mask, plant=False):
               f"{'pass' if atol_alone else 'fail'} it)", flush=True)
     bound_ms, bound_by = local_attention_bwd_bound(
         idx.cpu().numpy(), H, Dh, P_loc, dtype_name)
-    ms = time_ms(call)
+    ms = time_ms(call, bound_ms=bound_ms)
     plain_ms = time_ms(lambda: plain(*bargs[:8]))
     print(f"[kernel] B2 {label} B={B} H={H} N={N} Dh={Dh} P_loc={P_loc} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol "
@@ -644,63 +509,6 @@ def b4_args(targs, seed=1):
     return (q, k, v, g, t2, t3, idx, mask, *walk_orders(idx))
 
 
-def _pair_entries(idx):
-    """Table entries these pairs reference, per head: the distinct
-    (graph, i, r) of t2 and (graph, j, r) of t3, r = idx[b, i, j]."""
-    B, N, _ = idx.shape
-    width = int(idx.max()) + 1
-    node = np.arange(N)
-    rows = sum(len(np.unique(idx[b] + node[:, None] * width))
-               for b in range(B))
-    cols = sum(len(np.unique(idx[b] + node[None, :] * width))
-               for b in range(B))
-    return rows + cols
-
-
-def _table_sectors(idx, H, P, elt):
-    """The distinct 32-byte sectors of t2 and t3 [B, H, N, P] (elt bytes an
-    entry) that these pairs read: t2[b, h, i, r] and t3[b, h, j, r],
-    r = idx[b, i, j]."""
-    B, N, _ = idx.shape
-    node = np.arange(N, dtype=np.int64)
-    rows = ((np.arange(B, dtype=np.int64)[:, None] * H + np.arange(H))
-            * N)[:, :, None, None]                     # (b, h)'s first row
-    r = idx.astype(np.int64)[:, None]
-    return sum(len(np.unique(((rows + own) * P + r) * elt // 32))
-               for own in (node[:, None], node[None, :]))
-
-
-def global_attention_bound(idx, H, Dh, P, dtype_name, kind, sectors=False):
-    """(bound_ms, bound_by) on an H100 SXM of B3 ("tables"), B3'
-    ("inline") or B4 ("bwd") on these inputs. Bytes: q, k, v (and B4's
-    cotangent) read once, the output written once (B4: gq, gk, gv in f32
-    and the dense table gradients [B, N, H, P] in full), idx and mask read
-    once (B4: and its two walk orders), and of the tables the entries the
-    pairs reference (B3, B4) or of the banks the rows they reference and
-    their t4 (B3'). Operations per pair and head: q.k and p.v (B3); q.k,
-    q.b, k.a and p.v (B3'); q.k, g.v, gv, gq and gk (B4), each Dh
-    multiply-adds. With sectors (B3, B4: the sector floor), each distinct
-    32-byte sector of t2/t3 that the pairs touch counts once in place of
-    each referenced entry at its element size: the card reads at least a
-    sector per scattered load."""
-    B, N, _ = idx.shape
-    elt = 2 if dtype_name == "bfloat16" else 4
-    base = B * N * N * 4 + B * N
-    if kind == "inline":
-        rows = len(np.unique(idx))
-        nbytes = (4 * B * H * N * Dh * elt + base
-                  + rows * H * (2 * Dh * elt + 4))
-        return _bound(nbytes, B * H * N * N * 8 * Dh, dtype_name)
-    tables = (_table_sectors(idx, H, P, elt) * 32 if sectors
-              else _pair_entries(idx) * H * elt)
-    if kind == "tables":
-        nbytes = 4 * B * H * N * Dh * elt + base + tables
-        return _bound(nbytes, B * H * N * N * 4 * Dh, dtype_name)
-    nbytes = (4 * B * H * N * Dh * elt + base + 2 * B * N * N * 4
-              + tables + 3 * B * H * N * Dh * 4 + 2 * B * N * H * P * elt)
-    return _bound(nbytes, B * H * N * N * 10 * Dh, dtype_name)
-
-
 def _compare(kernel, label, dtype_name, pairs):
     """Each (name, kernel output, plain output) within KERNEL_TOL, finite;
     returns the largest absolute error."""
@@ -718,33 +526,6 @@ def _compare(kernel, label, dtype_name, pairs):
             fail(f"{kernel} {label} {dtype_name}: {name} disagrees with its "
                  f"plain version: {e}")
     return err
-
-
-def rel_to_largest(got, ref, largest=None):
-    """The largest error of the outputs `got` against the plain ones `ref`,
-    each relative to the plain output's own largest magnitude (or to
-    largest[n], where that is given and not None): the check that holds a
-    small output (a training step's gradients lie far below KERNEL_TOL's
-    atol) to KERNEL_TOL's rtol."""
-    rels = []
-    for n, (x, y) in enumerate(zip(got, ref)):
-        top = None if largest is None else largest[n]
-        if top is None:
-            top = y.float().abs().max().item()
-        rels.append((x.float() - y.float()).abs().max().item()
-                    / max(top, 1e-30))
-    return max(rels)
-
-
-def b4_largest(refs):
-    """`rel_to_largest`'s scale for B4's outputs (gq, gk, gv, g_t2, g_t3):
-    gq, gk and gv their own largest values; g_t2 and g_t3 the larger of
-    their two. Each row of ge sums to 0, so a table row whose pairs all
-    share one bank row holds rounding noise only (every g_t2 row at P=1),
-    and its own largest value is no scale for its error."""
-    top = max(refs[3].float().abs().max().item(),
-              refs[4].float().abs().max().item())
-    return (None, None, None, top, top)
 
 
 def _hold(kernel, label, dtype_name, pairs, largest=None):
@@ -817,7 +598,7 @@ def check_b3(label, targs, plant=False):
                                                 "tables")
     floor_ms, _ = global_attention_bound(idx_np, H, Dh, P, dtype_name,
                                          "tables", sectors=True)
-    ms = time_ms(lambda: fra(*targs))
+    ms = time_ms(lambda: fra(*targs), bound_ms=bound_ms)
     plain_ms = time_ms(lambda: fused_relation_attention_reference(*targs))
     print(f"[kernel] B3 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
@@ -849,7 +630,7 @@ def check_b3i(label, args):
     err, rel = _hold("B3'", label, dtype_name, [("out", out, ref)])
     bound_ms, bound_by = global_attention_bound(
         idx.cpu().numpy(), H, Dh, P, dtype_name, "inline")
-    ms = time_ms(lambda: frai(*args))
+    ms = time_ms(lambda: frai(*args), bound_ms=bound_ms)
     plain_ms = time_ms(lambda: plain(*args))
     print(f"[kernel] B3' {label} B={B} H={H} N={N} Dh={Dh} P={P} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
@@ -912,7 +693,7 @@ def check_b4(label, bargs, plant=False):
                                                 "bwd")
     floor_ms, _ = global_attention_bound(idx_np, H, Dh, P, dtype_name, "bwd",
                                          sectors=True)
-    ms = time_ms(lambda: frab(*bargs))
+    ms = time_ms(lambda: frab(*bargs), bound_ms=bound_ms)
     plain_ms = time_ms(lambda: plain(*bargs[:8]))
     print(f"[kernel] B4 {label} B={B} H={H} N={N} Dh={Dh} P={P} "
           f"{dtype_name}: max_abs_err={err:.3e} (tol {KERNEL_TOL[dtype_name]};"
@@ -1091,51 +872,51 @@ def phase_global_edges():
         torch.cuda.empty_cache()
 
 
-KERNELS = {  # name in the JSON line -> (wrapper, source, TPU kernel)
+KERNELS = {  # name in the JSON line -> (kernel, source, TPU kernel)
     "local_relation_attention_fwd": (
-        "local_relation_attention",
+        "B1",
         "gtos_tpu_torch/ops/csrc/local_relation_attention_fwd.cu",
         "gtos_tpu/ops/pallas/local_relation_attention.py:145"),
     "local_relation_attention_fwd_probs": (
-        "local_relation_attention_with_probs",
+        "B1p",
         "gtos_tpu_torch/ops/csrc/local_relation_attention_fwd.cu",
         "gtos_tpu/ops/pallas/local_relation_attention.py:254"),
     "local_relation_attention_bwd": (
-        "local_relation_attention_bwd",
+        "B2",
         "gtos_tpu_torch/ops/csrc/local_relation_attention_bwd.cu",
         "gtos_tpu/ops/pallas/local_relation_attention.py:326"),
     "relation_attention_fwd_tables": (
-        "fused_relation_attention",
+        "B3",
         "gtos_tpu_torch/ops/csrc/relation_attention_fwd.cu",
         "gtos_tpu/ops/pallas/relation_attention.py:41"),
     "relation_attention_fwd_inline": (
-        "fused_relation_attention_inline",
+        "B3'",
         "gtos_tpu_torch/ops/csrc/relation_attention_fwd.cu",
         "gtos_tpu/ops/pallas/relation_attention.py:195"),
     "relation_attention_bwd": (
-        "fused_relation_attention_bwd",
+        "B4",
         "gtos_tpu_torch/ops/csrc/relation_attention_bwd.cu",
         "gtos_tpu/ops/pallas/relation_attention_bwd.py:33"),
     "block_sparse_attention_fwd": (
-        "block_sparse_attention",
+        "B5",
         "gtos_tpu_torch/ops/csrc/block_sparse_attention_fwd.cu",
         "gtos_tpu/ops/pallas/block_sparse_attention.py:43"),
     "block_sparse_attention_fwd_stats": (
-        "block_sparse_attention_with_stats",
+        "B5s",
         "gtos_tpu_torch/ops/csrc/block_sparse_attention_fwd.cu",
         "gtos_tpu/ops/pallas/block_sparse_attention.py:116"),
     "block_sparse_attention_bwd_dst": (
-        "block_sparse_attention_bwd_dst",
+        "B6d",
         "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
         "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:85"),
     "block_sparse_attention_bwd_src": (
-        "block_sparse_attention_bwd_src",
+        "B6s",
         "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
         "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:150"),
     # the bank gradients the TPU's dst and src passes sum in their g_bb /
     # g_ab output blocks (and finish_bank_grads's t4 term, :259)
     "block_sparse_bank_grads": (
-        "block_sparse_bank_grads",
+        "B6b",
         "gtos_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
         "gtos_tpu/ops/pallas/block_sparse_attention_bwd.py:85"),
 }
@@ -1182,18 +963,8 @@ B5, B5S, B6D, B6S, B6B = ("block_sparse_attention_fwd",
                           "block_sparse_bank_grads")
 
 
-def _module(wrapper_name):
-    """The ops module that holds a kernel wrapper."""
-    from gtos_tpu_torch.ops import block_sparse_attention as bsa
-    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bsab
-    from gtos_tpu_torch.ops import local_relation_attention as lra
-    from gtos_tpu_torch.ops import relation_attention as ra
-    return next(m for m in (lra, ra, bsa, bsab) if hasattr(m, wrapper_name))
-
-
 def _wrapper(name):
-    wrapper = KERNELS[name][0]
-    return getattr(_module(wrapper), wrapper)
+    return kernel_calls.wrapper(KERNELS[name][0])
 
 
 def zero_counts():
@@ -1207,8 +978,9 @@ def read_counts():
 
 def table_row(name, rows, launches, model="c2"):
     """The JSON line's row of one kernel on one model's main path (its
-    "model": "c2", "c4" or "c5"): the mean over that path's inputs of each
-    number, the largest error."""
+    "model": "c2", "c4", "c5" or "c5 mesh"): the mean over that path's
+    inputs of each number, the largest error. `bench_timed` replaces the
+    times of the c2, c4 and c5 rows by the bench's."""
     _, source, replaces = KERNELS[name]
     row = dict(name=name, model=model, route="cuda", source=source,
                replaces=replaces, launches=launches[name], library_ms=None,
@@ -1221,6 +993,37 @@ def table_row(name, rows, launches, model="c2"):
     kinds = {r["bound_by"] for r in rows}
     row["bound_by"] = kinds.pop() if len(kinds) == 1 else "bytes"
     return row
+
+
+def bench_timed(rows, bench_rows):
+    """The c2, c4 and c5 rows with the times of the bench's kernels cell
+    (phase_bench, this run): one kernel time per row, on the same model's
+    layer 0 inputs of its first batch (the bench row's "source"), event
+    ms, device ms and plain ms the medians of its samples, with its bound
+    and library ms; the largest error of both gates. The mesh's rows keep
+    their per-cell times."""
+    out = []
+    for row in rows:
+        if row["model"] not in ("c2", "c4", "c5"):
+            out.append(row)
+            continue
+        kernel = KERNELS[row["name"]][0]
+        found = [b for b in bench_rows if b["kernel"] == kernel
+                 and b["source"].split("_")[0] == row["model"]]
+        if len(found) != 1:
+            fail(f"{row['name']} ({row['model']}): {len(found)} bench rows")
+        b = found[0]
+        lib = b["library_ms"]
+        out.append(dict(
+            row, ms=b["ms"]["median"], device_ms=b["device_ms"]["median"],
+            plain_ms=b["plain_ms"]["median"], bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"],
+            library_ms=None if lib is None else lib["median"],
+            max_abs_err=max(row["max_abs_err"], b["max_abs_err"]),
+            timed_on=f"bench kernels cell, {b['source']} batch 0 ("
+                     + " ".join(f"{k}={v}" for k, v in b["shape"].items())
+                     + f"), median of {b['ms']['n']}"))
+    return out
 
 
 def phase_main_shapes(b1_inputs, serve_launches, train_inputs,
@@ -1267,54 +1070,6 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
     launches = {name: serve_launches[name] + train_launches[name]
                 for name in KERNELS}
     return [table_row(name, rows[name], launches) for name in (B3, B3I, B4)]
-
-
-def raw_corpus(family="c2", seed=0, n=None):
-    """(graphs, targets) of a family's synthetic corpus: c2's AMR
-    2.0-scale graphs (2000 by default), c4's dependency trees of
-    C4_LENGTHS tokens (C4_GRAPHS by default)."""
-    from gtos_tpu_torch.data.synthetic import (
-        synthetic_amr2_corpus, synthetic_dependency_corpus)
-
-    if family == "c4":
-        lo, hi = C4_LENGTHS
-        return synthetic_dependency_corpus(n or C4_GRAPHS, seed=seed,
-                                           min_len=lo, max_len=hi)
-    return synthetic_amr2_corpus(n or 2000, seed=seed)
-
-
-@functools.lru_cache(maxsize=None)
-def corpus(family="c2"):
-    """A family's synthetic corpus (seed 0), preprocessed, with its
-    vocabularies: the training data and the vocabularies of every model
-    of the family here."""
-    from gtos_tpu_torch.data.dataloader import preprocess
-    from gtos_tpu_torch.data.extract import build_vocabs
-
-    graphs, targets = raw_corpus(family)
-    return preprocess(graphs, targets), build_vocabs(graphs, targets)
-
-
-FAMILY_CONFIG = {"c2": "c2_amr2.json", "c4": "c4_nmt_ende.json"}
-
-
-def configs(family="c2"):
-    """The ModelConfig and TrainConfig of the family's config file
-    (configs/c2_amr2.json, configs/c4_nmt_ende.json: no copy, node
-    positions) with the corpus's vocabulary sizes."""
-    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
-
-    with open(os.path.join(ROOT, "configs", FAMILY_CONFIG[family])) as f:
-        conf = json.load(f)
-    tv, cv, rv, chv, _ = corpus(family)[1]
-    pick = lambda cls: {f.name: conf[f.name]  # noqa: E731
-                        for f in dataclasses.fields(cls) if f.name in conf}
-    nmt = conf["task"] == "nmt"   # as the train CLI sets them per task
-    cfg = ModelConfig(**pick(ModelConfig), token_vocab=len(tv),
-                      concept_vocab=len(cv), relation_vocab=len(rv),
-                      char_vocab=len(chv), use_copy=not nmt,
-                      use_node_positions=nmt)
-    return cfg, TrainConfig(**pick(TrainConfig))
 
 
 def tag_of(base, impl="pallas_local", family="c2"):
@@ -1495,38 +1250,11 @@ def encode(model, batch):
                             edges=batch_edges(t)).float().cpu()
 
 
-@contextlib.contextmanager
-def b1_replaced(fn):
-    """Within the block, the graph transformer calls `fn` in place of
-    B1's wrapper."""
-    from gtos_tpu_torch.models import graph_transformer
-
-    real = graph_transformer.local_relation_attention
-    graph_transformer.local_relation_attention = fn
-    try:
-        yield
-    finally:
-        graph_transformer.local_relation_attention = real
-
-
 def capture_b1_inputs(model, batches):
     """The arguments the main path hands B1: layer 0's, for each served
-    batch (one more encode per batch, through a recording shim)."""
-    from gtos_tpu_torch.ops.local_relation_attention import (
-        local_relation_attention as lra)
-
-    seen, first = [], []
-
-    def record(*args):
-        seen.append(args)
-        return lra(*args)
-
-    with b1_replaced(record):
-        for batch in batches:
-            seen.clear()
-            encode(model, batch)
-            first.append(seen[0])
-    return first
+    batch (one more encode per batch, `capture`)."""
+    return [capture(model, b, False, model.device)["calls"]["B1"][0]
+            for b in batches]
 
 
 def planted_b1(kind):
@@ -1586,7 +1314,7 @@ def phase_encoder_check(cfg, model, batch, tag="encode"):
                  "f32 CPU run")
     for kind in ("no bank", "no key mask"):
         for card, dtype_name in ((model, "bfloat16"), (card32, "float32")):
-            with b1_replaced(planted_b1(kind)):
+            with replaced("B1", planted_b1(kind)):
                 if check(card, dtype_name, f"planted B1 ({kind})"):
                     fail(f"the {dtype_name} encoder check passes a B1 "
                          f"with {kind}")
@@ -1813,23 +1541,6 @@ def overfit(cfg, tcfg):
         fail("the overfit loss did not fall by its stated margin")
 
 
-@contextlib.contextmanager
-def wrapper_replaced(name, fn):
-    """Within the block, the ops module's wrapper `name` is `fn`, as the
-    trainable attention finds it (by name, at call time). The real wrapper
-    counts its launches on whatever the name holds, so `fn` carries the
-    count while it stands in and hands it back after."""
-    mod = _module(name)
-    real = getattr(mod, name)
-    fn.launches = real.launches
-    setattr(mod, name, fn)
-    try:
-        yield
-    finally:
-        setattr(mod, name, real)
-        real.launches = fn.launches
-
-
 def planted_b2(kind):
     """B2 made wrong on purpose, as a control for the gradient check: the
     kernel's result with the bank gradients zeroed ("no bank gradient"),
@@ -1873,10 +1584,9 @@ def planted_b4(kind):
     return wrong
 
 
-PLANTS = {"pallas_local": ("local_relation_attention_bwd", planted_b2,
+PLANTS = {"pallas_local": ("B2", planted_b2,
                            ("no bank gradient", "no t4 b_r term")),
-          "pallas": ("fused_relation_attention_bwd", planted_b4,
-                     ("no g_t3", "no g_t2"))}
+          "pallas": ("B4", planted_b4, ("no g_t3", "no g_t2"))}
 
 
 def loss_and_grads(model, arrays):
@@ -1940,8 +1650,7 @@ def phase_grads(impl="pallas_local", family="c2"):
     ref = loss_and_grads(models["cpu"], arrays)
     print(f"[{tag}] batch {describe(batch)}; cpu f32 loss {ref[0]:.6f} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    wrapper, planted, kinds = PLANTS[impl]
-    bwd = "B2" if impl == "pallas_local" else "B4"
+    bwd, planted, kinds = PLANTS[impl]
 
     def check(dtype_name, what):
         zero_counts()
@@ -1967,7 +1676,7 @@ def phase_grads(impl="pallas_local", family="c2"):
     # the check passes when both runs are within their limits; a planted
     # backward kernel must make it fail
     for kind in kinds:
-        with wrapper_replaced(wrapper, planted(kind)):
+        with replaced(bwd, planted(kind)):
             passed = [check(dtype_name, f"planted {bwd} ({kind})")
                       for dtype_name in ("float32", "bfloat16")]
         if all(passed):
@@ -2062,33 +1771,13 @@ def phase_localize(batches, D=512):
 def capture_train_inputs(trainer, batches):
     """The arguments the training path hands B1p and B2: layer 0's (the
     first forward call, the last backward call) for each batch, from one
-    more forward and backward per batch through recording shims."""
-    import torch
-
-    from gtos_tpu_torch.models.generator import batch_to_device
-    from gtos_tpu_torch.ops import local_relation_attention as mod
-
-    real_fwd = mod.local_relation_attention_with_probs
-    real_bwd = mod.local_relation_attention_bwd
-    fwd, bwd, out = [], [], []
-
-    def rec_fwd(*args):
-        fwd.append(tuple(a.detach() for a in args[:7]))
-        return real_fwd(*args)
-
-    def rec_bwd(*args, runs=None):
-        bwd.append((*args[:10], runs))
-        return real_bwd(*args, runs=runs)
-
-    with wrapper_replaced("local_relation_attention_with_probs", rec_fwd), \
-            wrapper_replaced("local_relation_attention_bwd", rec_bwd):
-        trainer.model.train()
-        for batch in batches:
-            fwd.clear()
-            bwd.clear()
-            loss, _ = trainer.model(batch_to_device(batch.arrays(), "cuda"))
-            torch.autograd.grad(loss, trainer.params, allow_unused=True)
-            out.append((fwd[0], bwd[-1]))
+    more forward and backward per batch (`capture`)."""
+    out = []
+    for batch in batches:
+        calls = capture(trainer.model, batch, True,
+                        trainer.model.device)["calls"]
+        (fwd, _), (bwd, kw) = calls["B1p"], calls["B2"]
+        out.append((fwd[:7], (*bwd[:10], kw.get("runs"))))
     return out
 
 
@@ -2097,44 +1786,14 @@ def capture_global_inputs(model, batches, train):
     each batch: layer 0's forward (B3's tables or B3''s banks, whichever
     the batch's bank takes) and, with train, layer 0's backward (B4, the
     last call), from one more encode (serving) or forward and backward
-    (training) per batch through recording shims. Returns (kernel,
-    forward arguments, B4 arguments or None) per batch."""
-    import torch
-
-    from gtos_tpu_torch.models.generator import batch_to_device
-    from gtos_tpu_torch.ops import relation_attention as ra
-
-    real = {n: getattr(ra, n) for n in (
-        "fused_relation_attention", "fused_relation_attention_inline",
-        "fused_relation_attention_bwd")}
-    fwd, bwd, out = [], [], []
-
-    def recorder(name, kern, into):
-        def record(*args, **kw):
-            into.append((kern, tuple(a.detach() if torch.is_tensor(a)
-                                     else a for a in args[:10])))
-            return real[name](*args, **kw)
-        return record
-
-    with contextlib.ExitStack() as stack:
-        for name, kern, into in (("fused_relation_attention", B3, fwd),
-                                 ("fused_relation_attention_inline", B3I,
-                                  fwd),
-                                 ("fused_relation_attention_bwd", B4, bwd)):
-            stack.enter_context(wrapper_replaced(name,
-                                                 recorder(name, kern, into)))
-        for batch in batches:
-            fwd.clear()
-            bwd.clear()
-            if train:
-                model.train()
-                loss, _ = model(batch_to_device(batch.arrays(), "cuda"))
-                torch.autograd.grad(loss, [p for p in model.parameters()],
-                                    allow_unused=True)
-            else:
-                encode(model, batch)
-            kern, args = fwd[0]
-            out.append((kern, args[:7], bwd[-1][1] if train else None))
+    (training) per batch (`capture`). Returns (kernel, forward arguments,
+    B4 arguments or None) per batch."""
+    out = []
+    for batch in batches:
+        calls = capture(model, batch, train, model.device)["calls"]
+        kern = B3 if "B3" in calls else B3I
+        fwd = calls["B3" if kern == B3 else "B3'"][0]
+        out.append((kern, fwd[:7], calls["B4"][0][:10] if train else None))
     return out
 
 
@@ -2830,49 +2489,6 @@ def block_inputs(batch, H, Dh, dtype, seed=0):
             dev(rnd(B, H, N, Dh)))
 
 
-def block_bound(kind, args, src_planes=None):
-    """(bound_ms, bound_by) on an H100 SXM of B5, B5s, B6d, B6s or B6b on
-    these inputs. Counted once each: the inputs read and the outputs
-    written (B5: q, k, v, out; B5s: and m, l; B6d: q, k, v, gp, the
-    statistics and delta, dq, ge and pair_s [H, E, 2] f32, dst2src; B6s:
-    q, gp, pair_s, dk, dv; B6b: ge, the three sorted pair arrays, q, k and
-    the dense g_a, g_b [P, H, Dh]); the tile planes walked (B6s: the
-    src-major ones) and B6's row bases; of the banks only the rows the kept
-    pairs reference (B6s: of a only), with their t4 (B5, B5s, B6d).
-    Operations per kept pair and head, in Dh multiply-adds (2 operations
-    each): q.k, q.b, k.a, p.v (B5); q.k, q.b, k.a, g.v, dq (B6d); dk (two)
-    and dv (B6s); g_a, g_b (B6b)."""
-    from gtos_tpu_torch.ops.block_sparse_attention import tile_pairs
-
-    q, P, ts, tr = args[0], args[3].shape[0], args[5], args[6]
-    B, H, N, Dh = q.shape
-    dtype_name = _dtype_name(q)
-    elt = 2 if dtype_name == "bfloat16" else 4
-    r = tile_pairs(ts, tr, N, P)[3]
-    E, R = r.numel(), len(r.unique())
-    node, stats = B * H * N * Dh * elt, B * H * N * 4
-    planes = (ts.numel() + tr.numel()) * 4
-    banks = R * H * (2 * Dh * elt + 4)
-    if kind == "B5":
-        nbytes, macs = 4 * node + planes + banks, 4
-    elif kind == "B5s":
-        nbytes, macs = 4 * node + 2 * stats + planes + banks, 4
-    elif kind == "B6d":
-        nbytes = (5 * node + 3 * stats + planes + tr.numel() // 128 * 4
-                  + banks + H * E * 12 + E * 4)
-        macs = 5
-    elif kind == "B6s":
-        ts_, trs = src_planes
-        nbytes = (4 * node + R * H * Dh * elt + H * E * 8
-                  + (ts_.numel() + trs.numel() + trs.numel() // 128) * 4)
-        macs = 3
-    else:
-        nbytes = (H * E * 4 + 3 * E * 4 + 2 * node + R * H * 2 * Dh * elt
-                  + 2 * P * H * Dh * elt)
-        macs = 2
-    return _bound(nbytes, 2 * macs * E * H * Dh, dtype_name)
-
-
 def _block_line(kernel, label, q, P, E, dtype_name, err, bound, ms, plain_ms):
     B, H, N, Dh = q.shape
     print(f"[kernel] {kernel} {label} B={B} H={H} N={N} Dh={Dh} P={P} "
@@ -2911,10 +2527,11 @@ def check_b5(label, args, with_stats=False):
         got, ref = got[0], ref[0]
     err = _compare(name, label, dtype_name, [("out", got, ref)])
     E = bsa.tile_pairs(args[5], args[6], q.shape[2], P)[3].numel()
-    ms = time_ms(lambda: kern(*args, t4=t4))
+    bound = block_bound(name, args)
+    ms = time_ms(lambda: kern(*args, t4=t4), bound_ms=bound[0])
     plain_ms = time_ms(lambda: plain(*args, t4=t4))
-    return _block_line(name, label, q, P, E, dtype_name, err,
-                       block_bound(name, args), ms, plain_ms)
+    return _block_line(name, label, q, P, E, dtype_name, err, bound, ms,
+                       plain_ms)
 
 
 def b6_args(args, src, g):
@@ -2951,53 +2568,6 @@ def run_histogram(plan, P):
                     f"{int(lens[sel].sum())} pairs")
     return (f"R={len(lens)} of P={P} rows, E={int(lens.sum())} pairs, "
             f"longest {int(lens.max(initial=0))}; " + "; ".join(bins))
-
-
-def b6b_library(q, k, a, ge, plan):
-    """B6b's yardstick: one torch.sparse.mm that computes its per-row sums.
-    A COO [P*H, 2*B*H*N] matrix holds two entries ge' per (pair, head), at
-    q_i's row in the first half of the columns and at k_j's in the second;
-    times the block-diagonal [[q, 0], [0, k]] [2*B*H*N, 2*Dh], its row
-    (r, h) is (sum ge' q_i, sum ge' k_j). The elementwise dt4 term is not
-    in it. Built here, outside any timing, in the input type, or in f32
-    where the card's sparse product refuses it. Returns (fn, its type's
-    name, the largest error of its sums against the plain version's)."""
-    import torch
-
-    B, H, N, Dh = q.shape
-    P = a.shape[0]
-    bi, i, j, r = plan["pairs"]
-    h = torch.arange(H, device=q.device)
-    rows = (r[:, None] * H + h).flatten()
-    cq = ((bi[:, None] * H + h) * N + i[:, None]).flatten()
-    ck = ((bi[:, None] * H + h) * N + j[:, None]).flatten() + B * H * N
-    idx = torch.stack([torch.cat([rows, rows]), torch.cat([cq, ck])])
-    for dtype in dict.fromkeys((q.dtype, torch.float32)):
-        w = ge.T.to(q.dtype).to(dtype).flatten()
-        mat = torch.sparse_coo_tensor(idx, torch.cat([w, w]),
-                                      (P * H, 2 * B * H * N),
-                                      check_invariants=True).coalesce()
-        dense = torch.zeros(2 * B * H * N, 2 * Dh, dtype=dtype,
-                            device=q.device)
-        dense[:B * H * N, :Dh] = q.reshape(-1, Dh)
-        dense[B * H * N:, Dh:] = k.reshape(-1, Dh)
-        fn = lambda: torch.sparse.mm(mat, dense)  # noqa: E731
-        try:
-            got = fn().float().view(P, H, 2 * Dh)
-        except RuntimeError as e:
-            print(f"[kernel] B6b yardstick: torch.sparse.mm refuses {dtype}"
-                  f" ({str(e).splitlines()[0][:120]}); timed in float32",
-                  flush=True)
-            continue
-        geq = ge.T.to(q.dtype).float()
-        sq = torch.zeros(P, H, Dh, device=q.device).index_add_(
-            0, r, geq[..., None] * q[bi, :, i].float())
-        sk = torch.zeros(P, H, Dh, device=q.device).index_add_(
-            0, r, geq[..., None] * k[bi, :, j].float())
-        err = max((got[..., :Dh] - sq).abs().max().item(),
-                  (got[..., Dh:] - sk).abs().max().item())
-        return fn, _dtype_name(dense), err
-    fail("torch.sparse.mm refuses B6b's yardstick in every type")
 
 
 def check_b6(label, args, src, g=None, bwd=None):
@@ -3066,10 +2636,15 @@ def check_b6(label, args, src, g=None, bwd=None):
                  f"largest value, above {KERNEL_TOL[dtype_name]['rtol']}")
         print(f"[kernel] {kernel} {label} {dtype_name}: largest error "
               f"relative to the largest value {rel:.3e}")
+        bound = block_bound(kernel, args, src)
         rows[kernel] = _block_line(
-            kernel, label, q, P, E, dtype_name, err,
-            block_bound(kernel, args, src), time_ms(fn), time_ms(plain))
-    lib, lib_type, lib_err = b6b_library(q, k, a, first[0][1], plan)
+            kernel, label, q, P, E, dtype_name, err, bound,
+            time_ms(fn, bound_ms=bound[0]), time_ms(plain))
+    lib, lib_type, lib_err, refused = b6b_library(q, k, a, first[0][1],
+                                                  plan)
+    for why in refused:
+        print(f"[kernel] B6b yardstick: torch.sparse.mm refuses {why}; "
+              f"timed in {lib_type}", flush=True)
     rows["B6b"]["library_ms"] = time_ms(lib)
     print(f"[kernel] B6b {label} {dtype_name}: library torch.sparse.mm "
           f"({lib_type}; its sums without the dt4 term, max_abs_err "
@@ -3433,17 +3008,11 @@ def phase_mesh():
 
 @functools.lru_cache(maxsize=None)
 def c5_corpus():
-    """C5_GRAPHS synthetic AMR graphs of C5_NODES nodes (seed 0),
-    preprocessed, with their vocabularies: the c5 model's data."""
-    from gtos_tpu_torch.data.dataloader import preprocess
-    from gtos_tpu_torch.data.extract import build_vocabs
-    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
-
+    """The c5 model's data: the bench's corpus("c5"), C5_GRAPHS synthetic
+    AMR graphs of C5_NODES nodes (seed 0), preprocessed, with their
+    vocabularies."""
     t0 = time.perf_counter()
-    graphs, targets = synthetic_amr_corpus(C5_GRAPHS, seed=0,
-                                           min_nodes=C5_NODES[0],
-                                           max_nodes=C5_NODES[1])
-    out = preprocess(graphs, targets), build_vocabs(graphs, targets)
+    out = corpus("c5")
     print(f"[c5] corpus: {C5_GRAPHS} graphs of {C5_NODES[0]}-{C5_NODES[1]} "
           f"nodes preprocessed in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -3454,18 +3023,7 @@ def c5_configs(impl="block_sparse"):
     """The ModelConfig and TrainConfig of configs/c5_scaled_synthetic.json
     (one card: its graph/dp split is not a field of either) with the c5
     corpus's vocabulary sizes, under attention_impl `impl`."""
-    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
-
-    with open(os.path.join(ROOT, "configs", "c5_scaled_synthetic.json")) as f:
-        conf = json.load(f)
-    tv, cv, rv, chv, _ = c5_corpus()[1]
-    pick = lambda cls: {f.name: conf[f.name]  # noqa: E731
-                        for f in dataclasses.fields(cls) if f.name in conf}
-    cfg = ModelConfig(**pick(ModelConfig), token_vocab=len(tv),
-                      concept_vocab=len(cv), relation_vocab=len(rv),
-                      char_vocab=len(chv))
-    return (dataclasses.replace(cfg, attention_impl=impl),
-            TrainConfig(**pick(TrainConfig)))
+    return configs("c5", impl)
 
 
 def c5_loader(for_train, seed=None, impl="block_sparse"):
@@ -3499,20 +3057,6 @@ def c5_trainer(cfg, tcfg, seed, ckpt=None, log=None):
                    checkpoint_manager=ckpt, device="cuda")
 
 
-@contextlib.contextmanager
-def b5_replaced(fn):
-    """Within the block, the graph transformer calls `fn` in place of B5's
-    wrapper (the serving path)."""
-    from gtos_tpu_torch.models import graph_transformer
-
-    real = graph_transformer.block_sparse_attention
-    graph_transformer.block_sparse_attention = fn
-    try:
-        yield
-    finally:
-        graph_transformer.block_sparse_attention = real
-
-
 def phase_c5_serve(cfg, model, tv):
     """Serve the fullest batch of each c5 node bucket (N=128/256/512)
     through decode_batch (beam BEAM, MAX_STEPS steps), after a warm-up
@@ -3522,8 +3066,6 @@ def phase_c5_serve(cfg, model, tv):
     import torch
 
     from gtos_tpu_torch.infer.decode import decode_batch
-    from gtos_tpu_torch.ops.block_sparse_attention import (
-        block_sparse_attention)
 
     fullest = {}
     for batch, insts in c5_loader(False).iter_with_instances():
@@ -3557,17 +3099,8 @@ def phase_c5_serve(cfg, model, tv):
              f"expected {expect}")
     print(f"[c5 serve] launches {launches[B5]} of B5 = {cfg.enc_layers} "
           f"layers x {len(batches)} batches, no other kernel", flush=True)
-    seen, first = [], []
-
-    def record(*args, **kw):
-        seen.append(args)
-        return block_sparse_attention(*args, **kw)
-
-    with b5_replaced(record):
-        for batch in batches:
-            seen.clear()
-            encode(model.serving_copy(), batch)
-            first.append(seen[0])
+    first = [capture(model, b, False, model.device)["calls"]["B5"][0]
+             for b in batches]
     return batches, seconds, launches, first
 
 
@@ -3659,7 +3192,7 @@ def planted_b6(kind):
     a_r term ("no GT3.a term in dk": the wrapper's dk less each kept
     pair's ge' a_r, with ge from the plain pair gradients), or B6b's bank
     gradients without the t4 redistribution ("no t4 redistribution").
-    Returns (the wrapper's name, the planted function)."""
+    Returns (the kernel, the planted function)."""
     import torch
 
     from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
@@ -3679,7 +3212,7 @@ def planted_b6(kind):
             part = torch.zeros(B * N, H, Dh, device=q.device).index_add_(
                 0, bi * N + i, w).view(B, N, H, Dh).transpose(1, 2)
             return (dq.float() - part).to(dq.dtype), ge, pair_s
-        return "block_sparse_attention_bwd_dst", wrong
+        return "B6d", wrong
     if kind == "no GT3.a term in dk":
         real_src = bwd_mod.block_sparse_attention_bwd_src
 
@@ -3696,7 +3229,7 @@ def planted_b6(kind):
             part = torch.zeros(B * N, H, Dh, device=q.device).index_add_(
                 0, bi * N + j, w).view(B, N, H, Dh).transpose(1, 2)
             return (dk.float() - part).to(dk.dtype), dv
-        return "block_sparse_attention_bwd_src", wrong_src
+        return "B6s", wrong_src
     real = bwd_mod.block_sparse_bank_grads
 
     def wrong(q, k, a, b, ge, plan):
@@ -3706,14 +3239,14 @@ def planted_b6(kind):
             0, r, ge.T.to(q.dtype).float())[..., None]
         return ((g_a.float() - dt4 * b.float()).to(g_a.dtype),
                 (g_b.float() - dt4 * a.float()).to(g_b.dtype))
-    return "block_sparse_bank_grads", wrong
+    return "B6b", wrong
 
 
 def planted_b5s():
     """B5s made wrong on purpose, as a control for the c5 gradient check:
     its scores without the relation term k_j.a_r ("no k.a term"; the real
-    kernel given a zero a bank, with the true t4). Returns (the wrapper's
-    name, the planted function)."""
+    kernel given a zero a bank, with the true t4). Returns (the kernel,
+    the planted function)."""
     import torch
 
     from gtos_tpu_torch.ops import block_sparse_attention as fwd_mod
@@ -3723,7 +3256,7 @@ def planted_b5s():
     def wrong(q, k, v, a, b, ts, tr, scale=None, t4=None):
         t4 = fwd_mod.bank_t4(a, b) if t4 is None else t4
         return real(q, k, v, torch.zeros_like(a), b, ts, tr, scale, t4)
-    return "block_sparse_attention_with_stats", wrong
+    return "B5s", wrong
 
 
 def c5_grad_batch():
@@ -3799,14 +3332,12 @@ def phase_c5_grads():
                  " disagree with the f32 CPU run")
     for kind in ("no GT2.b term in dq", "no GT3.a term in dk",
                  "no t4 redistribution"):
-        name, wrong = planted_b6(kind)
-        with wrapper_replaced(name, wrong):
+        with replaced(*planted_b6(kind)):
             passed = [check(dtype_name, f"planted B6 ({kind})")[0]
                       for dtype_name in ("float32", "bfloat16")]
         if all(passed):
             fail(f"the c5 gradient check passes a B6 with {kind}")
-    name, wrong = planted_b5s()
-    with wrapper_replaced(name, wrong):
+    with replaced(*planted_b5s()):
         passed = [check(dtype_name, "planted B5s (no k.a term)")[0]
                   for dtype_name in ("float32", "bfloat16")]
     if all(passed):
@@ -3859,44 +3390,15 @@ def phase_c5_resume():
 def capture_block_train_inputs(trainer, batches):
     """The arguments the c5 training path hands B5s and B6: layer 0's (the
     first forward call; the last calls of B6d, B6s and B6b) for each
-    batch, from one more forward and backward per batch through recording
-    shims. Returns (B5s args, src-major layout, (B6 inputs, plan)) per
-    batch."""
-    import torch
-
-    from gtos_tpu_torch.models.generator import batch_to_device
-    from gtos_tpu_torch.ops import block_sparse_attention as fwd_mod
-    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
-
-    real_fwd = fwd_mod.block_sparse_attention_with_stats
-    real_dst = bwd_mod.block_sparse_attention_bwd_dst
-    real_src = bwd_mod.block_sparse_attention_bwd_src
-    fwd, dst, src, out = [], [], [], []
-
-    def rec_fwd(*args, **kw):
-        fwd.append(tuple(a.detach() for a in args[:7]))
-        return real_fwd(*args, **kw)
-
-    def rec_dst(*args):
-        dst.append(args)
-        return real_dst(*args)
-
-    def rec_src(*args):
-        src.append(args)
-        return real_src(*args)
-
-    with wrapper_replaced("block_sparse_attention_with_stats", rec_fwd), \
-            wrapper_replaced("block_sparse_attention_bwd_dst", rec_dst), \
-            wrapper_replaced("block_sparse_attention_bwd_src", rec_src):
-        trainer.model.train()
-        for batch in batches:
-            fwd.clear()
-            dst.clear()
-            src.clear()
-            loss, _ = trainer.model(batch_to_device(batch.arrays(), "cuda"))
-            torch.autograd.grad(loss, trainer.params, allow_unused=True)
-            d = dst[-1]
-            out.append((fwd[0], src[-1][10:12], (d[:10], d[12])))
+    batch, from one more forward and backward per batch (`capture`).
+    Returns (B5s args, src-major layout, (B6 inputs, plan)) per batch."""
+    out = []
+    for batch in batches:
+        calls = capture(trainer.model, batch, True,
+                        trainer.model.device)["calls"]
+        dst = calls["B6d"][0]
+        out.append((calls["B5s"][0][:7], calls["B6s"][0][10:12],
+                    (dst[:10], dst[12])))
     return out
 
 
@@ -4010,6 +3512,86 @@ def phase_auto_tiles():
         fail("the auto loss of the tile batch differs from the fixed route's")
 
 
+def _metrics(node, path="cells"):
+    """Every metric of a bench result (a dict with "unit" and "median"),
+    with its path."""
+    if isinstance(node, dict):
+        if "unit" in node and "median" in node:
+            yield path, node
+            return
+        for k, v in node.items():
+            yield from _metrics(v, f"{path}.{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _metrics(v, f"{path}[{i}]")
+
+
+def phase_bench():
+    """The port's bench (gtos_tpu_torch/bench.py) in this process on
+    BENCH_CELLS with BENCH_REPEATS repeats: its last line must parse as
+    JSON, every metric in it be measured (n >= BENCH_REPEATS) with
+    positive, finite numbers, every kernel row give event ms, device ms,
+    plain ms and its bound, and no reading (north-star ms, each kernel
+    row's event and device ms) fall below BOUND_SLACK x its bound.
+    Returns the bench's kernel rows."""
+    import io
+
+    from gtos_tpu_torch import bench
+    from gtos_tpu_torch.utils.benchlib import BOUND_SLACK
+
+    out = os.path.join(ROOT, "chiprun_out", "bench", "chip_smoke")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main(["--cells", *BENCH_CELLS, "--repeats",
+                    str(BENCH_REPEATS), "--out", out])
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines[:-1]:
+        print(line if line.startswith("[bench]") else f"[bench] {line}")
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        fail(f"the bench's last line is not JSON: {e}")
+    cells = result["cells"]
+    if sorted(cells) != sorted(BENCH_CELLS):
+        fail(f"the bench ran {sorted(cells)}, {BENCH_CELLS} asked")
+    for path, m in _metrics(cells):
+        values = [m[k] for k in ("median", "min", "max", "q1", "q3")]
+        if m["n"] < BENCH_REPEATS or not all(
+                v is not None and v > 0 and np.isfinite(v) for v in values):
+            fail(f"bench metric {path}: {m}")
+    ns = cells["north_star_local"]
+    for name in ("b1", "b1p_b2"):
+        low = ns["metrics"][f"{name}_ms"]["min"]
+        if low < BOUND_SLACK * ns["info"][f"{name}_bound_ms"]:
+            fail(f"bench north star {name}: {low} ms beats its bound")
+    for side in ("serve", "train"):
+        ratio = ns["metrics"][f"{side}_vs_baseline"]["value"]
+        print(f"[bench] north star {side}: "
+              f"{ns['metrics'][f'{side}_edges_per_s']['median']:.4g} edges/s"
+              f", dense reference {ns['metrics'][f'dense_{side}_edges_per_s']['median']:.4g}"  # noqa: E501
+              f", vs_baseline {ratio:.3f}", flush=True)
+        if not ratio > 0:
+            fail(f"bench north star {side}: vs_baseline {ratio}")
+    rows = cells["kernels"]["rows"]
+    if {r["kernel"] for r in rows} != {k for k, _ in
+                                       bench.Bench.KERNEL_SOURCES}:
+        fail(f"bench kernel rows {[r['kernel'] for r in rows]}")
+    for r in rows:
+        for key in ("ms", "device_ms"):
+            if r[key]["min"] < BOUND_SLACK * r["bound_ms"]:
+                fail(f"bench {r['kernel']} ({r['source']}): {key} "
+                     f"{r[key]['min']} beats its bound {r['bound_ms']}")
+        print(f"[bench] {r['kernel']} ({r['source']}): "
+              f"{r['ms']['median']:.6f} ms (events, median of "
+              f"{r['ms']['n']}), {r['device_ms']['median']:.6f} ms device, "
+              f"bound {r['bound_ms']:.6f} ({r['bound_by']}), plain "
+              f"{r['plain_ms']['median']:.6f}", flush=True)
+    print(f"[bench] phase took {seconds:.1f} s; JSON in {out}", flush=True)
+    return rows
+
+
 def main():
     import argparse
 
@@ -4086,6 +3668,10 @@ def main():
     torch.cuda.empty_cache()
     # the multi-device tier: a mesh of one NCCL rank, the rings emulated
     rows += phase_mesh()
+    torch.cuda.empty_cache()
+    # the port's bench on its north-star and kernel cells; the kernel
+    # rows take its times
+    rows = bench_timed(rows, phase_bench())
     if args.profile:
         phase_profile(model, tv, batches, seconds)
         phase_profile_train(trainer, ms_step)

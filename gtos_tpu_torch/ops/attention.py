@@ -9,7 +9,9 @@ For every ordered node pair (i, j) with bank row r = rel_index[b, i, j]:
 The three relation terms are computed against the bank ([N, P] tables)
 and gathered per pair, so nothing of size N^2 * D is materialized. This is
 also the independent oracle of the localized kernel's plain version
-(ops/local_relation_attention.py). Scores and softmax in f32.
+(ops/local_relation_attention.py). Scores and softmax in f32. The one
+exception, `dense_relation_scores_reference`, materializes the pair
+tensors on purpose: it is the bench's baseline, never on the model's path.
 
 Shapes: q, k, v [B, H, N, D]; a_bank, b_bank [P, H, D]; rel_index
 [B, N, N] int; key_mask [B, N] bool (True = real node).
@@ -43,6 +45,28 @@ def bank_relation_scores(q, k, a_bank, b_bank, rel_index, *, scale=None):
     t4 = torch.einsum("phd,phd->ph", a_bank, b_bank)
     t4g = t4[idx].permute(0, 3, 1, 2)
     return (t1 + t2g + t3g + t4g) * scale
+
+
+def dense_relation_scores_reference(q, k, a_bank, b_bank, rel_index, *,
+                                    scale=None):
+    """The reference-style dense materialization, never on the model's
+    path: gathers the full [B, N, N, H, D] relation pair tensors, then
+    sum((q_i + a_ij) . (k_j + b_ij)) in f32, times the scale: [B, H, N, N].
+    Equal to bank_relation_scores up to rounding; the baseline of the
+    bench's north-star cell (edges/s) and of the tests. The gathers are
+    index_select, whose backward is one index_add_ (an XLA scatter-add in
+    the JAX package); autograd of `a_bank[idx]` would sort the indices
+    and accumulate each bank row's pairs one after another."""
+    B, H, N, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    idx = rel_index.long().reshape(-1)
+    a_pair = a_bank.index_select(0, idx).view(B, N, N, H, D)
+    b_pair = b_bank.index_select(0, idx).view(B, N, N, H, D)
+    qe = q.transpose(1, 2)[:, :, None]                    # [B, N, 1, H, D]
+    ke = k.transpose(1, 2)[:, None]                       # [B, 1, N, H, D]
+    e = ((qe + a_pair).float() * (ke + b_pair).float()).sum(-1)
+    return e.permute(0, 3, 1, 2) * scale                  # [B, H, N, N]
 
 
 def masked_softmax(scores, key_mask):

@@ -4,7 +4,8 @@
     Perfetto trace (`trace.json`) into a directory;
   * StepTimer: host-clock throughput counters of the training loop
     (tokens/s and node pairs/s; the loop's lagged loss reads keep the
-    host at most a few steps ahead of the card).
+    host at most a few steps ahead of the card);
+  * annotate(): named trace spans (torch.profiler.record_function).
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named span inside a captured trace: a context manager (and
+    decorator) that torch.profiler records as a CPU event, with the device
+    work launched inside it as its children."""
+    from torch.profiler import record_function
+
+    return record_function(name)
 
 
 class StepTimer:

@@ -900,3 +900,34 @@ def test_cuda_block_sparse_edge_cases(card, case, dtype, tol):
         assert bool(torch.isfinite(x.float()).all())
         assert torch.equal(x[~used], torch.zeros_like(x[~used]))
         torch.testing.assert_close(x.float(), y.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_timers_read_events_and_device_time(card):
+    """utils/benchlib.py on the card: cold event samples of B2 (three
+    launches) above its bound, the profiler's device time of each call
+    (the kernels between two flushes) no more than the event window that
+    holds it and its host gaps, and a reading below its bound refused."""
+    from gtos_tpu_torch.utils import benchlib
+
+    B, H, N, Dh, P, P_loc = CASES[0]
+    q, k, v, a, b, idx, mask = port_local_args(
+        make_case(B, H, N, Dh, P, P_loc), torch.bfloat16, card)
+    g = torch.randn(q.shape, device=card)
+    _, probs = local_relation_attention_with_probs(q, k, v, a, b, idx, mask)
+    order, start = slot_order(idx, P_loc)
+    runs = bank_runs(start, N)
+
+    def b2():
+        return local_relation_attention_bwd(q, k, v, g, probs, a, b, idx,
+                                            order, start, runs=runs)
+
+    bound_ms = benchlib.local_attention_bwd_bound(
+        idx.cpu().numpy(), H, Dh, P_loc, "bfloat16")[0]
+    events = benchlib.time_samples(b2, iters=20, cold=True,
+                                   bound_s=bound_ms * 1e-3)
+    device = benchlib.device_ms(b2, iters=10, bound_ms=bound_ms)
+    assert events["n"] == 20 and device["n"] == 10
+    assert 0 < device["median"] <= events["median"] * 1e3 * 1.05
+    with pytest.raises(benchlib.ImpossibleReading):
+        benchlib.time_samples(b2, iters=3, cold=True, bound_s=1.0)

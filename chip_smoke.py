@@ -135,7 +135,32 @@ Phases, each of which exits non-zero on failure:
                table rows of c2, c4 and c5 take its kernel times (one
                time a row: the median of the kernels cell on layer 0 of
                the model's first batch, `bench_timed`);
-  19. profile — with --profile only: torch.profiler over each served batch
+  19. compiled — the compiled step and search (CUDA graphs per batch
+               signature, utils/graphs.py; ROADMAP A11): c2 "pallas_local"
+               training at full width with dropout 0.2, 5 batches twice,
+               three times uncaptured and once on the graphs: the same
+               losses, the dropout generator and Adam's count, and every
+               parameter and moment as close as the uncaptured runs come
+               (COMPILED_SPREAD, COMPILED_FLOOR; these comparisons and
+               those of eval and serving under deterministic
+               algorithms, whose graphs are then dropped); the same for c2
+               "pallas" (B3 and B3' batches), c2 "sparse" and "xla" and
+               c4, and each run's eval step (and c5's block_sparse one)
+               captured against uncaptured;
+               the resume of
+               phase 7 (and of c4 and "pallas") runs on the graphs and
+               must replay; serving the fullest batch of every bucket of
+               c2 ("pallas_local", "sparse", "xla"), c4 and c5 captured
+               and uncaptured: the same tokens,
+               lengths and final t, scores as close as two uncaptured
+               searches; the encoder and gradient gates of phases 4 and 6
+               on a captured encode and a captured forward and backward,
+               the planted B1s and B2s failing there; B1, B1p and B2
+               (c2, c4), B3, B3', B4 (c2) and B5 (c5) inside a replay
+               against their plain versions; printed: host launch calls, device kernels,
+               busy ms and idle share of a captured train and decode
+               step, the graph pool and capture ms;
+  20. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c4 and one c5 train step on each
                captured batch ("pallas_local", "block_sparse"), the device busy time, idle share,
@@ -170,10 +195,10 @@ from gtos_tpu_torch.bench import (
 # one copy of the measurement code (SPIN_CYCLES: chip_b6_variants.py
 # reads this tree's)
 from gtos_tpu_torch.utils.benchlib import (
-    KERNEL_TOL, PROBS_TOL, SPIN_CYCLES, b4_largest, b6b_library,  # noqa
-    block_bound, card_line, disagreement, global_attention_bound,
-    honest_batch, local_attention_bound, local_attention_bwd_bound,
-    rel_to_largest, time_ms)
+    KERNEL_TOL, LAUNCH_APIS, PROBS_TOL, SPIN_CYCLES, b4_largest,  # noqa
+    b6b_library, block_bound, card_line, deterministic_algorithms,
+    disagreement, global_attention_bound, honest_batch, local_attention_bound,
+    local_attention_bwd_bound, rel_to_largest, time_ms)
 from gtos_tpu_torch.utils.benchlib import dtype_name as _dtype_name
 # one way to record the kernel calls of a step and to plant a kernel
 from gtos_tpu_torch.utils import kernel_calls
@@ -214,6 +239,20 @@ C5_ENCODER_TOL = ENCODER_TOL
 # (B5s, B6) on the same f32 weights and batch: one function, sums in
 # another order
 SPARSE_TOL = dict(rel=1e-3, loss=1e-5)
+# phase_compiled: a captured run's gap to an uncaptured one (each loss,
+# and each parameter or moment element, relative to the largest loss or
+# to its tensor's largest value) may be COMPILED_SPREAD times the largest
+# gap between uncaptured runs, and at least COMPILED_FLOOR of the largest
+# value, a few f32 roundings of it: 8 for a loss or a tensor, 64 for a
+# search's score, a sum of up to MAX_STEPS per-step log-probabilities; a
+# captured search's tokens, lengths and final t must be equal. The runs
+# compared take deterministic algorithms (benchlib.
+# deterministic_algorithms): the default ones sum the copy mass, the char
+# CNN's and the embeddings' gradients and "sparse"'s messages in no fixed
+# order, and Adam turns a last-bit change of a gradient near 0 into a
+# step of the learning rate, a tail that three runs do not sample
+COMPILED_SPREAD = 4.0
+COMPILED_FLOOR = dict(loss=2.0 ** -20, state=2.0 ** -20, score=2.0 ** -17)
 # phase_bench: the bench's cells that chip_smoke runs, and their repeats
 BENCH_CELLS, BENCH_REPEATS = ("north_star_local", "kernels"), 2
 
@@ -1146,6 +1185,7 @@ def phase_serve(impl="pallas_local", family="c2"):
     other."""
     import torch
 
+    from gtos_tpu_torch.infer import decode
     from gtos_tpu_torch.infer.decode import decode_batch
 
     tag = tag_of("serve", impl, family)
@@ -1157,15 +1197,15 @@ def phase_serve(impl="pallas_local", family="c2"):
           f"{cfg.token_vocab} concept={cfg.concept_vocab} relation="
           f"{cfg.relation_vocab}")
     steps = 0
-    served = model.serving_copy()   # what decode_batch runs: kept until
-    decode_step = served.decode_step  # the parameters change
+    search = decode.beam_decode_arrays
 
-    def counted_step(*a, **kw):  # counts the search's batched steps
+    def counted(*a, **kw):  # the search's batched steps: its final t
         nonlocal steps
-        steps += 1
-        return decode_step(*a, **kw)
+        res = search(*a, **kw)
+        steps += int(res.steps)
+        return res
 
-    served.decode_step = counted_step
+    decode.beam_decode_arrays = counted
     fullest, counts = {}, {}  # per node bucket: its fullest batch; sizes
     by_kernel = {}            # per route's kernel: its fullest batch
     for batch, insts in loader.iter_with_instances():
@@ -1222,7 +1262,7 @@ def phase_serve(impl="pallas_local", family="c2"):
         batches.append(batch)
         seconds.append(dt)
     launches = read_counts()
-    del served.decode_step
+    decode.beam_decode_arrays = search
     if len(batches) < 2:
         fail(f"only {len(batches)} batch(es) served")
     if launches != expect:
@@ -1275,11 +1315,12 @@ def planted_b1(kind):
     return wrong
 
 
-def phase_encoder_check(cfg, model, batch, tag="encode"):
+def phase_encoder_check(cfg, model, batch, tag="encode", encoder=None):
     """Generator.encode on the card (kernel) vs the same weights on the
     CPU in f32 (plain version), over the batch's real nodes: the served
     bf16 model, and the same weights in f32 on the card. Each planted
-    wrong B1 must fail both checks."""
+    wrong B1 must fail both checks. encoder(model, batch): how the card
+    encodes (default `encode`; `captured_encode` replays a CUDA graph)."""
     import torch
 
     from gtos_tpu_torch.models import Generator
@@ -1294,7 +1335,7 @@ def phase_encoder_check(cfg, model, batch, tag="encode"):
     mask = torch.from_numpy(batch.concept_mask)
 
     def check(card, dtype_name, b1):
-        out = encode(card, batch)
+        out = (encoder or encode)(card, batch)
         if out.shape != ref.shape or not torch.isfinite(out).all():
             fail(f"encoder output {tuple(out.shape)} not finite / wrong "
                  "shape")
@@ -1622,17 +1663,21 @@ def grad_gap(ref, got):
     return abs(loss - ref_loss), worst, name
 
 
-def phase_grads(impl="pallas_local", family="c2"):
+def phase_grads(impl="pallas_local", family="c2", grads=None, runs=1,
+                tag=None):
     """The loss and every parameter gradient of one train batch (dropout
     0) under attention_impl `impl` on the card with the kernels, the f32
     model and the bf16 one, against the same f32 weights on the CPU with
     the plain versions; then the same with each planted wrong backward
-    kernel (B2, or B4 under "pallas"), which must fail the check."""
+    kernel (B2, or B4 under "pallas"), which must fail the check.
+    grads(model, arrays): how the card computes them (default
+    `loss_and_grads`; `captured_loss_and_grads` replays a CUDA graph),
+    launching each kernel `runs` times."""
     import torch
 
     from gtos_tpu_torch.models import Generator
 
-    tag = tag_of("grads", impl, family)
+    tag = tag or tag_of("grads", impl, family)
     cfg, _ = configs(family)
     cfg = dataclasses.replace(cfg, dropout=0.0, attention_impl=impl)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -1654,9 +1699,9 @@ def phase_grads(impl="pallas_local", family="c2"):
 
     def check(dtype_name, what):
         zero_counts()
-        got = loss_and_grads(models[dtype_name], arrays)
+        got = (grads or loss_and_grads)(models[dtype_name], arrays)
         launches = read_counts()
-        expect = train_expect(impl, models[dtype_name].cfg, [batch])
+        expect = train_expect(impl, models[dtype_name].cfg, [batch] * runs)
         if launches != expect:
             fail(f"the {dtype_name} gradient run launched {launches}, "
                  f"expected {expect}")
@@ -1683,15 +1728,17 @@ def phase_grads(impl="pallas_local", family="c2"):
             fail(f"the gradient check passes a {bwd} with {kind}")
 
 
-def phase_resume(impl="pallas_local", family="c2"):
+def phase_resume(impl="pallas_local", family="c2", tag=None):
     """The c2 model under attention_impl `impl` trained RESUME_AT steps,
     saved, restored into a fresh model and trainer and trained RESUME_MORE
     more, against the unbroken run of the same seeds: the losses of the
     resumed steps must be the same bits (B2 walks each slot's pairs, B4
-    each run of bank rows, in a fixed order; no atomics)."""
+    each run of bank rows, in a fixed order; no atomics). The Trainer runs
+    its steps on CUDA graphs, so the resumed run replays where the
+    unbroken one did not and the other way round."""
     from gtos_tpu_torch.train.checkpoint import CheckpointManager
 
-    tag = tag_of("resume", impl, family)
+    tag = tag or tag_of("resume", impl, family)
     cfg, tcfg = configs(family)
     cfg = dataclasses.replace(cfg, attention_impl=impl)
     total = RESUME_AT + RESUME_MORE
@@ -1718,11 +1765,15 @@ def phase_resume(impl="pallas_local", family="c2"):
         shutil.rmtree(tmp, ignore_errors=True)
     want, got = whole.losses()[RESUME_AT:], cont.losses()
     same = want == got
+    path = trainer.step_path(next(iter(loader())).arrays())
     print(f"[{tag}] steps {RESUME_AT + 1}-{total}: unbroken {want}, "
-          f"resumed {got}: " + ("bit-identical" if same else "DIFFER"),
-          flush=True)
+          f"resumed {got}: " + ("bit-identical" if same else "DIFFER")
+          + f"; the steps {path} ({trainer._step.graphs.replays} replays "
+          "in the resumed run)", flush=True)
     if not same:
         fail("the resumed run's losses differ from the unbroken run's")
+    if path == "captured" and trainer._step.graphs.replays == 0:
+        fail("the resumed run replayed no graph")
 
 
 def phase_localize(batches, D=512):
@@ -3512,6 +3563,536 @@ def phase_auto_tiles():
         fail("the auto loss of the tile batch differs from the fixed route's")
 
 
+# ---------------------------------------------------------------- compiled
+
+# phase_compiled: train batches per cell, each run twice (so that every
+# signature replays), and the host-side calls that launch work on the card
+COMPILED_BATCHES = {("c2", "pallas_local"): 5, ("c2", "pallas"): 3,
+                    ("c4", "pallas_local"): 3, ("c2", "sparse"): 2,
+                    ("c2", "xla"): 2}
+# (d): the served (family, impl) pairs, every bucket of each, and the
+# routes whose uncaptured searches need not repeat their own tokens:
+# "sparse" sums its encoder's messages with scatter-adds in no fixed order,
+# and a beam search turns a near tie of bf16 log-probabilities into other
+# tokens
+UNREPRODUCIBLE_SEARCH = ("sparse",)
+COMPILED_SERVE = (("c2", "pallas_local"), ("c4", "pallas_local"),
+                  ("c5", "block_sparse"), ("c2", "sparse"), ("c2", "xla"))
+PROFILED_STEPS = 4
+
+
+def _ids(tv):
+    return dict(str_id=tv.str_id, end_id=tv.end_id, unk_id=tv.unk_id)
+
+
+def compiled_batches(family, impl):
+    """The cell's train batches: the loader's first ones; under "pallas"
+    two with the 4096-row bank (B3) and one whose bank fits _inline_fits
+    (B3')."""
+    cfg, _ = configs(family, impl)
+    n = COMPILED_BATCHES[(family, impl)]
+    if impl == "pallas":
+        head, extra = route_plan(impl, cfg, n - 1, [(B3I, 1)])
+        return head + extra[B3I]
+    return [b for _, b in zip(range(n), train_loader(impl=impl,
+                                                     family=family))]
+
+
+def train_run(family, impl, batches, compiled):
+    """Trainer.train_step over the batches twice from one seeded start
+    (weights seed 0, the config's dropout and its generator's seed):
+    (losses, final state: parameters, Adam's moments and count, the
+    dropout generator's state; the trainer)."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.train.trainer import Trainer
+
+    cfg, tcfg = configs(family, impl)
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, cfg, tcfg, batches[0].arrays(), device="cuda",
+                      compiled=compiled)
+    on_card = [batch_to_device(b.arrays(), "cuda") for b in batches] * 2
+    losses = torch.stack([trainer.train_step(a)["loss"] for a in on_card])
+    st = trainer.opt.state
+    state = dict(tensors=[t.detach().clone() for t in
+                          [*trainer.params, *st["mu"], *st["nu"]]],
+                 count=int(st["count"]), rng=model.dropout_rng.get_state())
+    return losses.tolist(), state, trainer
+
+
+def run_gap(a, b):
+    """(largest loss gap relative to the largest loss, largest gap of a
+    parameter or moment element relative to its tensor's largest value)
+    between two train runs."""
+    (la, sa), (lb, sb) = a, b
+    loss = (max(abs(x - y) for x, y in zip(la, lb))
+            / max(abs(y) for y in lb))
+    worst = 0.0
+    for x, y in zip(sa["tensors"], sb["tensors"]):
+        top = y.abs().max().item()
+        if top > 0:
+            worst = max(worst, (x - y).abs().max().item() / top)
+    return loss, worst
+
+
+def compiled_train(family, impl):
+    """(a)/(b): the cell's batches twice uncaptured (compiled=False) in
+    three runs, then on the graphs (phase_compiled runs this under
+    deterministic algorithms): the captured run must agree with the
+    first uncaptured run as closely as the uncaptured runs agree
+    (COMPILED_SPREAD times their largest gap, at least COMPILED_FLOOR),
+    every signature must replay, and the dropout generator and Adam's
+    count must end equal. Returns the captured trainer and its
+    batches."""
+    tag = tag_of("compiled train", impl, family)
+    batches = compiled_batches(family, impl)
+    e1, e2, e3 = (train_run(family, impl, batches, False) for _ in range(3))
+    got = train_run(family, impl, batches, None)
+    trainer = got[2]
+    spread = tuple(max(x, y) for x, y in zip(run_gap(e2[:2], e1[:2]),
+                                             run_gap(e3[:2], e1[:2])))
+    gap = run_gap(got[:2], e1[:2])
+    graphs = trainer._step.graphs
+    print(f"[{tag}] {len(batches)} batches twice "
+          f"({', '.join(describe(b) for b in batches)}): "
+          f"{graphs.captures} signatures captured, {graphs.replays} "
+          f"replays; uncaptured runs: loss gap {spread[0]:.3e}, state gap "
+          f"{spread[1]:.3e}; captured: loss gap {gap[0]:.3e}, "
+          f"state gap {gap[1]:.3e}; losses eager {e1[0]} captured "
+          f"{got[0]}", flush=True)
+    if graphs.replays != 2 * len(batches) - graphs.captures:
+        fail(f"{tag}: {graphs.captures} captures and {graphs.replays} "
+             f"replays over {2 * len(batches)} steps")
+    for x, y, what in ((got[1]["count"], e1[1]["count"], "Adam's count"),
+                       (e2[1]["count"], e1[1]["count"], "Adam's count")):
+        if x != y:
+            fail(f"{tag}: {what} {x} != {y}")
+    import torch
+    if not all(torch.equal(r[1]["rng"], e1[1]["rng"]) for r in (e2, e3,
+                                                              got)):
+        fail(f"{tag}: the dropout generator ends in another state on the "
+             "graphs")
+    for i, what in ((0, "loss"), (1, "state")):
+        limit = max(COMPILED_SPREAD * spread[i], COMPILED_FLOOR[what])
+        print(f"[{tag}] {what} gap limit {limit:.3e}", flush=True)
+        if not gap[i] <= limit:
+            fail(f"{tag}: the captured run's {what} gap {gap[i]:.3e} is "
+                 f"over {limit:.3e} (uncaptured runs: {spread[i]:.3e})")
+    return trainer, batches
+
+
+def compiled_eval(family, impl, model, batches):
+    """make_eval_step of `model` (a captured train run's, left in train
+    mode by its last step, or a served one) on each of the batches: twice
+    on the graphs (the signature's first call captures, later ones
+    replay) and three times uncaptured (compiled=False): n_tok equal, the
+    loss (relative to itself) within COMPILED_SPREAD times the uncaptured
+    runs' gap and at least COMPILED_FLOOR["loss"]. acc counts argmax
+    hits, so a route whose uncaptured runs differ ("sparse": scatter-adds
+    in no fixed order) can flip a near tie: its hits may differ by
+    COMPILED_SPREAD times the uncaptured runs' flips and at least one,
+    and where the uncaptured runs are bit-equal, by none. Every signature
+    must replay, and no call may draw from the dropout generator."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.train.trainer import make_eval_step
+    from gtos_tpu_torch.utils.graphs import for_model
+
+    tag = tag_of("compiled eval", impl, family)
+    captured, eager = make_eval_step(model), make_eval_step(model, False)
+    graphs = for_model(model)
+    rng, replays = model.dropout_rng.get_state(), graphs.replays
+
+    def gaps(m, r):     # (relative loss gap, argmax hits that differ)
+        return (abs(m["loss"] - r["loss"]) / abs(r["loss"]),
+                round(abs(m["acc"] - r["acc"]) * r["n_tok"]))
+
+    worst = [(0.0, 0), (0.0, 0)]
+    for batch in batches:
+        arrays = batch_to_device(batch.arrays(), "cuda")
+        cap1, cap2, ref, *more = (
+            {k: v.item() for k, v in step(arrays).items()}
+            for step in (captured, captured, eager, eager, eager))
+        spread = tuple(max(x) for x in zip(*(gaps(m, ref) for m in more)))
+        exact = all(m == ref for m in more)
+        limit = (max(COMPILED_SPREAD * spread[0], COMPILED_FLOOR["loss"]),
+                 0 if exact else max(1, int(COMPILED_SPREAD * spread[1])))
+        for got, what in ((cap1, "capturing"), (cap2, "replayed")):
+            gap = gaps(got, ref)
+            if got["n_tok"] != ref["n_tok"] or not (
+                    gap[0] <= limit[0] and gap[1] <= limit[1]):
+                fail(f"{tag} ({describe(batch)}): the {what} eval step "
+                     f"gives {got}, uncaptured {ref} (loss gap "
+                     f"{gap[0]:.3e} of at most {limit[0]:.3e}, {gap[1]} "
+                     f"argmax flips of at most {limit[1]})")
+        worst = [tuple(map(max, worst[0], spread)),
+                 tuple(map(max, worst[1], gaps(cap1, ref), gaps(cap2, ref)))]
+    if graphs.replays - replays < len(batches):
+        fail(f"{tag}: {graphs.replays - replays} replays over "
+             f"{2 * len(batches)} captured eval calls")
+    if not torch.equal(model.dropout_rng.get_state(), rng):
+        fail(f"{tag}: an eval step drew from the dropout generator")
+    print(f"[{tag}] {len(batches)} batches: loss gaps uncaptured "
+          f"{worst[0][0]:.3e}, captured {worst[1][0]:.3e}; argmax flips "
+          f"uncaptured {worst[0][1]}, captured {worst[1][1]}; the dropout "
+          "generator untouched", flush=True)
+
+
+def replay_kernels(label, run, kernels):
+    """Each kernel of `kernels` inside a replay against its plain version:
+    `run()` is a captured step whose first call captures (the wrappers
+    record each kernel's first call in the capture, whose tensors the
+    graph rewrites at every replay) and whose second call replays; then
+    each recorded output is held against the plain version of the
+    recorded inputs (the bench's check_kernel: KERNEL_TOL and its rtol of
+    the largest value)."""
+    import torch
+
+    from gtos_tpu_torch.bench import BenchFailure, check_kernel, plain_call
+
+    store = {}
+
+    def make(kernel, real):
+        if kernel not in kernels:
+            return real
+
+        def rec(*args, **kw):
+            out = real(*args, **kw)
+            if torch.cuda.is_current_stream_capturing() and \
+                    kernel not in store:
+                store[kernel] = (args, kw, out)
+            return out
+        return rec
+
+    with kernel_calls.kernels_wrapped(make):
+        run()
+        run()
+        torch.cuda.synchronize()
+    for kernel in kernels:
+        if kernel not in store:
+            fail(f"{label}: {kernel} was not captured")
+        args, kw, out = store[kernel]
+        try:
+            err, rel = check_kernel(kernel, label, out, plain_call(
+                kernel, kernel_calls.named(kernel, args, kw))())
+        except BenchFailure as e:
+            fail(f"inside a replay: {e}")
+        print(f"[compiled kernels] {kernel} inside a replay of {label}: "
+              f"max_abs_err {err:.3e}, {rel:.3e} of the largest value "
+              f"(within {KERNEL_TOL})", flush=True)
+
+
+def encode_graph(model, batch):
+    """A function that encodes the batch as a CUDA graph: its first call
+    captures Generator.encode (on static copies of the batch's arrays),
+    each later call replays it and returns the graph's output."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_edges, batch_to_device
+    from gtos_tpu_torch.utils import graphs
+
+    cache = graphs.Graphs(model.device, True)
+    static = cache.inputs("encode", batch_to_device(batch.arrays(),
+                                                    model.device))
+
+    def encode_static():
+        return model.encode(static["concept"], static["concept_char"],
+                            static["concept_mask"], static["rel_bank"],
+                            static["rel_length"], static["rel_index"],
+                            edges=batch_edges(static))
+
+    def run():
+        with torch.inference_mode():
+            return cache.run("encode", encode_static)
+    run.graphs = cache
+    return run
+
+
+def captured_encode(model, batch):
+    """Generator.encode of a batch as a CUDA graph's replay, f32 on the
+    CPU."""
+    run = encode_graph(model, batch)
+    run()
+    out = run()
+    if run.graphs.replays != 1:
+        fail("the captured encode did not replay")
+    return out.float().cpu()
+
+
+def captured_loss_and_grads(model, arrays):
+    """loss_and_grads as a CUDA graph's replay (captured on the first
+    call, replayed on the second; the kernels launch twice)."""
+    import torch
+
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.utils import graphs
+
+    if model.device.type != "cuda":
+        return loss_and_grads(model, arrays)
+    cache = graphs.Graphs(model.device, True)
+    names, params = zip(*model.named_parameters())
+    static = cache.inputs("grads", batch_to_device(arrays, model.device))
+
+    def run():
+        model.train()
+        loss, _ = model(static)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [loss.detach()] + [torch.zeros_like(p) if g is None else g
+                                  for p, g in zip(params, grads)]
+
+    cache.run("grads", run)
+    out = cache.run("grads", run)
+    return out[0].item(), {n: g.float().cpu() for n, g in
+                           zip(names, out[1:])}
+
+
+def compiled_serve(family, impl="pallas_local"):
+    """(d): the fullest batch of every node bucket of the family's
+    serving loader under `impl` (c5: its own loader, "block_sparse"),
+    searched uncaptured (compiled=False) twice and on the graphs twice
+    (capture, then replay): tokens, lengths and the final t must be
+    equal, the scores as close as the uncaptured runs' (COMPILED_SPREAD,
+    COMPILED_FLOOR of the largest score: the copy mix lands its mass with
+    a scatter-add, whose sums of colliding copy targets run in no fixed
+    order). Where the two uncaptured searches of a route in
+    UNREPRODUCIBLE_SEARCH already differ in their tokens, the captured
+    searches' best hypotheses may differ from the first uncaptured one's in
+    COMPILED_SPREAD times as many requests as the second one's do, at
+    least one, and their scores must be finite."""
+    import torch
+
+    from gtos_tpu_torch.infer.decode import beam_decode_arrays, search_graphs
+    from gtos_tpu_torch.models import Generator
+
+    tag = tag_of("compiled serve", impl, family)
+    if family == "c5":
+        cfg, _ = c5_configs()
+        model = Generator(cfg, device="cuda",
+                          rng=torch.Generator().manual_seed(0))
+        tv = c5_corpus()[1][0]
+        loader = c5_loader(False)
+    else:
+        cfg, model, loader, tv = serving_setup(impl, family=family)
+    fullest = {}
+    for batch, insts in loader.iter_with_instances():
+        N = batch.concept_mask.shape[1]
+        if N not in fullest or len(insts) > len(fullest[N][1]):
+            fullest[N] = (batch, insts)
+    graphs = search_graphs(model)
+    for N in sorted(fullest):
+        batch = fullest[N][0]
+        arrays = batch.arrays()
+        kw = dict(beam_size=BEAM, max_steps=MAX_STEPS, **_ids(tv))
+        runs, ms = [], []
+        for compiled in (False, False, None, None):
+            t0 = time.perf_counter()
+            runs.append(beam_decode_arrays(model, arrays, compiled=compiled,
+                                           **kw))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        eager = runs[0]
+
+        def score_gap(res):
+            return (res.scores - eager.scores).abs().max().item()
+
+        def rows_differ(res):   # requests whose best hypothesis differs
+            return int((res.seqs[:, 0] != eager.seqs[:, 0]).any(-1).sum())
+
+        if impl in UNREPRODUCIBLE_SEARCH and not all(
+                torch.equal(getattr(runs[1], f), getattr(eager, f))
+                for f in ("seqs", "lengths", "steps")):
+            limit = max(1, int(COMPILED_SPREAD * rows_differ(runs[1])))
+            for res, what in ((runs[2], "capturing"), (runs[3], "replayed")):
+                if not (rows_differ(res) <= limit
+                        and bool(res.scores.isfinite().all())):
+                    fail(f"{tag} N={N}: the {what} search's best "
+                         f"hypotheses differ from the uncaptured search's "
+                         f"in {rows_differ(res)} requests, over {limit}, "
+                         "or its scores are not finite")
+            print(f"[{tag}] N={N} ({describe(batch)}): the uncaptured "
+                  f"searches differ in their tokens: best hypotheses "
+                  f"differ in {rows_differ(runs[1])} of {len(eager.seqs)} "
+                  f"requests uncaptured, {rows_differ(runs[2])} / "
+                  f"{rows_differ(runs[3])} captured (at most {limit}); "
+                  f"ms uncaptured {ms[0]:.3f} / {ms[1]:.3f}, capturing "
+                  f"{ms[2]:.3f}, replayed {ms[3]:.3f}", flush=True)
+            continue
+        spread = score_gap(runs[1])
+        limit = max(COMPILED_SPREAD * spread, COMPILED_FLOOR["score"]
+                    * eager.scores.abs().max().item())
+        for res, what in ((runs[1], "second uncaptured"),
+                          (runs[2], "capturing"), (runs[3], "replayed")):
+            for field in ("seqs", "lengths", "steps"):
+                if not torch.equal(getattr(res, field),
+                                   getattr(eager, field)):
+                    fail(f"{tag} N={N}: the {what} search's {field} differ "
+                         "from the uncaptured search's")
+            if not score_gap(res) <= limit:
+                fail(f"{tag} N={N}: the {what} search's scores differ by "
+                     f"{score_gap(res):.3e}, over {limit:.3e}")
+        print(f"[{tag}] N={N} ({describe(batch)}): {int(eager.steps)} "
+              f"steps; tokens, lengths and final t equal; score gaps "
+              f"uncaptured {spread:.3e}, captured "
+              f"{max(score_gap(runs[2]), score_gap(runs[3])):.3e}; ms "
+              f"uncaptured {ms[0]:.3f} / {ms[1]:.3f}, capturing "
+              f"{ms[2]:.3f}, replayed {ms[3]:.3f}", flush=True)
+    print(f"[{tag}] {graphs.captures} graphs, pool "
+          f"{(graphs.pool_bytes() or 0) / 2 ** 20:.1f} MiB", flush=True)
+    return model, tv, fullest
+
+
+def profile_steps(label, step, steps_per_call, n, card, graphs=None,
+                  warm=1):
+    """(f), printed: `n` calls of `step` under torch.profiler, after `warm`
+    calls: host calls that launch work on the card (LAUNCH_APIS) a step,
+    device kernels and copies a step, busy ms a step, idle share of the
+    wall, and the graph pool's size and capture ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = sum(steps_per_call(step()) for _ in range(n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in LAUNCH_APIS)
+    work = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in work) / 1e3
+    pool = ("" if graphs is None or graphs.pool_bytes() is None else
+            f", graph pool {graphs.pool_bytes() / 2 ** 20:.1f} MiB, "
+            f"capture ms per signature "
+            f"{sorted(round(v, 3) for v in graphs.capture_ms().values())}")
+    print(f"[compiled profile] {label}: {launches / steps:.2f} host launch "
+          f"calls a step, {sum(e.count for e in work) / steps:.1f} device "
+          f"kernels and copies a step, busy {busy / steps:.3f} ms a step, "
+          f"idle {1 - busy / (wall * 1e3):.3f} of {wall * 1e3 / n:.3f} ms "
+          f"a call ({steps} steps){pool}; card {card}", flush=True)
+
+
+def phase_compiled():
+    """The compiled step and search (ROADMAP A11): (a) c2 "pallas_local"
+    training at full width with dropout, eager against captured, within
+    the eager-vs-eager spread; (b) the same for c2 "pallas", "sparse" and
+    "xla" and for c4, and each run's eval step (and c5's, on the served
+    model) captured against uncaptured; (c) a resume on the captured path gives the unbroken
+    captured run's losses (phase_resume, whose Trainer runs the graphs);
+    (d) serving c2 ("pallas_local", "sparse", "xla"), c4 and c5 on every
+    bucket, the captured search equal to the uncaptured one ((a), (b) and
+    (d) under deterministic algorithms, their graphs dropped after); (e)
+    planted wrong B1s and B2s fail the encoder and
+    gradient gates on the captured path, and B1 and B1p, B2 (c2 and c4),
+    B3, B3', B4 (c2) and B5 (c5) match their plain versions inside
+    replays; (f) printed: host launch calls, device kernels, busy ms
+    and idle share of a captured train or decode step, with the graph
+    pool and capture times."""
+    import torch
+
+    from gtos_tpu_torch.infer.decode import beam_decode_arrays, search_graphs
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.train.trainer import EAGER_MESH, EAGER_TRAIN_ROUTES
+    from gtos_tpu_torch.utils.graphs import for_model
+
+    card = card_line()
+    t_start = time.perf_counter()
+    for route, why in EAGER_TRAIN_ROUTES.items():
+        print(f"[compiled] uncaptured on the card: the {route} train step: "
+              f"{why}", flush=True)
+    print(f"[compiled] uncaptured on the card: {EAGER_MESH}", flush=True)
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[compiled] {name} in {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    # (a), (b), (d) compare runs under deterministic algorithms (the
+    # COMPILED_SPREAD note), then drop their graphs: the gates of (e), the
+    # profiles of (f) and the resume (c) run graphs of the default ones
+    trainers = {}
+    with deterministic_algorithms():
+        for family, impl in COMPILED_BATCHES:
+            trainers[(family, impl)] = compiled_train(family, impl)
+            trainer, batches = trainers[(family, impl)]
+            compiled_eval(family, impl, trainer.model, batches)
+            torch.cuda.empty_cache()
+        part("(a), (b) training and evaluation")
+        # (c) is phase_resume's: its Trainers run the graphs, and the
+        # resumed run must replay
+        served = {key: compiled_serve(*key) for key in COMPILED_SERVE}
+        part("(d) serving")
+        # the block_sparse eval step (its train step runs uncaptured)
+        loader = c5_loader(True)
+        compiled_eval("c5", "block_sparse",
+                      served[("c5", "block_sparse")][0],
+                      [b for _, b in zip(range(2), loader)])
+        part("c5 eval")
+    for trainer, _ in trainers.values():
+        for_model(trainer.model).clear()
+    for model, _, _ in served.values():
+        for_model(model).clear()
+        search_graphs(model).clear()
+    torch.cuda.empty_cache()
+    # (e): the gates on the captured path, and the kernels inside replays
+    cfg, model, tv, fullest = (configs("c2")[0],
+                               *served[("c2", "pallas_local")])
+    batch = fullest[min(fullest)][0]
+    phase_encoder_check(cfg, model, batch, tag="compiled encode",
+                        encoder=captured_encode)
+    part("(e) encoder gate")
+    phase_grads(tag="compiled grads", grads=captured_loss_and_grads, runs=2)
+    part("(e) gradient gate")
+    for family, impl, kernel in (("c2", "pallas_local", "B1"),
+                                 ("c4", "pallas_local", "B1"),
+                                 ("c5", "block_sparse", "B5")):
+        fam_model, _, fam_fullest = served[(family, impl)]
+        replay_kernels(f"{family} serving encode", encode_graph(
+            fam_model, fam_fullest[min(fam_fullest)][0]), (kernel,))
+    for family, impl, fwd, kernels in (
+            ("c2", "pallas_local", B1, ("B1p", "B2")),
+            ("c4", "pallas_local", B1, ("B1p", "B2")),
+            ("c2", "pallas", B3, ("B3", "B4")),
+            ("c2", "pallas", B3I, ("B3'",))):
+        trainer, batches = trainers[(family, impl)]
+        pick = next(b for b in batches
+                    if route_of(impl, b.arrays(), cfg)[1] == fwd)
+        arrays = batch_to_device(pick.arrays(), "cuda")
+        replay_kernels(f"a {family} {impl} train step ({describe(pick)})",
+                       lambda: trainer.train_step(arrays), kernels)
+    part("(e) kernels inside replays")
+    # (f): the captured paths (the bench's --checkout holds them against
+    # the parent's uncaptured ones)
+    for (family, impl), (trainer, batches) in trainers.items():
+        on_card = [batch_to_device(b.arrays(), "cuda") for b in batches]
+        it = iter(range(10 ** 9))
+        profile_steps(
+            f"{family} {impl} train step, captured",
+            lambda: trainer.train_step(on_card[next(it) % len(on_card)]),
+            lambda m: 1, PROFILED_STEPS, card, trainer._step.graphs,
+            warm=len(on_card))
+    for (family, impl), (model, tv, fullest) in served.items():
+        arrays = fullest[min(fullest)][0].arrays()
+        profile_steps(
+            f"{tag_of('decode', impl, family)}, N={min(fullest)}, "
+            "captured",
+            lambda: beam_decode_arrays(model, arrays, beam_size=BEAM,
+                                       max_steps=MAX_STEPS, **_ids(tv)),
+            lambda res: int(res.steps), 1, card, search_graphs(model))
+    part("(f) profiles")
+    print(f"[compiled] phase in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def _metrics(node, path="cells"):
     """Every metric of a bench result (a dict with "unit" and "median"),
     with its path."""
@@ -3605,6 +4186,9 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
+    # before cuBLAS's first call: its deterministic setting, which
+    # phase_compiled's comparisons ask for
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, ROOT)
     import gtos_tpu_torch  # noqa: F401  (fails outside a checkout)
 
@@ -3668,6 +4252,9 @@ def main():
     torch.cuda.empty_cache()
     # the multi-device tier: a mesh of one NCCL rank, the rings emulated
     rows += phase_mesh()
+    torch.cuda.empty_cache()
+    # the compiled step and search: CUDA graphs against eager
+    phase_compiled()
     torch.cuda.empty_cache()
     # the port's bench on its north-star and kernel cells; the kernel
     # rows take its times

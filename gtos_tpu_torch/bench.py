@@ -301,10 +301,14 @@ def attrs_spanned(pairs):
 
 
 @contextlib.contextmanager
-def traced(device):
+def traced(device, warm=None):
     """torch.profiler over the block, every kernel wrapper in its span, and
     every thread's spans (the prefetch thread's host batching) where this
-    torch's profiler can record other threads (`prof.all_threads`)."""
+    torch's profiler can record other threads (`prof.all_threads`).
+    Swapping the wrappers in drops the model's CUDA graphs
+    (utils/graphs.py), so `warm()` runs first, untraced, to capture them
+    again: the traced window replays them, as an untraced run does (and
+    the spans inside a graph fire only at its capture)."""
     from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
@@ -315,9 +319,13 @@ def traced(device):
             profile_all_threads=True))
     except TypeError:       # an older torch: this thread's spans alone
         config = {}
-    with kernels_wrapped(lambda kernel, real: spanned(
-            f"kernel/{kernel}", real)), profile(activities=acts,
-                                                **config) as prof:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(kernels_wrapped(lambda kernel, real: spanned(
+            f"kernel/{kernel}", real)))
+        if warm is not None:
+            warm()
+            sync(device)
+        prof = stack.enter_context(profile(activities=acts, **config))
         prof.all_threads = bool(config)
         pad = device.type == "cuda"     # the window's edge device events
         if pad:
@@ -373,7 +381,8 @@ def read_trace(prof, wall_s, steps, untraced_s, device):
     if not measured:
         out.update(busy_ms_per_step=None, idle_share=None,
                    idle_share_vs_untraced=None, kernels_per_step=None,
-                   top_kernels=None, traced_wall_ms=None)
+                   host_launches_per_step=None, top_kernels=None,
+                   traced_wall_ms=None)
         return out
     work = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
@@ -386,6 +395,9 @@ def read_trace(prof, wall_s, steps, untraced_s, device):
         idle_share=1 - busy / (wall_s * 1e3),
         idle_share_vs_untraced=1 - busy / (untraced_s * 1e3),
         kernels_per_step=sum(e.count for e in work) / steps,
+        host_launches_per_step=sum(
+            e.count for e in prof.key_averages()
+            if e.key in benchlib.LAUNCH_APIS) / steps,
         top_kernels=[dict(ms=e.self_device_time_total / 1e3, count=e.count,
                           name=e.key[:90])
                      for e in sorted(work, key=lambda e:
@@ -394,10 +406,37 @@ def read_trace(prof, wall_s, steps, untraced_s, device):
     return out
 
 
+def graph_info(graphs) -> dict:
+    """A model's CUDA graphs (utils/graphs.py) after a cell: how many were
+    captured and replayed, each capture's host ms, the pool's MiB (null
+    where the steps ran uncaptured)."""
+    if not graphs.enabled:
+        return dict(captured=False)
+    pool = graphs.pool_bytes()
+    return dict(captured=True, graphs=graphs.captures,
+                replays=graphs.replays,
+                capture_ms=sorted(graphs.capture_ms().values()),
+                pool_mib=None if pool is None else pool / 2 ** 20)
+
+
+def epoch_signatures(ld, cfg) -> int:
+    """How many batch signatures (route, every array's shape and dtype)
+    one epoch of the loader makes: the graphs a run over it captures."""
+    from gtos_tpu_torch.models.generator import resolve_attention_impl
+    from gtos_tpu_torch.utils.graphs import signature
+
+    epoch, ld.epoch = getattr(ld, "epoch", None), 0
+    sigs = {(resolve_attention_impl(cfg.attention_impl, a), signature(a))
+            for a in (b.arrays() for b in ld)}
+    if epoch is not None:
+        ld.epoch = epoch
+    return len(sigs)
+
+
 # ---------------------------------------------------------------- kernels
 
 
-def _plain_call(kernel, a):
+def plain_call(kernel, a):
     """A call of the plain version on the wrapper's named arguments `a`."""
     plain = plain_of(kernel)
     if kernel == "B6b":
@@ -487,7 +526,7 @@ def kernel_row(kernel, source, step, run, smi):
     real = wrapper(kernel)
     a = named(kernel, args, kw)
     call = functools.partial(real, *args, **kw)
-    plain = _plain_call(kernel, a)
+    plain = plain_call(kernel, a)
     err, rel = check_kernel(kernel, source, call(), plain())
     bound_ms, bound_by = kernel_bound(kernel, a, step["named"])
     q = a["q"]
@@ -760,12 +799,13 @@ class Bench:
                     // self.repeats for k in KERNEL_WRAPPERS}
         model = trainer.model
         n_traced = min(TRACE_BATCHES, n_head)
-        with traced(self.device) as prof, attrs_spanned([
-                (trainer, "train_step", "train_step"),
-                (model, "forward", "forward"),
-                (model, "encode", "encode"),
-                (trainer.opt, "step", "optimizer"),
-                (trainer, "_prep", "host/pack_copy")]):
+        with traced(self.device, lambda: from_loader(n=n_traced)) as prof, \
+                attrs_spanned([
+                    (trainer, "train_step", "train_step"),
+                    (model, "forward", "forward"),
+                    (model, "encode", "encode"),
+                    (trainer.opt, "update", "optimizer"),
+                    (trainer, "_prep", "host/pack_copy")]):
             t0 = time.perf_counter()
             finite(from_loader(True, n_traced), "in the traced run")
             wall = time.perf_counter() - t0
@@ -785,7 +825,10 @@ class Bench:
                     steps_through_loader=n_head,
                     batches=[shape_of(b) for b in batches],
                     launches_per_pass={k: v for k, v in launches.items()
-                                       if v})
+                                       if v},
+                    step_path=trainer.step_path(batches[0].arrays()),
+                    graphs=graph_info(trainer._step.graphs),
+                    epoch_signatures=epoch_signatures(ld, cfg))
         del trainer, model, on_card
         return dict(metrics=m, traced=trace, smi=smi, info=info)
 
@@ -808,6 +851,7 @@ class Bench:
         """decode_batch of the fullest batch of each of the smallest
         SERVE_BUCKETS node buckets, the tokens the same every repeat; a
         traced run."""
+        from gtos_tpu_torch.infer import decode
         from gtos_tpu_torch.infer.decode import decode_batch
 
         cfg, _ = configs(family, impl, self.widths, self.seed)
@@ -817,11 +861,12 @@ class Bench:
         self.captured[name] = capture(model, plan[0], False, self.device)
         served = model.serving_copy()
         steps = [0]
-        real_step = served.decode_step
+        search = decode.beam_decode_arrays
 
-        def counted(*a, **kw):
-            steps[0] += 1
-            return real_step(*a, **kw)
+        def counted(*a, **kw):      # a search's steps: its final t
+            res = search(*a, **kw)
+            steps[0] += int(res.steps)
+            return res
 
         def serve_all(times=None, batch_steps=None):
             hyps = []
@@ -836,10 +881,12 @@ class Bench:
                     batch_steps.append(steps[0] - s0)
             return hyps
 
-        served.decode_step = counted
+        decode.beam_decode_arrays = counted
         batch_steps = []            # warm-up, and the tokens to repeat
-        ref = serve_all(batch_steps=batch_steps)
-        del served.decode_step
+        try:
+            ref = serve_all(batch_steps=batch_steps)
+        finally:
+            decode.beam_decode_arrays = search
         n_steps = steps[0]
         counts0 = {k: wrapper(k).launches for k in KERNEL_WRAPPERS}
         walls, smi = [], []
@@ -853,9 +900,11 @@ class Bench:
             walls.append(times)
         launches = {k: (wrapper(k).launches - counts0[k]) // self.repeats
                     for k in KERNEL_WRAPPERS}
-        with traced(self.device) as prof, attrs_spanned([
-                (served, "encode", "encode"),
-                (served, "decode_step", "decode_step")]):
+        with traced(self.device, lambda: decode_batch(
+                model, plan[0], tv, beam_size=BEAM,
+                max_steps=MAX_STEPS)) as prof, attrs_spanned([
+                    (served, "encode", "encode"),
+                    (served, "decode_step", "decode_step")]):
             t0 = time.perf_counter()
             with annotate("bench/serve_batch"):
                 decode_batch(model, plan[0], tv, beam_size=BEAM,
@@ -880,7 +929,10 @@ class Bench:
                     decode_steps=batch_steps,
                     launches_per_pass={k: v for k, v in launches.items()
                                        if v},
-                    first_hypothesis=" ".join(ref[0][0][:8]))
+                    first_hypothesis=" ".join(ref[0][0][:8]),
+                    graphs=graph_info(decode.search_graphs(model)),
+                    epoch_signatures=epoch_signatures(
+                        loader(family, impl, False, self.seed), cfg))
         del model, served
         return dict(metrics=m, traced=trace, smi=smi, info=info)
 

@@ -14,6 +14,12 @@ torch key name for name (`token_encoder/char_cnn/conv3/kernel` ->
 The output projection is tied to the decoder embedding in both packages,
 so it has no leaf of its own. The tree is passed as nested dicts of numpy
 arrays (e.g. `jax.device_get(params)`); this module imports no JAX.
+
+`train_state_from_jax` carries a whole JAX TrainState across: the
+parameters, optax's Adam moments (which have the parameters' tree, and
+are re-laid out the same way) and count, and under accumulation
+optax.MultiSteps' running mean and mini-step, onto the port's model and
+`Optimizer`, with the step count.
 """
 
 from __future__ import annotations
@@ -77,3 +83,51 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def _find(tree, fields):
+    """The first node of an optax state (tuples and named tuples) that has
+    all of `fields`, or None."""
+    if all(hasattr(tree, f) for f in fields):
+        return tree
+    if isinstance(tree, tuple):
+        for child in tree:
+            hit = _find(child, fields)
+            if hit is not None:
+                return hit
+    return None
+
+
+def train_state_from_jax(state, model, opt):
+    """A JAX TrainState (`jax.device_get` of gtos_tpu.train.TrainState:
+    numpy leaves, optax's state as its named tuples) loaded into the
+    port's `model` (a Generator) and `opt` (train/optim.py Optimizer):
+    parameters; Adam's mu, nu and count; with accumulation MultiSteps'
+    acc_grads and mini_step. Returns the port's TrainState with the JAX
+    step (a Trainer resuming from it sets `Trainer.step` to it). The JAX
+    state's PRNG key has no torch counterpart: the dropout generator is
+    left as it is. Raises when the two optimizers' accumulation differs."""
+    from gtos_tpu_torch.train.trainer import init_state
+
+    model.load_state_dict(state_dict_from_flax(state.params))
+    names = [n for n, _ in model.named_parameters()]
+
+    def by_name(tree):
+        sd = state_dict_from_flax(tree)
+        return [sd[n] for n in names]
+
+    adam = _find(state.opt_state, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the JAX state")
+    multi = _find(state.opt_state, ("mini_step", "acc_grads"))
+    if (multi is not None) != ("mini_step" in opt.state):
+        raise ValueError("the JAX optimizer and the port's differ in "
+                         "accumulation (optax.MultiSteps vs accum_steps)")
+    new = {"count": torch.tensor(int(np.asarray(adam.count)),
+                                 dtype=torch.int32),
+           "mu": by_name(adam.mu), "nu": by_name(adam.nu)}
+    if multi is not None:
+        new.update(mini_step=int(np.asarray(multi.mini_step)),
+                   acc=by_name(multi.acc_grads))
+    opt.load_state_dict(new)
+    return init_state(model, opt, step=int(np.asarray(state.step)))

@@ -1,17 +1,30 @@
 """Batched beam search.
 
-Port of gtos_tpu/infer/beam.py. The JAX package runs the search as one
-`lax.while_loop`; here it is a Python loop with the same state and the
-same steps:
+Port of gtos_tpu/infer/beam.py, whose search is one `lax.while_loop`
+under `jax.jit`. Here the loop's state is one set of tensors that each
+step rewrites in place (`Search`), so that one CUDA graph of the step
+(utils/graphs.py) serves every step of a search and every search of the
+same shapes:
 
   * beams are flattened into the batch dimension (B*K), so every decode
     step is one batched forward;
   * the caches are reordered by the previous step's parents at the START
-    of the next step (only the per-beam leaves, via reorder_fn);
+    of the next step (only the per-beam leaves, via reorder_fn). The
+    search keeps two sets of cache tensors and each step gathers from one
+    into the other, by the step's parity, so that no step copies them
+    back (a CUDA graph per parity);
   * finished hypotheses live in a fixed-size pool merged by top-k each
     step, with GNMT length normalization;
-  * the loop exits early when no alive beam can still beat the worst
-    finished score (checked on the host once per step).
+  * the position `t` is a tensor on the card, and so is the JAX loop's
+    `cond` (t < max_steps and some alive beam can still beat the worst
+    finished score): each step computes it, and a step taken once it is
+    false changes no state buffer (`torch.where` on each, `t` included),
+    so steps replayed past the end leave tokens, scores, lengths and the
+    final `t` as the JAX loop leaves them. The host reads the flag LAG
+    steps late, through pinned memory and an event on the card, so the
+    card always has steps queued (at most LAG - 1 of them past the end).
+    The CPU runs the same loop; its copy of the flag is synchronous, so
+    there it is current when read.
 
 Top-k keeps `jax.lax.top_k`'s order on ties (lower index first) by a
 stable descending sort; dead beams tie at -1e9, so this matters for token
@@ -22,28 +35,33 @@ back as UNK.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from gtos_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e9
+# steps the host reads the end-of-search flag behind the card
+LAG = 3
 
 
 @dataclasses.dataclass
 class BeamResult:
     """seqs: [B, K, Tmax+1] ext-vocab ids (position 0 is STR; END included);
     scores: [B, K] length-normalized log-probs, best first;
-    lengths: [B, K] number of emitted tokens incl. END."""
+    lengths: [B, K] number of emitted tokens incl. END;
+    steps: the final t, the number of steps the search took (0-d)."""
 
     seqs: torch.Tensor
     scores: torch.Tensor
     lengths: torch.Tensor
+    steps: Optional[torch.Tensor] = None
 
 
-def _length_penalty(length: float, alpha: float) -> float:
-    # GNMT-style normalization ((5 + len) / 6)^alpha; alpha=0 -> pure logp.
+def _length_penalty(length: torch.Tensor, alpha: float) -> torch.Tensor:
+    # GNMT-style normalization ((5 + len) / 6)^alpha in f32, as the JAX
+    # package computes it; alpha=0 -> pure logp.
     return ((5.0 + length) / 6.0) ** alpha
 
 
@@ -59,16 +77,189 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.expand(*idx.shape[:2], *x.shape[2:]))
 
 
-def _gather_all(caches, flat_parent):
-    if isinstance(caches, dict):
-        return {k: _gather_all(v, flat_parent) for k, v in caches.items()}
-    if isinstance(caches, (list, tuple)):
-        return type(caches)(_gather_all(v, flat_parent) for v in caches)
-    return caches[flat_parent]
+def _gather_all(caches, flat_parent, out):
+    for src, dst in zip(_leaves(caches), _leaves(out)):
+        torch.index_select(src, 0, flat_parent, out=dst)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def write_back(static, new):
+    """Copy each leaf of `new` into the same leaf of `static` (the
+    search's own cache tensors), skipping leaves that are already it."""
+    for a, b in zip(_leaves(static), _leaves(new)):
+        if b is not a:
+            a.copy_(b)
+
+
+class Search:
+    """The state of one batched beam search as tensors on `device` that
+    each step rewrites in place: t, alive_logp, alive_seq, fin_seq,
+    fin_scores, fin_len, parent, the flag `go` (the JAX loop's cond for
+    the next step) and its host copy `flag` (pinned on the card).
+    `caches` (two sets of the caller's cache tensors with leading dim B*K,
+    rewritten in place; one set, twice, for K = 1), `step_fn` and
+    `reorder_fn` are set before the first step. step_fn(tokens [B*K]
+    int64, pos (0-d int64), caches) -> (log_probs [B*K, ext_vocab] f32,
+    caches); reorder_fn(caches, flat_parent [B*K] int64, out) writes the
+    reordered per-beam leaves of `caches` into `out` (default: every
+    leaf; leaves the two sets share are left as they are)."""
+
+    def __init__(self, batch_size: int, beam_size: int, max_steps: int,
+                 ext_vocab: int, token_vocab: int, str_id: int, end_id: int,
+                 unk_id: int, alpha: float = 0.6, device=None):
+        self.dev = dev = torch.device(device)
+        self.B, self.K, self.V, self.Tmax = (batch_size, beam_size,
+                                             ext_vocab, max_steps)
+        self.token_vocab, self.str_id, self.end_id, self.unk_id = (
+            token_vocab, str_id, end_id, unk_id)
+        self.alpha = alpha
+        B, K, T = batch_size, beam_size, max_steps
+        i64, f32 = torch.int64, torch.float32
+        self.t = torch.zeros((), dtype=i64, device=dev)
+        self.alive_seq = torch.zeros(B, K, T + 1, dtype=i64, device=dev)
+        self.alive_logp = torch.zeros(B, K, dtype=f32, device=dev)
+        self.fin_seq = torch.zeros(B, K, T + 1, dtype=i64, device=dev)
+        self.fin_scores = torch.zeros(B, K, dtype=f32, device=dev)
+        self.fin_len = torch.zeros(B, K, dtype=i64, device=dev)
+        self.parent = torch.zeros(B, K, dtype=i64, device=dev)
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.flag = torch.zeros((), dtype=torch.bool,
+                                pin_memory=dev.type == "cuda")
+        self.base = (torch.arange(B, device=dev) * K)[:, None]
+        self.beams = torch.arange(K, device=dev).repeat(B, 1)
+        self.best_bound = _length_penalty(
+            torch.tensor(float(T), dtype=f32, device=dev), alpha)
+        self.caches = None
+        self.step_fn = self.reorder_fn = None
+
+    def reset(self):
+        """The state before the first step, written in place."""
+        self.t.zero_()
+        self.alive_seq.zero_()
+        self.alive_seq[:, :, 0] = self.str_id
+        # only beam 0 is live at t=0 (all beams hold identical state)
+        self.alive_logp.fill_(NEG_INF)
+        self.alive_logp[:, 0] = 0.0
+        self.fin_seq.zero_()
+        self.fin_scores.fill_(NEG_INF)
+        self.fin_len.zero_()
+        self.parent.copy_(self.beams)
+        self.go.copy_(self._cond())
+
+    def _cond(self):
+        """The JAX loop's cond: t < max_steps and the best score an alive
+        beam could still reach (no further logp decrease, maximal length
+        normalization at alpha >= 0) beats the worst finished one."""
+        best_alive = self.alive_logp.max(-1).values / self.best_bound
+        improving = (best_alive > self.fin_scores.min(-1).values).any()
+        return (self.t < self.Tmax) & improving
+
+    def parity(self, s: int) -> int:
+        """Which cache set step s reads (K = 1 has one set)."""
+        return s % 2 if self.K > 1 else 0
+
+    def step(self, parity: int = 0):
+        """One step of the JAX loop's body where `go` holds, else a step
+        that leaves every state buffer as it is; then `go` for the next
+        step. It reads cache set `parity` and, when K > 1, leaves the
+        caches in the other set."""
+        B, K, V, T = self.B, self.K, self.V, self.Tmax
+        t, caches = self.t, self.caches[parity]
+        if K > 1:
+            # apply the PREVIOUS step's re-ranking to the caches now
+            out = self.caches[1 - parity]
+            self.reorder_fn(caches, (self.base + self.parent).reshape(-1),
+                            out)
+            caches = out
+        static = caches
+        tok_t = self.alive_seq.index_select(2, t.reshape(1)).reshape(B * K)
+        tok_t = torch.where(tok_t >= self.token_vocab, self.unk_id, tok_t)
+        # a step past the end (t == T) is discarded: its position only
+        # has to lie inside the caches
+        logp, caches = self.step_fn(tok_t, t.clamp_max(T - 1), caches)
+        write_back(static, caches)
+        cand = self.alive_logp[:, :, None] + logp.reshape(B, K, V).float()
+        topv, topi = _top_k(cand.reshape(B, K * V), 2 * K)
+        cand_parent = topi // V
+        tok = topi % V
+        is_end = tok == self.end_id
+
+        # candidate sequences [B, 2K, Tmax+1]
+        seqs = _take(self.alive_seq, cand_parent)
+        seqs.index_copy_(2, (t + 1).clamp_max(T).reshape(1), tok[..., None])
+
+        # ---- merge finished candidates into the pool ----
+        norm = topv / _length_penalty((t + 1).float(), self.alpha)
+        all_scores = torch.cat(
+            [self.fin_scores, torch.where(is_end, norm, NEG_INF)], dim=1)
+        fin_scores, fi = _top_k(all_scores, K)
+        fin_seq = _take(torch.cat([self.fin_seq, seqs], dim=1), fi)
+        fin_len = torch.gather(torch.cat(
+            [self.fin_len, (t + 1).expand(B, 2 * K)], dim=1), 1, fi)
+
+        # ---- keep top-K non-finished as the new alive set ----
+        alive_logp, ai = _top_k(torch.where(is_end, NEG_INF, topv), K)
+        alive_seq = _take(seqs, ai)
+        parent = torch.gather(cand_parent, 1, ai)  # applied next step
+        go = self.go
+        for buf, new in ((self.fin_scores, fin_scores),
+                         (self.fin_seq, fin_seq), (self.fin_len, fin_len),
+                         (self.alive_logp, alive_logp),
+                         (self.alive_seq, alive_seq), (self.parent, parent),
+                         (self.t, t + 1)):
+            buf.copy_(torch.where(go, new, buf))
+        go.copy_(go & self._cond())
+
+    def result(self) -> BeamResult:
+        """The search's answer, from its state (new tensors)."""
+        t = self.t
+        # fall back to alive beams where nothing finished
+        alive_norm = self.alive_logp / _length_penalty(t.float(), self.alpha)
+        no_fin = self.fin_scores <= NEG_INF / 2
+        final_scores = torch.where(no_fin, alive_norm, self.fin_scores)
+        final_seq = torch.where(no_fin[:, :, None], self.alive_seq,
+                                self.fin_seq)
+        final_len = torch.where(no_fin, t, self.fin_len)
+        order = torch.argsort(-final_scores, dim=1, stable=True)
+        return BeamResult(seqs=_take(final_seq, order),
+                          scores=torch.gather(final_scores, 1, order),
+                          lengths=torch.gather(final_len, 1, order),
+                          steps=t.clone())
+
+    def run(self, step: Callable[[int], Any]):
+        """Call `step(parity)` (this search's step, or a replay of its
+        graph for that parity) until the host learns that the search has
+        ended, or max_steps times. The host reads the flag LAG steps
+        behind (module docstring): the first LAG steps always run."""
+        cuda = self.dev.type == "cuda"
+        lag = LAG
+        done = [None] * lag     # per ring slot: the step's event
+        for s in range(self.Tmax):
+            if s >= lag:
+                ev = done[s % lag]
+                if ev is not None:
+                    ev.synchronize()
+                # the flag was copied by step s - lag or a later one: it
+                # only ever turns false
+                if not bool(self.flag):
+                    break
+            step(self.parity(s))
+            self.flag.copy_(self.go, non_blocking=cuda)
+            if cuda:
+                done[s % lag] = torch.cuda.Event()
+                done[s % lag].record()
 
 
 def beam_search(
-    step_fn: Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]],
+    step_fn: Callable[[torch.Tensor, torch.Tensor, Any],
+                      Tuple[torch.Tensor, Any]],
     init_caches: Any,
     batch_size: int,
     beam_size: int,
@@ -79,89 +270,41 @@ def beam_search(
     end_id: int,
     unk_id: int,
     alpha: float = 0.6,
-    reorder_fn: Callable[[Any, torch.Tensor], Any] | None = None,
+    reorder_fn: Callable[[Any, torch.Tensor, Any], None] | None = None,
     device=None,
 ) -> BeamResult:
-    """Run batched beam search on `device` (the CUDA card unless given).
+    """Run batched beam search on `device` (the CUDA card unless given),
+    uncaptured (infer/decode.py runs the same `Search` with its step in a
+    CUDA graph).
 
-    step_fn(tokens [B*K] int64, pos int, caches) ->
+    step_fn(tokens [B*K] int64, pos 0-d int64 tensor, caches) ->
         (log_probs [B*K, ext_vocab] f32, new_caches)
-    init_caches: caches with leading dim B*K (memory tiled per beam).
-    reorder_fn(caches, flat_parent [B*K] int64) -> caches: permutes the
-    per-beam state when beams are re-ranked; defaults to every leaf.
-    Callers whose caches hold beam-invariant leaves (the decoder's memory
-    K/V) should skip them."""
+    init_caches: caches with leading dim B*K (memory tiled per beam); the
+    search keeps copies (two sets when K > 1) and writes each step's
+    caches into them.
+    reorder_fn(caches, flat_parent [B*K] int64, out): writes the per-beam
+    state permuted for the re-ranked beams into the other set `out`;
+    defaults to every leaf. Callers whose caches hold beam-invariant
+    leaves (the decoder's memory K/V) should skip them and share them
+    between the sets."""
     dev = resolve_device(device)
-    B, K, V = batch_size, beam_size, ext_vocab
-    Tmax = max_steps
-    i64 = torch.int64
+    search = Search(batch_size, beam_size, max_steps, ext_vocab,
+                    token_vocab, str_id, end_id, unk_id, alpha, dev)
+    first = _clone(init_caches)
+    search.caches = [first, _clone(init_caches) if beam_size > 1 else first]
+    search.step_fn = step_fn
+    search.reorder_fn = reorder_fn or _gather_all
+    search.reset()
+    search.run(search.step)
+    return search.result()
 
-    alive_seq = torch.zeros(B, K, Tmax + 1, dtype=i64, device=dev)
-    alive_seq[:, :, 0] = str_id
-    # only beam 0 is live at t=0 (all beams hold identical state)
-    alive_logp = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
-    alive_logp[:, 0] = 0.0
-    fin_seq = torch.zeros(B, K, Tmax + 1, dtype=i64, device=dev)
-    fin_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
-    fin_len = torch.zeros(B, K, dtype=i64, device=dev)
-    if reorder_fn is None:
-        reorder_fn = _gather_all
 
-    caches = init_caches
-    parent = torch.arange(K, device=dev).repeat(B, 1)
-    base = (torch.arange(B, device=dev) * K)[:, None]
-    best_bound = _length_penalty(float(Tmax), alpha)
-    t = 0
-    while t < Tmax:
-        # best possible score any alive beam could still reach (no further
-        # logp decrease, maximal length normalization at alpha >= 0)
-        best_alive = alive_logp.max(-1).values / best_bound
-        if not bool((best_alive > fin_scores.min(-1).values).any()):
-            break
-        if K > 1:
-            # apply the PREVIOUS step's re-ranking to the caches now
-            caches = reorder_fn(caches, (base + parent).reshape(-1))
-
-        tok_t = alive_seq[:, :, t].reshape(B * K)
-        tok_t = torch.where(tok_t >= token_vocab, unk_id, tok_t)
-        logp, caches = step_fn(tok_t, t, caches)
-        cand = alive_logp[:, :, None] + logp.reshape(B, K, V).float()
-        topv, topi = _top_k(cand.reshape(B, K * V), 2 * K)
-        cand_parent = topi // V
-        tok = topi % V
-        is_end = tok == end_id
-
-        # candidate sequences [B, 2K, Tmax+1]
-        seqs = _take(alive_seq, cand_parent)
-        seqs[:, :, t + 1] = tok
-
-        # ---- merge finished candidates into the pool ----
-        norm = topv / _length_penalty(float(t + 1), alpha)
-        all_scores = torch.cat(
-            [fin_scores, torch.where(is_end, norm, NEG_INF)], dim=1)
-        fin_scores, fi = _top_k(all_scores, K)
-        fin_seq = _take(torch.cat([fin_seq, seqs], dim=1), fi)
-        fin_len = torch.gather(torch.cat(
-            [fin_len, torch.full((B, 2 * K), t + 1, dtype=i64, device=dev)],
-            dim=1), 1, fi)
-
-        # ---- keep top-K non-finished as the new alive set ----
-        alive_logp, ai = _top_k(torch.where(is_end, NEG_INF, topv), K)
-        alive_seq = _take(seqs, ai)
-        parent = torch.gather(cand_parent, 1, ai)  # applied next step
-        t += 1
-
-    # fall back to alive beams where nothing finished
-    alive_norm = alive_logp / _length_penalty(float(t), alpha)
-    no_fin = fin_scores <= NEG_INF / 2
-    final_scores = torch.where(no_fin, alive_norm, fin_scores)
-    final_seq = torch.where(no_fin[:, :, None], alive_seq, fin_seq)
-    final_len = torch.where(no_fin, t, fin_len)
-
-    order = torch.argsort(-final_scores, dim=1, stable=True)
-    return BeamResult(seqs=_take(final_seq, order),
-                      scores=torch.gather(final_scores, 1, order),
-                      lengths=torch.gather(final_len, 1, order))
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
 
 
 def greedy_search(step_fn, init_caches, batch_size, max_steps, ext_vocab,

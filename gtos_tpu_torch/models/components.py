@@ -93,13 +93,15 @@ class Dropout(nn.Module):
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def sinusoidal_positions(length: int, dim: int,
-                         dtype=torch.float32) -> torch.Tensor:
-    """[length, dim] sinusoidal embeddings (first half sin, second cos)."""
-    pos = torch.arange(length, dtype=torch.float32)[:, None]
+def sinusoidal_positions(length: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """[length, dim] sinusoidal embeddings (first half sin, second cos),
+    computed on `device` (default the CPU): no copy from the host, so a
+    captured step may build them."""
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.arange(length, **f32)[:, None]
     half = dim // 2
-    freqs = torch.exp(-math.log(10000.0)
-                      * torch.arange(half, dtype=torch.float32) / half)
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, **f32) / half)
     ang = pos * freqs[None, :]
     emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     if dim % 2:
@@ -178,20 +180,30 @@ class MultiheadAttention(nn.Module):
         out, probs = attend(q, k, v, mask)
         return self.out_proj(merge_heads(out)), probs
 
-    def step_self(self, x_t, cache_k, cache_v, pos: int):
+    def step_self(self, x_t, cache_k, cache_v, pos):
         """One causal self-attention step.
 
         x_t: [B, 1, D]; cache_k/v: [B, H, Tmax, Dh] (positions < pos
-        valid). Writes position `pos` of the caches IN PLACE (the JAX
-        package returns updated copies) and returns (out [B,1,D], cache_k,
-        cache_v)."""
+        valid); pos: a 0-d int64 tensor on x_t's device (an int is taken
+        too), so that one captured step serves every position. Writes
+        position `pos` of the caches IN PLACE (the JAX package returns
+        updated copies) and returns (out [B,1,D], cache_k, cache_v)."""
+        pos = step_position(pos, x_t.device)
+        at = pos.reshape(1)
         q = split_heads(self.q_proj(x_t), self.heads)      # [B,H,1,Dh]
-        cache_k[:, :, pos] = split_heads(self.k_proj(x_t), self.heads)[:, :, 0]
-        cache_v[:, :, pos] = split_heads(self.v_proj(x_t), self.heads)[:, :, 0]
+        cache_k.index_copy_(2, at, split_heads(self.k_proj(x_t), self.heads))
+        cache_v.index_copy_(2, at, split_heads(self.v_proj(x_t), self.heads))
         Tmax = cache_k.shape[2]
         valid = torch.arange(Tmax, device=x_t.device) <= pos   # [Tmax]
         out, _ = attend(q, cache_k, cache_v, valid)
         return self.out_proj(merge_heads(out)), cache_k, cache_v
+
+
+def step_position(pos, device) -> torch.Tensor:
+    """A decode step's position as a 0-d int64 tensor on `device`."""
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.tensor(pos, dtype=torch.int64, device=device)
 
 
 class FeedForward(nn.Module):

@@ -15,7 +15,7 @@ from torch import nn
 
 from gtos_tpu_torch.models.components import (
     Dropout, Embedding, FeedForward, MultiheadAttention, PostLNResidual,
-    causal_mask, sinusoidal_positions,
+    causal_mask, sinusoidal_positions, step_position,
 )
 
 
@@ -51,9 +51,10 @@ class DecoderLayer(nn.Module):
         return dict(self_k=mem.new_zeros(shape), self_v=mem.new_zeros(shape),
                     mem_k=mem_k, mem_v=mem_v)
 
-    def step(self, x_t, cache, pos: int, mem_mask):
-        """x_t: [B,1,D]. Returns (x_t, cache, cross_probs [B,H,1,N]); the
-        self-KV buffers of `cache` are written in place."""
+    def step(self, x_t, cache, pos, mem_mask):
+        """x_t: [B,1,D]; pos: a 0-d int64 tensor on the card (or an int).
+        Returns (x_t, cache, cross_probs [B,H,1,N]); the self-KV buffers
+        of `cache` are written in place."""
         sa, ck, cv = self.self_attn.step_self(
             x_t, cache["self_k"], cache["self_v"], pos)
         x_t = self.self_res(x_t, sa)
@@ -116,10 +117,14 @@ class Decoder(nn.Module):
         Tmax = self.max_len if horizon is None else min(horizon, self.max_len)
         return [blk.init_cache(B, Tmax, mem) for blk in self.blocks()]
 
-    def step(self, token_t, pos: int, caches, mem_mask):
-        """token_t: [B] int. Returns (h_t [B,D], caches, align [B,H,N])."""
+    def step(self, token_t, pos, caches, mem_mask):
+        """token_t: [B] int; pos: the step's position, a 0-d int64 tensor
+        on the tokens' device (or an int): read on the card, so one
+        captured step serves every position. Returns (h_t [B,D], caches,
+        align [B,H,N])."""
+        pos = step_position(pos, token_t.device)
         x = self.embed_tokens(token_t[:, None])
-        x = x + self.pos_table[pos].to(x.dtype)
+        x = x + self.pos_table.index_select(0, pos.reshape(1)).to(x.dtype)
         new_caches, align = [], None
         for blk, cache in zip(self.blocks(), caches):
             x, cache, align = blk.step(x, cache, pos, mem_mask)

@@ -80,8 +80,9 @@ class TokenEncoder(nn.Module):
         emb = self.embed(ids)
         x = self.merge(torch.cat([emb, self.char_cnn(chars)], dim=-1))
         if self.add_positions:
-            pos = sinusoidal_positions(ids.shape[1], x.shape[-1])
-            x = x + pos[None].to(x.device, x.dtype)
+            pos = sinusoidal_positions(ids.shape[1], x.shape[-1],
+                                       device=x.device)
+            x = x + pos[None].to(x.dtype)
         return self.drop(self.ln(x).to(emb.dtype))
 
 

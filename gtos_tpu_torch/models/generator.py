@@ -149,11 +149,21 @@ class Generator(nn.Module):
             if isinstance(mod, Dropout):
                 mod.rng = self.dropout_rng
         self._serving = [None, None]   # (parameter versions, rounded copy)
+        self._updates = 0
+        # the model's CUDA graphs (utils/graphs.py for_model) and its
+        # searches' tensors by signature (infer/decode.py)
+        self.graphs, self.searches = None, {}
         self.eval()
 
     @property
     def device(self) -> torch.device:
         return self.decoder.embed.weight.device
+
+    def mark_updated(self):
+        """Note that the parameters changed where autograd's version
+        counters do not see it (a CUDA graph's replay of an optimizer
+        step), so that `serving_copy` rounds them anew."""
+        self._updates += 1
 
     def serving_copy(self) -> "Generator":
         """The model for search: itself when it computes in f32, else a
@@ -162,13 +172,17 @@ class Generator(nn.Module):
         and its Dense/Conv1d/Embedding layers turned into the plain torch
         layers they extend, so that no layer casts a weight or checks a
         type per decode step. The copy is kept until a parameter changes
-        in place (an optimizer step, load_state_dict)."""
+        in place (an optimizer step, load_state_dict, a replayed train
+        step: `mark_updated`); the search's CUDA graphs belong to the copy
+        and go with it."""
         if self.dtype == torch.float32:
             return self
-        key = tuple(p._version for p in self.parameters())
+        key = (self._updates, tuple(p._version for p in self.parameters()))
         if self._serving[0] != key:
             self._serving[1] = None
-            memo = {id(self.dropout_rng): None}   # not needed in eval
+            memo = {id(self.dropout_rng): None,   # not needed in eval
+                    id(self.graphs): None,         # the copy's are its own
+                    id(self.searches): {}}
             for mod in self.modules():   # tensor parallel groups: shared
                 for group in (getattr(mod, "tp_group", None),
                               (getattr(mod, "tp", None) or (0, None))[1]):
@@ -298,10 +312,11 @@ class Generator(nn.Module):
         """horizon: decode-step budget; sizes the self-KV buffers."""
         return self.decoder.init_cache(mem.shape[0], mem, horizon=horizon)
 
-    def decode_step(self, token_t, pos: int, caches, concept_mask, cp_seq,
+    def decode_step(self, token_t, pos, caches, concept_mask, cp_seq,
                     copy_mask):
         """One decode step. token_t: [B] previous tokens (token-vocab
-        ids). Returns (log_probs [B, ext_vocab] f32, caches)."""
+        ids); pos: its position, a 0-d int64 tensor on the card (or an
+        int). Returns (log_probs [B, ext_vocab] f32, caches)."""
         h, caches, align = self.decoder.step(token_t, pos, caches,
                                              concept_mask)
         return self.ext_log_probs(h, align, cp_seq, copy_mask), caches

@@ -125,6 +125,11 @@ def make_mesh(dp: Optional[int] = None, mp: int = 1, graph: int = 1,
             g = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis] = g
+    if dist.get_backend() == "gloo":
+        # gloo connects a new group's pairs as it makes the group, and one
+        # side of a pair can finish first: a rank that went on and exited
+        # would close pairs that its peers are still connecting
+        dist.barrier()
     coords = dict(zip(AXES, rank_coords(rank, dp, mp, graph)))
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())

@@ -68,15 +68,27 @@ class Optimizer:
         if cfg.accum_steps > 1:
             self.state.update(mini_step=0, acc=zeros())
 
-    @torch.no_grad()
+    @property
+    def phase(self) -> int:
+        """The accumulation phase of the next step: the mini-step among
+        accum_steps (0 without accumulation)."""
+        return self.state.get("mini_step", 0)
+
     def step(self, grads: List[torch.Tensor]):
+        self.update(grads, self.phase)
+        self.advance()
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], phase: int):
+        """The device side of a step in accumulation phase `phase`: no
+        host state is read or written, so a CUDA graph captured for one
+        phase replays every step of that phase (the train step's
+        signature holds the phase)."""
         cfg, st = self.cfg, self.state
         if cfg.accum_steps > 1:
-            n = st["mini_step"]
             torch._foreach_add_(st["acc"], torch._foreach_div(
-                torch._foreach_sub(grads, st["acc"]), float(n + 1)))
-            st["mini_step"] = (n + 1) % cfg.accum_steps
-            if st["mini_step"]:
+                torch._foreach_sub(grads, st["acc"]), float(phase + 1)))
+            if phase + 1 < cfg.accum_steps:
                 return
             grads = [a.clone() for a in st["acc"]]
             torch._foreach_zero_(st["acc"])
@@ -101,6 +113,12 @@ class Optimizer:
             torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(self.params, upd)
+
+    def advance(self):
+        """The host side of a step: the next accumulation phase."""
+        if self.cfg.accum_steps > 1:
+            self.state["mini_step"] = ((self.state["mini_step"] + 1)
+                                       % self.cfg.accum_steps)
 
     def state_dict(self) -> Dict[str, object]:
         return self.state

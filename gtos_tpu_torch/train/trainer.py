@@ -1,23 +1,36 @@
 """Training driver: train step, epoch loop, eval, checkpointing.
 
 Port of gtos_tpu/train/trainer.py: batchify -> forward -> backward ->
-clip -> scheduled Adam step -> periodic dev eval and checkpoint. PyTorch
-runs eagerly, so a step is the model's loss, its gradients by autograd
-(on the card the encoder attention's backward is kernel B2, B4 or B6) and the
-optimizer's foreach update; the host queues work for the card and reads a
-loss back only `max_inflight` steps later. Batches are packed and copied to the
-device `prefetch` ahead in a background thread. A non-finite loss stops
-training with a resumable checkpoint on disk.
+clip -> scheduled Adam step -> periodic dev eval and checkpoint. A step
+is the model's loss, its gradients by autograd (on the card the encoder
+attention's backward is kernel B2, B4 or B6) and the optimizer's foreach
+update. The JAX package compiles that whole update into one donated
+program per batch signature (`make_train_step`); the port captures it
+into one CUDA graph per signature (utils/graphs.py): the route, every
+array's shape and the accumulation phase. `make_train_step` and
+`make_eval_step` keep the JAX names: the step copies the batch into the
+signature's static inputs and replays forward, `autograd.grad`, the
+optimizer's update and the metrics (loss, acc, n_tok, grad_norm) into
+static outputs, reading nothing back. `TrainState` is the state such a
+step updates in place. On the CPU, or with compiled=False, the same step
+functions run uncaptured; routes that cannot be captured run uncaptured
+on the card and say why (`EAGER_TRAIN_ROUTES`). The host queues work for
+the card and reads a loss back only `max_inflight` steps later. Batches
+are packed and copied to the device `prefetch` ahead in a background
+thread. A non-finite loss stops training with a resumable checkpoint on
+disk.
 
 Under attention_impl "auto" the model resolves each batch's route itself
 (Generator.forward): one model, one parameter set and one optimizer state
-for every route, and no per-route step cache, since nothing is compiled.
+for every route; the step cache holds each route's graphs, as the JAX
+Trainer keeps a step per resolved route.
 
 With a mesh (parallel/mesh.py; this process is one rank of it) the model
 is split for tensor parallelism before the optimizer is built, each batch
 goes through shard_arrays to this rank's part, and the step is
 parallel/train.py's (gradients summed over the data group; evaluation's
-metrics global). Each rank's dropout generator is seeded from (seed,
+metrics global), which runs uncaptured (`EAGER_MESH`). Each rank's
+dropout generator is seeded from (seed,
 data rank): the ranks of one data rank draw the same masks, as their
 activations are the same, and data rank 0 draws the single-device
 run's (the JAX package draws one mask over the global batch, which no
@@ -31,19 +44,33 @@ view of its directory.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from collections import deque
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from gtos_tpu_torch.data.prefetch import prefetch_iter
-from gtos_tpu_torch.models.generator import Generator, batch_to_device
+from gtos_tpu_torch.models.generator import (
+    Generator, batch_to_device, resolve_attention_impl,
+)
 from gtos_tpu_torch.train.optim import Optimizer, global_norm
+from gtos_tpu_torch.utils import graphs
 from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 from gtos_tpu_torch.utils.device import resolve_device
 from gtos_tpu_torch.utils.profiling import StepTimer
+
+# routes whose train step runs uncaptured on the card, and why (ROADMAP A11)
+EAGER_TRAIN_ROUTES = {
+    "block_sparse": "its backward plan (ops/block_sparse_attention_bwd.py "
+                    "backward_plan) reads the card twice, and its pair "
+                    "count E, known only from the data, sets B6's grids",
+}
+EAGER_MESH = ("the mesh step (parallel/train.py) runs uncaptured: its "
+              "collectives are not captured")
+METRICS = ("loss", "acc", "n_tok", "grad_norm")
 
 
 def _batch_edges_count(arrays) -> int:
@@ -55,6 +82,121 @@ def _batch_edges_count(arrays) -> int:
     return b * n * n
 
 
+@dataclasses.dataclass
+class TrainState:
+    """The JAX package's TrainState as the port holds it: `params` (the
+    model's parameters, in `model.parameters()` order) and `opt_state`
+    (`Optimizer.state`: count, mu, nu; acc and mini_step under
+    accumulation) are the tensors a step updates in place, as the JAX
+    step donates its buffers; `step` counts steps; `rng` is the dropout
+    generator."""
+
+    params: List[torch.Tensor]
+    opt_state: Dict[str, object]
+    step: int
+    rng: torch.Generator
+
+
+def init_state(model: Generator, opt: Optimizer, step: int = 0
+               ) -> TrainState:
+    return TrainState(params=opt.params, opt_state=opt.state, step=step,
+                      rng=model.dropout_rng)
+
+
+class _TrainStep:
+    """One optimizer step of `model` with `opt`, captured per signature
+    on the card (module docstring). Called with a batch on the device,
+    returns its metrics as device scalars, unread: copies of the graph's
+    outputs, so they outlive the next replay."""
+
+    def __init__(self, model: Generator, opt: Optimizer,
+                 compiled: Optional[bool] = None):
+        self.model, self.opt = model, opt
+        self.graphs = graphs.for_model(model, compiled)
+
+    def route(self, arrays) -> str:
+        return resolve_attention_impl(self.model.cfg.attention_impl, arrays)
+
+    def captured(self, arrays) -> bool:
+        """Whether this batch's step replays a graph."""
+        return (self.graphs.enabled
+                and self.route(arrays) not in EAGER_TRAIN_ROUTES)
+
+    def _update(self, arrays, phase):
+        model, params = self.model, self.opt.params
+        model.train()
+        loss, metrics = model(arrays)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        self.opt.update(grads, phase)
+        return torch.stack([metrics["loss"].detach(), metrics["acc"].detach(),
+                            metrics["n_tok"].detach().float(),
+                            global_norm(grads)])
+
+    def __call__(self, arrays) -> Dict[str, torch.Tensor]:
+        phase = self.opt.phase
+        self.model.train()
+        if self.captured(arrays):
+            key = ("train", self.route(arrays), graphs.signature(arrays),
+                   phase)
+            static = self.graphs.inputs(key, arrays)
+            out = self.graphs.run(key, lambda: self._update(static, phase),
+                                  generators=(self.model.dropout_rng,))
+            out = out.clone()
+        else:
+            out = self._update(arrays, phase)
+        self.opt.advance()
+        self.model.mark_updated()
+        return dict(zip(METRICS, out.unbind()))
+
+
+def make_train_step(model: Generator, opt: Optimizer,
+                    compiled: Optional[bool] = None) -> Callable:
+    """The JAX package's make_train_step: train_step(state, arrays) ->
+    (state, metrics), one CUDA graph per batch signature on the card
+    (compiled=False: uncaptured there too; the CPU: uncaptured). `state`
+    is `init_state(model, opt)` or `train_state_from_jax(...)`: its
+    tensors are updated in place; metrics are device scalars."""
+    step = _TrainStep(model, opt, compiled)
+
+    def train_step(state: TrainState, arrays: Dict[str, torch.Tensor]):
+        if state.opt_state is not opt.state or state.rng is not \
+                model.dropout_rng:
+            raise ValueError("the state is not this model's and "
+                             "optimizer's (init_state)")
+        metrics = step(arrays)
+        return dataclasses.replace(state, step=state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(model: Generator, compiled: Optional[bool] = None
+                   ) -> Callable:
+    """The JAX package's make_eval_step: eval_step(arrays) -> metrics
+    (loss, acc, n_tok; device scalars, copies of the graph's outputs) of
+    the model in eval mode, one CUDA graph per batch signature on the
+    card."""
+    cache = graphs.for_model(model, compiled)
+
+    def run(arrays):
+        with torch.no_grad():
+            m = model(arrays)[1]
+            return torch.stack([m["loss"], m["acc"], m["n_tok"].float()])
+
+    def eval_step(arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        # every call: a replay runs no Python, and the calls that do run
+        # (a new signature's first) must not draw dropout masks
+        model.eval()
+        route = resolve_attention_impl(model.cfg.attention_impl, arrays)
+        key = ("eval", route, graphs.signature(arrays))
+        static = cache.inputs(key, arrays)
+        return dict(zip(METRICS, cache.run(key, lambda: run(static))
+                        .clone().unbind()))
+
+    return eval_step
+
+
 class Trainer:
     """Drives training of `model` (a Generator with f32 parameters) over a
     DataLoader with periodic eval and checkpointing.
@@ -63,7 +205,9 @@ class Trainer:
     (raises when no card is visible); the model must already be there.
     The dropout generator is seeded with train_cfg.seed. Metrics go to a
     JSONL writer (utils/metrics.py). dev_bleu_fn(model) -> float is called
-    at each eval. mesh: this rank's mesh (module docstring)."""
+    at each eval. mesh: this rank's mesh (module docstring). compiled:
+    None captures the steps on the card (module docstring), False runs
+    them uncaptured there too."""
 
     def __init__(
         self,
@@ -78,6 +222,7 @@ class Trainer:
         prefetch: int = 2,
         max_inflight: int = 2,
         device=None,
+        compiled: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -112,6 +257,9 @@ class Trainer:
             self._sharded_step = make_sharded_train_step(model, self.opt,
                                                          mesh)
             self._eval_step = make_sharded_eval_step(model, mesh)
+        else:
+            self._step = _TrainStep(model, self.opt, compiled)
+            self._eval_step = make_eval_step(model, compiled)
         self.metrics = metrics_writer if self.lead else None
         self.ckpt = checkpoint_manager
         self.dev_bleu_fn = dev_bleu_fn
@@ -210,29 +358,34 @@ class Trainer:
         return raw, self._put(raw)
 
     def train_step(self, arrays: Dict[str, torch.Tensor]) -> dict:
-        """One optimizer step on a batch on the device. Returns its metrics
-        (loss, acc, n_tok, grad_norm) as device scalars, unread."""
-        if self.mesh is not None:
-            self.step += 1
-            return self._sharded_step(arrays)
-        self.model.train()
-        loss, metrics = self.model(arrays)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
-        self.opt.step(grads)
+        """One optimizer step on a batch on the device (a replay of its
+        signature's graph on the card). Returns its metrics (loss, acc,
+        n_tok, grad_norm) as device scalars, unread."""
+        metrics = (self._sharded_step(arrays) if self.mesh is not None
+                   else self._step(arrays))
         self.step += 1
-        return {k: v.detach() for k, v in
-                dict(metrics, grad_norm=global_norm(grads)).items()}
+        return metrics
+
+    def step_path(self, arrays) -> str:
+        """How a step on this batch runs: "captured", or "uncaptured: "
+        and why (the CPU, compiled=False, an uncaptured route, a mesh)."""
+        if self.mesh is not None:
+            return "uncaptured: " + EAGER_MESH
+        if not self._step.graphs.enabled:
+            return "uncaptured: " + ("the CPU" if self.device.type == "cpu"
+                                     else "compiled=False")
+        route = self._step.route(arrays)
+        if route in EAGER_TRAIN_ROUTES:
+            return f"uncaptured: {route}: {EAGER_TRAIN_ROUTES[route]}"
+        return "captured"
 
     @torch.no_grad()
     def evaluate(self, dev_loader) -> Dict[str, float]:
-        self.model.eval()
+        self.model.eval()   # also for dev_bleu_fn, which fit calls next
         tot_loss, tot_tok, tot_acc = 0.0, 0.0, 0.0
         for batch in dev_loader:
             arrays = self._put(batch.arrays())
-            m = (self.model(arrays)[1] if self.mesh is None
-                 else self._eval_step(arrays))
+            m = self._eval_step(arrays)
             n = float(m["n_tok"])
             tot_loss += float(m["loss"]) * n
             tot_acc += float(m["acc"]) * n

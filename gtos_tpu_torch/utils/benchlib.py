@@ -21,6 +21,7 @@ pair scored and aggregated by attention, B * N^2 per layer pass.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import subprocess
 import time
@@ -51,6 +52,12 @@ PROFILE_LEAD = 20
 PROFILE_PAD_S = 0.5
 # kernel against plain version on the same inputs; B1p's probabilities and
 # B5s's statistics are f32 from the same f32 scores in both versions
+# the host calls that put work on the card's queue: a kernel launch, a
+# CUDA graph's launch, an asynchronous copy or fill (torch.profiler's
+# runtime events)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
 KERNEL_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
               "bfloat16": dict(atol=3e-2, rtol=2e-2)}
 PROBS_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -244,6 +251,31 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's and PyTorch's deterministic algorithms inside the block (the
+    earlier settings after it), for comparisons of whole train runs: the
+    default ones sum some gradients (the char CNN's, the embeddings') in
+    no fixed order, and Adam, whose eps is far below those gradients,
+    turns a last-bit change of a gradient near 0 into a step of the
+    learning rate. Ops without a deterministic version warn. cuBLAS is
+    deterministic on its own only where CUBLAS_WORKSPACE_CONFIG was set
+    before its first call (chip_smoke's main sets ":4096:8")."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
 # ---------------------------------------------------------------- inputs

@@ -8,6 +8,9 @@ The model looks each wrapper up by name at call time, in its ops module
 set on those names is what the model calls. Each real wrapper counts its
 launches on whatever its module's name holds (`wrapper.launches`): the
 stand-in carries the count while it stands in and hands it back after.
+Every swap, in and out, is counted (`swaps`): a CUDA graph captured
+before a swap would replay the wrappers it recorded, so the graph caches
+(utils/graphs.py) drop their graphs when the count moves.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ KERNEL_WRAPPERS = {
 # the backward kernels: the stack runs them last layer first, so layer 0's
 # is a step's last call
 BACKWARD = ("B2", "B4", "B6d", "B6s", "B6b")
+_SWAPS = [0]
+
+
+def swaps() -> int:
+    """How many times the wrappers have been swapped in or out."""
+    return _SWAPS[0]
 
 
 def ops_module(name):
@@ -72,6 +81,7 @@ def kernels_wrapped(make):
         for m in homes:
             setattr(m, attr, fn)
         swapped.append((homes, attr, real, fn))
+    _SWAPS[0] += 1
     try:
         yield
     finally:
@@ -79,6 +89,7 @@ def kernels_wrapped(make):
             for m in homes:
                 setattr(m, attr, real)
             real.launches = fn.launches
+        _SWAPS[0] += 1
 
 
 def replaced(kernel, fn):

@@ -111,6 +111,24 @@ def test_check_reading_accepts_a_reading_at_its_bound():
         benchlib.check_reading(0.94e-3, bound_s=1e-3)
 
 
+def test_deterministic_algorithms_hold_inside_and_restore_after():
+    """chip_smoke's comparisons of runs take it: deterministic inside
+    the block (warning on ops without such a version), the earlier
+    settings after it, also when the block raises."""
+    def settings():
+        return (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark,
+                torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+
+    before = settings()
+    with pytest.raises(KeyError):
+        with benchlib.deterministic_algorithms():
+            assert settings() == (True, False, True, True)
+            raise KeyError
+    assert settings() == before
+
+
 # ---------------------------------------------------------------- bounds
 
 # a 2-graph toy batch, N=3, H=2, Dh=4, bf16 (2 bytes an element), P=4:

@@ -931,3 +931,168 @@ def test_cuda_timers_read_events_and_device_time(card):
     assert 0 < device["median"] <= events["median"] * 1e3 * 1.05
     with pytest.raises(benchlib.ImpossibleReading):
         benchlib.time_samples(b2, iters=3, cold=True, bound_s=1.0)
+
+
+def _small_train_setup(seed, dtype="float32", dropout=0.1):
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.utils.config import ModelConfig
+
+    g, t = synthetic_amr_corpus(8, seed=seed)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    batch = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
+                     build_local_banks=True)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=64, d_ff=128, heads=4, enc_layers=2,
+                      dec_layers=2, max_target_len=32, dropout=dropout,
+                      label_smoothing=0.1, compute_dtype=dtype,
+                      attention_impl="pallas_local")
+    return cfg, batch
+
+
+def _train_three(cfg, batch, compiled):
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import TrainConfig
+
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, cfg, TrainConfig(warmup_steps=2),
+                      batch.arrays(), device="cuda", compiled=compiled)
+    arrays = batch_to_device(batch.arrays(), "cuda")
+    losses = torch.stack([trainer.train_step(arrays)["loss"]
+                          for _ in range(3)]).cpu()
+    return (losses, [p.detach().clone() for p in model.parameters()],
+            model.dropout_rng.get_state(), trainer)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_train_steps_match_eager(card):
+    """Three Trainer steps on one batch (dropout 0.1, so the dropout
+    generator is in the graph) on the CUDA graph (the first step runs
+    uncaptured and captures, the others replay) against three uncaptured
+    steps from the same start, all under deterministic algorithms (the
+    default ones sum the char CNN's and the embeddings' gradients in no
+    fixed order, and Adam makes a step of the learning rate of a last-bit
+    change near 0): the losses and parameters as close as a second
+    uncaptured run comes (twice its gap), and the dropout generator ends
+    in the same state."""
+    from gtos_tpu_torch.utils.benchlib import deterministic_algorithms
+
+    cfg, batch = _small_train_setup(6)
+    with deterministic_algorithms():
+        e1, e2, got = (_train_three(cfg, batch, c)
+                       for c in (False, False, None))
+    assert got[3]._step.graphs.replays == 2
+    assert torch.equal(got[2], e1[2]) and torch.equal(e2[2], e1[2])
+
+    def gap(a, b):
+        return max([(a[0] - b[0]).abs().max().item()]
+                   + [(x - y).abs().max().item() for x, y in
+                      zip(a[1], b[1])])
+
+    assert gap(got, e1) <= 2 * gap(e2, e1)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_c2_decode_matches_eager(card):
+    """The c2 model at full width (configs/c2_amr2.json, bf16, random
+    weights from seed 0) serves a batch of the bench's c2 requests on the
+    CUDA graphs (captured, then replayed) and uncaptured: the same
+    tokens, lengths and final t, and scores within 2^-17 of the largest
+    score (a few f32 roundings of a sum of up to 64 log-probabilities:
+    the copy mix's scatter-add sums colliding copy targets in no fixed
+    order, so two uncaptured searches differ by a few ulps too)."""
+    from gtos_tpu_torch.bench import configs, corpus, raw_corpus
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.infer.decode import beam_decode_arrays
+    from gtos_tpu_torch.models import Generator
+
+    cfg, _ = configs("c2")
+    vocabs = corpus("c2")[1]
+    graphs, targets = raw_corpus("c2", seed=1, n=16)
+    batch = batchify(preprocess(graphs, targets), *vocabs, for_train=False,
+                     build_local_banks=True)
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    tv = vocabs[0]
+    kw = dict(beam_size=8, max_steps=64, str_id=tv.str_id,
+              end_id=tv.end_id, unk_id=tv.unk_id)
+    eager = beam_decode_arrays(model, batch.arrays(), compiled=False, **kw)
+    for _ in range(2):
+        got = beam_decode_arrays(model, batch.arrays(), **kw)
+        for field in ("seqs", "lengths", "steps"):
+            assert torch.equal(getattr(got, field), getattr(eager, field))
+        limit = 2.0 ** -17 * eager.scores.abs().max().item()
+        assert (got.scores - eager.scores).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+def test_cuda_serving_after_a_replayed_step_uses_the_new_weights(card):
+    """A bf16 model's train step replayed from its CUDA graph changes the
+    parameters without moving their version counters; the serving copy
+    after it is a new rounding of the new parameters."""
+    from gtos_tpu_torch.models.generator import batch_to_device
+
+    cfg, batch = _small_train_setup(7, dtype="bfloat16", dropout=0.0)
+    *_, trainer = _train_three(cfg, batch, None)
+    model = trainer.model
+    before = model.serving_copy()
+    trainer.train_step(batch_to_device(batch.arrays(), "cuda"))
+    assert trainer._step.graphs.replays == 3
+    after = model.serving_copy()
+    assert after is not before
+    for p, q in zip(model.parameters(), after.parameters()):
+        assert torch.equal(q, p.detach().to(q.dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_evaluate_and_search_after_captured_steps_run_in_eval_mode(
+        card):
+    """An f32 model with dropout (its serving copy is the model itself)
+    on the CUDA graphs: train step, evaluate, train step, evaluate (the
+    second evaluate replays), then a search of a batch shape not seen
+    before, whose first call runs uncaptured: the dropout generator keeps
+    its state through the evaluations and the search, and the search
+    gives a fresh eval-mode model's tokens, lengths and final t with the
+    same weights, scores within 2^-17 of the largest."""
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.infer.decode import beam_decode_arrays
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.models.generator import batch_to_device
+
+    cfg, batch = _small_train_setup(8, dropout=0.2)
+    *_, trainer = _train_three(cfg, batch, None)
+    model = trainer.model
+    arrays = batch_to_device(batch.arrays(), "cuda")
+    for _ in range(2):
+        trainer.train_step(arrays)
+        rng = model.dropout_rng.get_state()
+        trainer.evaluate([batch])
+        assert not model.training
+        assert torch.equal(model.dropout_rng.get_state(), rng)
+    trainer.train_step(arrays)
+    rng = model.dropout_rng.get_state()
+    g, t = synthetic_amr_corpus(8, seed=8)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    serve = batchify(preprocess(g, t)[:5], tv, cv, rv, chv, lm,
+                     for_train=False, build_local_banks=True).arrays()
+    kw = dict(beam_size=4, max_steps=16, str_id=tv.str_id,
+              end_id=tv.end_id, unk_id=tv.unk_id)
+    got = beam_decode_arrays(model, serve, **kw)
+    assert torch.equal(model.dropout_rng.get_state(), rng)
+    fresh = Generator(cfg, device="cuda")
+    fresh.load_state_dict(model.state_dict())
+    ref = beam_decode_arrays(fresh, serve, **kw)
+    for field in ("seqs", "lengths", "steps"):
+        assert torch.equal(getattr(got, field), getattr(ref, field))
+    limit = 2.0 ** -17 * ref.scores.abs().max().item()
+    assert (got.scores - ref.scores).abs().max().item() <= limit

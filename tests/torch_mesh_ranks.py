@@ -3,7 +3,8 @@ are spawned processes, and a spawned child imports the module that holds
 its function). `spawn(name, world, tmp, **kw)` starts `world` gloo ranks
 on the CPU, rendezvousing on a file under `tmp`, runs `WORKERS[name](mesh
 or rank, **kw)` in each and returns their results (torch.save'd), rank
-order. The JAX references reach the ranks as files under `tmp`."""
+order, within SPAWN_TIMEOUT seconds or failing with each rank's error.
+The JAX references reach the ranks as files under `tmp`."""
 
 from __future__ import annotations
 
@@ -13,18 +14,45 @@ import numpy as np
 import torch
 
 
+# seconds the ranks of one spawn may take, all together: a rank that hangs
+# fails its test with every rank's error instead of the suite's clock
+SPAWN_TIMEOUT = 300
+
+
 def spawn(name, world, tmp, **kw):
+    import time
+
     import torch.multiprocessing as mp
 
     tmp = str(tmp)
     init = f"file://{os.path.join(tmp, f'rdv_{name}_{world}')}"
-    mp.start_processes(_entry, args=(name, world, init, tmp, kw),
-                       nprocs=world, start_method="spawn")
+    ctx = mp.start_processes(_entry, args=(name, world, init, tmp, kw),
+                             nprocs=world, start_method="spawn", join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(
+                f"{name}: ranks {alive} of {world} still running after "
+                f"{SPAWN_TIMEOUT} s;\n" + _errors(name, world, tmp))
     return [torch.load(os.path.join(tmp, f"out_{name}_{r}.pt"),
                        weights_only=False) for r in range(world)]
 
 
+def _errors(name, world, tmp):
+    out = []
+    for r in range(world):
+        path = os.path.join(tmp, f"err_{name}_{r}.txt")
+        out.append(f"rank {r}: " + (open(path).read() if os.path.exists(path)
+                                    else "no error recorded"))
+    return "\n".join(out)
+
+
 def _entry(rank, name, world, init, tmp, kw):
+    import traceback
+
     import torch.distributed as dist
 
     from gtos_tpu_torch.parallel.mesh import init_distributed
@@ -34,6 +62,12 @@ def _entry(rank, name, world, init, tmp, kw):
     try:
         out = WORKERS[name](**kw)
         torch.save(out, os.path.join(tmp, f"out_{name}_{rank}.pt"))
+        # no rank leaves while another still talks to it
+        dist.barrier()
+    except BaseException:
+        with open(os.path.join(tmp, f"err_{name}_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
     finally:
         dist.destroy_process_group()
 

@@ -202,19 +202,21 @@ def time_variants(cs, cases):
                         *fwd_args, t4=t4))
                 dst = lambda: bm.block_sparse_attention_bwd_dst(  # noqa
                     *core, ts, tr, plan)
-                kernels["B6d"] = (lambda: dst()[:2], ref_d)
+                E = ref_d[1].shape[1]    # B6d's ge is [H, E_cap]
+                trim = lambda o: (o[0], o[1][:, :E])  # noqa: E731
+                kernels["B6d"] = (lambda: trim(dst()), ref_d)
                 pair_s = dst()[2]   # the same values under every variant
                 kernels["B6s"] = (
                     lambda: bm.block_sparse_attention_bwd_src(
                         *core, *src, plan, pair_s),
                     bm.block_sparse_attention_bwd_src_reference(*core, *src))
                 q, k, a, b = core[0], core[1], core[3], core[4]
+                ge = ref_d[1].new_zeros(ref_d[1].shape[0], plan["cap"])
+                ge[:, :E] = ref_d[1]
                 kernels["B6b"] = (
-                    lambda: bm.block_sparse_bank_grads(q, k, a, b, ref_d[1],
-                                                       plan),
-                    bm.block_sparse_bank_grads_reference(q, k, a, b,
-                                                         ref_d[1],
-                                                         plan["pairs"]))
+                    lambda: bm.block_sparse_bank_grads(q, k, a, b, ge, plan),
+                    bm.block_sparse_bank_grads_reference(q, k, a, b, ge,
+                                                         plan))
             for v in range(n):
                 fwd_variant(v)
                 entries[3](v)

@@ -144,22 +144,25 @@ Phases, each of which exits non-zero on failure:
                (COMPILED_SPREAD, COMPILED_FLOOR; these comparisons and
                those of eval and serving under deterministic
                algorithms, whose graphs are then dropped); the same for c2
-               "pallas" (B3 and B3' batches), c2 "sparse" and "xla" and
-               c4, and each run's eval step (and c5's block_sparse one)
-               captured against uncaptured;
-               the resume of
-               phase 7 (and of c4 and "pallas") runs on the graphs and
-               must replay; serving the fullest batch of every bucket of
-               c2 ("pallas_local", "sparse", "xla"), c4 and c5 captured
-               and uncaptured: the same tokens,
-               lengths and final t, scores as close as two uncaptured
-               searches; the encoder and gradient gates of phases 4 and 6
-               on a captured encode and a captured forward and backward,
-               the planted B1s and B2s failing there; B1, B1p and B2
-               (c2, c4), B3, B3', B4 (c2) and B5 (c5) inside a replay
-               against their plain versions; printed: host launch calls, device kernels,
-               busy ms and idle share of a captured train and decode
-               step, the graph pool and capture ms;
+               "pallas" (B3 and B3' batches), c2 "sparse" and "xla", c4
+               and c5 "block_sparse" (its first 3 batches, the backward
+               plan built inside the step), and each run's eval step
+               captured against uncaptured; the resume of phase 7 (and
+               of c4, "pallas" and c5) runs on the graphs and must
+               replay; serving the fullest batch of every bucket of c2
+               ("pallas_local", "sparse", "xla"), c4 and c5 captured and
+               uncaptured: the same tokens, lengths and final t, scores
+               as close as two uncaptured searches; the encoder and
+               gradient gates of phases 4 and 6 on a captured encode and
+               a captured forward and backward, the planted B1s and B2s
+               failing there; B1, B1p and B2 (c2, c4), B3, B3', B4 (c2),
+               B5 (c5 serving) and B5s, B6d, B6s and B6b (a c5 train
+               step) inside a replay against their plain versions
+               (B6b's bank rows one by one), and B6b on two planted work
+               lists (its last chunk left out; a padding place read as a
+               real pair) failing there; printed: host launch calls, device kernels, busy ms
+               and idle share of a captured train and decode step (c5's
+               too), the graph pool and capture ms;
   20. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c4 and one c5 train step on each
@@ -195,8 +198,9 @@ from gtos_tpu_torch.bench import (
 # one copy of the measurement code (SPIN_CYCLES: chip_b6_variants.py
 # reads this tree's)
 from gtos_tpu_torch.utils.benchlib import (
-    KERNEL_TOL, LAUNCH_APIS, PROBS_TOL, SPIN_CYCLES, b4_largest,  # noqa
-    b6b_library, block_bound, card_line, deterministic_algorithms,
+    BANK_ROW_TOL, KERNEL_TOL, LAUNCH_APIS, PROBS_TOL, SPIN_CYCLES,  # noqa
+    b4_largest, b6b_library, bank_row_disagreement, block_bound, card_line,
+    deterministic_algorithms,
     disagreement, global_attention_bound, honest_batch, local_attention_bound,
     local_attention_bwd_bound, rel_to_largest, time_ms)
 from gtos_tpu_torch.utils.benchlib import dtype_name as _dtype_name
@@ -233,7 +237,7 @@ GRAD_TOL = {"float32": dict(rel=1e-2, loss=1e-4),
 # 128/256/512 with C5_SPEC's widened bank and edge-cell ladders; the
 # loader bisects a batch whose bank overflows 65536 rows
 C5_TRAIN_STEPS = 6
-C5_RESUME_AT, C5_RESUME_MORE = 2, 2
+C5_RESUME_AT, C5_RESUME_MORE = 6, 4   # the resumed steps cross an epoch
 C5_ENCODER_TOL = ENCODER_TOL
 # "sparse" (plain torch, gathers and scatter-adds) against "block_sparse"
 # (B5s, B6) on the same f32 weights and batch: one function, sums in
@@ -2591,13 +2595,14 @@ def b6_args(args, src, g):
     layout)."""
     from gtos_tpu_torch.ops import block_sparse_attention as bsa
     from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
-        backward_plan, prep_bwd_invariants)
+        backward_plan, pair_capacity, prep_bwd_invariants)
 
     q, a, b = args[0], args[3], args[4]
     t4 = bsa.bank_t4(a, b)
     out, m, l = bsa.block_sparse_attention_with_stats_reference(*args, t4=t4)
     gp, delta = prep_bwd_invariants(q, g, out)
-    plan = backward_plan(args[5], args[6], *src, q.shape[2], a.shape[0])
+    plan = backward_plan(args[5], args[6], *src, q.shape[2], a.shape[0],
+                         pair_capacity(args[6]))
     return (*args[:5], t4, gp, m, l, delta), plan
 
 
@@ -2610,7 +2615,9 @@ def run_histogram(plan, P):
     time)."""
     import torch
 
-    r = plan["pairs"][3]
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import real_pairs
+
+    r = real_pairs(plan)[3]
     lens = torch.unique(r, return_counts=True)[1].cpu().numpy()
     bins = []
     for lo, hi in RUN_BINS:
@@ -2623,7 +2630,9 @@ def run_histogram(plan, P):
 
 def check_b6(label, args, src, g=None, bwd=None):
     """B6d, B6s and B6b against their plain versions on the same inputs
-    (dq and ge; dk and dv; g_a and g_b), each giving the same bits on a
+    (dq and ge; dk and dv; g_a and g_b, and bank row by bank row against
+    the plain B6b on B6d's ge, after work_list_covers holds the plan's
+    work list), each giving the same bits on a
     second launch (no atomics; B6d's pair_s too), then each timed with its
     plain version (B6s reading the first B6d launch's pair_s); returns the
     three kernels' numbers. bwd: (B6 inputs, plan) as a training step gave
@@ -2636,40 +2645,49 @@ def check_b6(label, args, src, g=None, bwd=None):
     q, k, a, b = core[0], core[1], core[3], core[4]
     ts, tr = args[5], args[6]
     dtype_name = _dtype_name(q)
-    P, E = a.shape[0], plan["E"]
+    P, E = a.shape[0], int(plan["E"])
     dst = lambda: bwd_mod.block_sparse_attention_bwd_dst(  # noqa: E731
         *core, ts, tr, plan)
     srcp = lambda pair_s: bwd_mod.block_sparse_attention_bwd_src(  # noqa
         *core, *src, plan, pair_s)
+    # B6d's ge and pair_s are [H, E_cap]: their E real columns
+    cut = lambda o: (o[0], o[1][:, :E], o[2][:, :E])  # noqa: E731
     first, again = [], []
     for run in (first, again):
         run.append(dst())
         run.append(srcp(run[0][2]))
+    pair_s = first[0][2]
+    first[0], again[0] = cut(first[0]), cut(again[0])
     if not torch.equal(first[0][2], again[0][2]):
         fail(f"B6d {label} {dtype_name}: pair_s differs between two launches "
              "on the same inputs")
+    ge = torch.zeros(q.shape[1], plan["cap"], device=q.device)
+    ge[:, :E] = first[0][1]
     bank = lambda: bwd_mod.block_sparse_bank_grads(  # noqa: E731
-        q, k, a, b, first[0][1], plan)
+        q, k, a, b, ge, plan)
     banks = (bank(), bank())
     ref_dst = bwd_mod.block_sparse_attention_bwd_dst_reference(*core, ts, tr)
     ref_src = bwd_mod.block_sparse_attention_bwd_src_reference(*core, *src)
     ref_bank = bwd_mod.block_sparse_bank_grads_reference(
-        q, k, a, b, ref_dst[1], plan["pairs"])
+        q, k, a, b, ref_dst[1], plan)
     torch.cuda.synchronize()
     print(f"[kernel] B6b {label} bank-row runs: {run_histogram(plan, P)}",
           flush=True)
+    if not bool(bwd_mod.work_list_covers(plan, P)):
+        fail(f"B6b {label}: the work list does not cover each real place "
+             "once with its own bank row")
     rows = {}
     for kernel, names, got, twice, ref, fn, plain in (
             ("B6d", ("dq", "ge"), first[0], again[0], ref_dst, dst,
              lambda: bwd_mod.block_sparse_attention_bwd_dst_reference(
                  *core, ts, tr)),
             ("B6s", ("dk", "dv"), first[1], again[1], ref_src,
-             lambda: srcp(first[0][2]),
+             lambda: srcp(pair_s),
              lambda: bwd_mod.block_sparse_attention_bwd_src_reference(
                  *core, *src)),
             ("B6b", ("g_a", "g_b"), banks[0], banks[1], ref_bank, bank,
              lambda: bwd_mod.block_sparse_bank_grads_reference(
-                 q, k, a, b, first[0][1], plan["pairs"]))):
+                 q, k, a, b, ge, plan))):
         for name, x, y, z in zip(names, got, twice, ref):
             if x.dtype != z.dtype or x.shape != z.shape:
                 fail(f"{kernel} {label} {dtype_name}: {name} is {x.dtype} "
@@ -2685,14 +2703,23 @@ def check_b6(label, args, src, g=None, bwd=None):
         if rel > KERNEL_TOL[dtype_name]["rtol"]:
             fail(f"{kernel} {label} {dtype_name}: error {rel:.3e} of the "
                  f"largest value, above {KERNEL_TOL[dtype_name]['rtol']}")
+        by_row = ""
+        if kernel == "B6b":
+            # each bank row against the plain B6b on the kernel's own ge
+            # (`ref` sums the plain B6d's, whose bf16 roundings of ge
+            # differ from the kernel's in a few pairs)
+            why, worst = bank_row_disagreement(names, got, plain())
+            if why is not None:
+                fail(f"B6b {label} {dtype_name}: {why}")
+            by_row = (f"; bank rows {worst:.3e} of their largest values "
+                      f"beyond one rounding (within {BANK_ROW_TOL})")
         print(f"[kernel] {kernel} {label} {dtype_name}: largest error "
-              f"relative to the largest value {rel:.3e}")
+              f"relative to the largest value {rel:.3e}{by_row}")
         bound = block_bound(kernel, args, src)
         rows[kernel] = _block_line(
             kernel, label, q, P, E, dtype_name, err, bound,
             time_ms(fn, bound_ms=bound[0]), time_ms(plain))
-    lib, lib_type, lib_err, refused = b6b_library(q, k, a, first[0][1],
-                                                  plan)
+    lib, lib_type, lib_err, refused = b6b_library(q, k, a, ge, plan)
     for why in refused:
         print(f"[kernel] B6b yardstick: torch.sparse.mm refuses {why}; "
               f"timed in {lib_type}", flush=True)
@@ -3248,6 +3275,7 @@ def planted_b6(kind):
 
     from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
     from gtos_tpu_torch.ops.block_sparse_attention import tile_pairs
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import real_pairs
     from gtos_tpu_torch.ops.relation_attention import _default_scale
 
     if kind == "no GT2.b term in dq":
@@ -3257,9 +3285,10 @@ def planted_b6(kind):
                   scale=None):
             dq, ge, pair_s = real(q, k, v, a, b, t4, gp, m, l, delta, ts, tr,
                                   plan, scale)
-            bi, i, _, r = plan["pairs"]
+            bi, i, _, r = real_pairs(plan)
             B, H, N, Dh = q.shape
-            w = ge.T.to(q.dtype).float()[..., None] * b[r].float()
+            w = ge[:, :len(r)].T.to(q.dtype).float()[..., None] * \
+                b[r].float()
             part = torch.zeros(B * N, H, Dh, device=q.device).index_add_(
                 0, bi * N + i, w).view(B, N, H, Dh).transpose(1, 2)
             return (dq.float() - part).to(dq.dtype), ge, pair_s
@@ -3285,9 +3314,9 @@ def planted_b6(kind):
 
     def wrong(q, k, a, b, ge, plan):
         g_a, g_b = real(q, k, a, b, ge, plan)
-        r = plan["pairs"][3]
+        r = real_pairs(plan)[3]
         dt4 = torch.zeros(a.shape[:2], device=q.device).index_add_(
-            0, r, ge.T.to(q.dtype).float())[..., None]
+            0, r, ge[:, :len(r)].T.to(q.dtype).float())[..., None]
         return ((g_a.float() - dt4 * b.float()).to(g_a.dtype),
                 (g_b.float() - dt4 * a.float()).to(g_b.dtype))
     return "B6b", wrong
@@ -3308,6 +3337,50 @@ def planted_b5s():
         t4 = fwd_mod.bank_t4(a, b) if t4 is None else t4
         return real(q, k, v, torch.zeros_like(a), b, ts, tr, scale, t4)
     return "B5s", wrong
+
+
+B6B_PLANTS = ("the work list's last chunk left out",
+              "a padding place read as a real pair")
+
+
+def planted_b6b_list(kind):
+    """B6b made wrong on purpose inside a CUDA graph, as a control for the
+    replay gate (bench.check_kernel, which holds B6b's bank rows one by
+    one): the kernel launched on a changed work list, made on the card
+    with no host read, so it captures. B6B_PLANTS[0]: the list's last
+    chunk given no pair (on c5's first batch a run of 35 pairs, a whole
+    bank row); [1]: the entry that ends at the last real place reads one
+    place further, the first padding place, whose ge column is set to
+    ge's largest magnitude (the kernel's padding columns are unwritten).
+    Returns (the kernel, the planted function)."""
+    import torch
+
+    from gtos_tpu_torch.ops import block_sparse_attention_bwd as bwd_mod
+
+    real = bwd_mod.block_sparse_bank_grads
+
+    def wrong(q, k, a_bank, b_bank, ge, plan):   # the wrapper's names
+        counts, E, cap = plan["bank_counts"].long(), plan["E"].long(), \
+            plan["cap"]
+        at = lambda x: torch.arange(len(x), device=x.device)  # noqa: E731
+        if kind == B6B_PLANTS[0]:
+            chunks = plan["bank_chunks"].clone()
+            chunks[:, 1] = torch.where(at(chunks) == counts[0] - 1, 0,
+                                       chunks[:, 1])
+            return real(q, k, a_bank, b_bank, ge,
+                        dict(plan, bank_chunks=chunks))
+        lists = dict(plan)
+        for name, n, most in (("bank_chunks", counts[0], bwd_mod.BANK_CHUNK),
+                              ("bank_shorts", counts[1], bwd_mod.SHORT_RUN)):
+            w = plan[name].clone()
+            w[:, 1] += ((at(w) < n) & (w[:, 0] + w[:, 1] == E)
+                        & (w[:, 1] < most)).to(w.dtype)
+            lists[name] = w
+        live = torch.arange(cap, device=ge.device) < E
+        top = torch.where(live, ge.abs(), 0.0).amax(1, keepdim=True)
+        ge = ge.clone().index_copy_(1, E.clamp_max(cap - 1).view(1), top)
+        return real(q, k, a_bank, b_bank, ge, lists)
+    return "B6b", wrong
 
 
 def c5_grad_batch():
@@ -3406,7 +3479,10 @@ def phase_c5_resume():
     """The c5 model trained C5_RESUME_AT steps, saved, restored into a
     fresh model and trainer and trained C5_RESUME_MORE more, against the
     unbroken run: the resumed steps' losses the same bits (B6 sums each
-    node's and each bank row's pairs in a fixed order; no atomics)."""
+    node's and each bank row's pairs in a fixed order; no atomics). The
+    Trainers run the captured step, the backward plan built inside it:
+    the resumed steps cross into the loader's second epoch, whose
+    signatures repeat, so the resumed run must replay."""
     from gtos_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg, tcfg = c5_configs()
@@ -3431,11 +3507,16 @@ def phase_c5_resume():
         shutil.rmtree(tmp, ignore_errors=True)
     want, got = whole.losses()[C5_RESUME_AT:], cont.losses()
     same = want == got
+    path = trainer.step_path(next(iter(c5_loader(True))).arrays())
+    replays = trainer._step.graphs.replays
     print(f"[c5 resume] steps {C5_RESUME_AT + 1}-{total}: unbroken {want}, "
-          f"resumed {got}: " + ("bit-identical" if same else "DIFFER"),
+          f"resumed {got}: " + ("bit-identical" if same else "DIFFER")
+          + f"; the steps {path} ({replays} replays in the resumed run)",
           flush=True)
     if not same:
         fail("the resumed c5 run's losses differ from the unbroken run's")
+    if path != "captured" or replays == 0:
+        fail(f"the resumed c5 run is {path} with {replays} replays")
 
 
 def capture_block_train_inputs(trainer, batches):
@@ -3569,7 +3650,7 @@ def phase_auto_tiles():
 # signature replays), and the host-side calls that launch work on the card
 COMPILED_BATCHES = {("c2", "pallas_local"): 5, ("c2", "pallas"): 3,
                     ("c4", "pallas_local"): 3, ("c2", "sparse"): 2,
-                    ("c2", "xla"): 2}
+                    ("c2", "xla"): 2, ("c5", "block_sparse"): 3}
 # (d): the served (family, impl) pairs, every bucket of each, and the
 # routes whose uncaptured searches need not repeat their own tokens:
 # "sparse" sums its encoder's messages with scatter-adds in no fixed order,
@@ -3594,8 +3675,9 @@ def compiled_batches(family, impl):
     if impl == "pallas":
         head, extra = route_plan(impl, cfg, n - 1, [(B3I, 1)])
         return head + extra[B3I]
-    return [b for _, b in zip(range(n), train_loader(impl=impl,
-                                                     family=family))]
+    loader = (c5_loader(True) if family == "c5"
+              else train_loader(impl=impl, family=family))
+    return [b for _, b in zip(range(n), loader)]
 
 
 def train_run(family, impl, batches, compiled):
@@ -3607,7 +3689,7 @@ def train_run(family, impl, batches, compiled):
 
     from gtos_tpu_torch.models import Generator
     from gtos_tpu_torch.models.generator import batch_to_device
-    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.train.trainer import Trainer, check_metrics
 
     cfg, tcfg = configs(family, impl)
     model = Generator(cfg, device="cuda",
@@ -3615,7 +3697,10 @@ def train_run(family, impl, batches, compiled):
     trainer = Trainer(model, cfg, tcfg, batches[0].arrays(), device="cuda",
                       compiled=compiled)
     on_card = [batch_to_device(b.arrays(), "cuda") for b in batches] * 2
-    losses = torch.stack([trainer.train_step(a)["loss"] for a in on_card])
+    metrics = [trainer.train_step(a) for a in on_card]
+    for m in metrics:
+        check_metrics(m)
+    losses = torch.stack([m["loss"] for m in metrics])
     st = trainer.opt.state
     state = dict(tensors=[t.detach().clone() for t in
                           [*trainer.params, *st["mu"], *st["nu"]]],
@@ -3742,17 +3827,22 @@ def compiled_eval(family, impl, model, batches):
           "generator untouched", flush=True)
 
 
-def replay_kernels(label, run, kernels):
+def replay_kernels(label, run, kernels, planted=None):
     """Each kernel of `kernels` inside a replay against its plain version:
     `run()` is a captured step whose first call captures (the wrappers
     record each kernel's first call in the capture, whose tensors the
     graph rewrites at every replay) and whose second call replays; then
     each recorded output is held against the plain version of the
     recorded inputs (the bench's check_kernel: KERNEL_TOL and its rtol of
-    the largest value)."""
+    the largest value; B6b's bank rows one by one, and its work list
+    must cover each real place once: work_list_covers). planted: what the
+    kernels' wrappers were replaced with (kernel_calls.replaced), which
+    must fail that check."""
     import torch
 
     from gtos_tpu_torch.bench import BenchFailure, check_kernel, plain_call
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+        work_list_covers)
 
     store = {}
 
@@ -3776,14 +3866,30 @@ def replay_kernels(label, run, kernels):
         if kernel not in store:
             fail(f"{label}: {kernel} was not captured")
         args, kw, out = store[kernel]
+        named = kernel_calls.named(kernel, args, kw)
+        if kernel == "B6b" and planted is None and not bool(
+                work_list_covers(named["plan"], named["a_bank"].shape[0])):
+            fail(f"inside a replay of {label}: B6b's work list does not "
+                 "cover each real place once with its own bank row")
         try:
-            err, rel = check_kernel(kernel, label, out, plain_call(
-                kernel, kernel_calls.named(kernel, args, kw))())
+            err, rel, rows = check_kernel(kernel, label, out,
+                                          plain_call(kernel, named)())
         except BenchFailure as e:
-            fail(f"inside a replay: {e}")
+            if planted is None:
+                fail(f"inside a replay: {e}")
+            print(f"[compiled kernels] planted {kernel} ({planted}) inside "
+                  f"a replay of {label} fails its gate: {e}", flush=True)
+            continue
+        if planted is not None:
+            fail(f"inside a replay of {label}: the planted {kernel} "
+                 f"({planted}) passes its gate")
+        by_row = ("" if rows is None else
+                  f"; bank rows {rows:.3e} of their largest values beyond "
+                  f"one rounding (within {BANK_ROW_TOL}; the work list "
+                  "covers each real place once)")
         print(f"[compiled kernels] {kernel} inside a replay of {label}: "
               f"max_abs_err {err:.3e}, {rel:.3e} of the largest value "
-              f"(within {KERNEL_TOL})", flush=True)
+              f"(within {KERNEL_TOL}){by_row}", flush=True)
 
 
 def encode_graph(model, batch):
@@ -3983,30 +4089,29 @@ def phase_compiled():
     """The compiled step and search (ROADMAP A11): (a) c2 "pallas_local"
     training at full width with dropout, eager against captured, within
     the eager-vs-eager spread; (b) the same for c2 "pallas", "sparse" and
-    "xla" and for c4, and each run's eval step (and c5's, on the served
-    model) captured against uncaptured; (c) a resume on the captured path gives the unbroken
-    captured run's losses (phase_resume, whose Trainer runs the graphs);
+    "xla", for c4 and for c5 "block_sparse", and each run's eval step
+    captured against uncaptured; (c) a resume on the captured path gives
+    the unbroken captured run's losses (phase_resume and phase_c5_resume,
+    whose Trainers run the graphs);
     (d) serving c2 ("pallas_local", "sparse", "xla"), c4 and c5 on every
     bucket, the captured search equal to the uncaptured one ((a), (b) and
     (d) under deterministic algorithms, their graphs dropped after); (e)
     planted wrong B1s and B2s fail the encoder and
     gradient gates on the captured path, and B1 and B1p, B2 (c2 and c4),
-    B3, B3', B4 (c2) and B5 (c5) match their plain versions inside
-    replays; (f) printed: host launch calls, device kernels, busy ms
+    B3, B3', B4 (c2), B5 (c5 serving) and B5s, B6d, B6s and B6b (a c5
+    train step; B6b on the planted work lists of B6B_PLANTS must fail)
+    match their plain versions inside replays; (f) printed: host launch calls, device kernels, busy ms
     and idle share of a captured train or decode step, with the graph
     pool and capture times."""
     import torch
 
     from gtos_tpu_torch.infer.decode import beam_decode_arrays, search_graphs
     from gtos_tpu_torch.models.generator import batch_to_device
-    from gtos_tpu_torch.train.trainer import EAGER_MESH, EAGER_TRAIN_ROUTES
+    from gtos_tpu_torch.train.trainer import EAGER_MESH
     from gtos_tpu_torch.utils.graphs import for_model
 
     card = card_line()
     t_start = time.perf_counter()
-    for route, why in EAGER_TRAIN_ROUTES.items():
-        print(f"[compiled] uncaptured on the card: the {route} train step: "
-              f"{why}", flush=True)
     print(f"[compiled] uncaptured on the card: {EAGER_MESH}", flush=True)
     t_part = time.perf_counter()
 
@@ -4031,12 +4136,6 @@ def phase_compiled():
         # resumed run must replay
         served = {key: compiled_serve(*key) for key in COMPILED_SERVE}
         part("(d) serving")
-        # the block_sparse eval step (its train step runs uncaptured)
-        loader = c5_loader(True)
-        compiled_eval("c5", "block_sparse",
-                      served[("c5", "block_sparse")][0],
-                      [b for _, b in zip(range(2), loader)])
-        part("c5 eval")
     for trainer, _ in trainers.values():
         for_model(trainer.model).clear()
     for model, _, _ in served.values():
@@ -4069,6 +4168,18 @@ def phase_compiled():
         arrays = batch_to_device(pick.arrays(), "cuda")
         replay_kernels(f"a {family} {impl} train step ({describe(pick)})",
                        lambda: trainer.train_step(arrays), kernels)
+    # c5: the forward and the three backward kernels, B6b walking the
+    # backward plan built inside the step; then B6b on each planted work
+    # list must fail the same gate
+    trainer, batches = trainers[("c5", "block_sparse")]
+    arrays = batch_to_device(batches[0].arrays(), "cuda")
+    label = f"a c5 block_sparse train step ({describe(batches[0])})"
+    replay_kernels(label, lambda: trainer.train_step(arrays),
+                   ("B5s", "B6d", "B6s", "B6b"))
+    for kind in B6B_PLANTS:
+        with replaced(*planted_b6b_list(kind)):
+            replay_kernels(label, lambda: trainer.train_step(arrays),
+                           ("B6b",), planted=kind)
     part("(e) kernels inside replays")
     # (f): the captured paths (the bench's --checkout holds them against
     # the parent's uncaptured ones)

@@ -37,7 +37,10 @@ weights from the seed):
                      trees of 10-50 tokens (requests: 1024 of another seed)
   c5_train, c5_serve configs/c5_scaled_synthetic.json under
                      "block_sparse", khop 4, one card, on 96 synthetic AMR
-                     graphs of 100-500 nodes (6 train batches)
+                     graphs of 100-500 nodes (6 train batches; the train
+                     step captured as every route's is, its backward plan
+                     built inside it, and the plan alone timed on each
+                     batch: info.plan_device_ms)
   kernels            B1-B6 on layer 0's inputs of the cells above (captured
                      from one more forward, and backward, of each): event
                      ms, profiler device ms, bound, plain ms, and B6b's
@@ -419,14 +422,17 @@ def graph_info(graphs) -> dict:
                 pool_mib=None if pool is None else pool / 2 ** 20)
 
 
-def epoch_signatures(ld, cfg) -> int:
-    """How many batch signatures (route, every array's shape and dtype)
+def epoch_signatures(ld, cfg, train: bool) -> int:
+    """How many batch signatures (route, every array's shape and dtype;
+    train: with the pair capacity, which only the train step's key holds)
     one epoch of the loader makes: the graphs a run over it captures."""
     from gtos_tpu_torch.models.generator import resolve_attention_impl
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import with_pair_cap
     from gtos_tpu_torch.utils.graphs import signature
 
     epoch, ld.epoch = getattr(ld, "epoch", None), 0
-    sigs = {(resolve_attention_impl(cfg.attention_impl, a), signature(a))
+    sigs = {(resolve_attention_impl(cfg.attention_impl, a),
+             signature(with_pair_cap(a) if train else a))
             for a in (b.arrays() for b in ld)}
     if epoch is not None:
         ld.epoch = epoch
@@ -441,7 +447,7 @@ def plain_call(kernel, a):
     plain = plain_of(kernel)
     if kernel == "B6b":
         return functools.partial(plain, a["q"], a["k"], a["a_bank"],
-                                 a["b_bank"], a["ge"], a["plan"]["pairs"])
+                                 a["b_bank"], a["ge"], a["plan"])
     names = inspect.signature(plain).parameters
     return functools.partial(plain, **{n: a[n] for n in names if n in a})
 
@@ -495,10 +501,14 @@ def _tuple(x):
 def check_kernel(kernel, label, got, ref):
     """The kernel's outputs against its plain version's: those of OUTPUTS
     to KERNEL_TOL and its rtol of their largest value (B4's tables of the
-    larger of the two), the statistics to PROBS_TOL. Returns (largest
-    absolute error, largest error relative to the largest value)."""
+    larger of the two), the statistics to PROBS_TOL, B6b's bank rows also
+    one by one (benchlib.bank_row_disagreement). Returns (largest
+    absolute error, largest error relative to the largest value, B6b's
+    largest bank-row reading or None)."""
     names, stats = OUTPUTS[kernel]
     got, ref = _tuple(got), _tuple(ref)
+    if kernel == "B6d":     # the kernel's ge is [H, E_cap]: its E columns
+        got = (got[0], got[1][:, :ref[1].shape[1]], *got[2:])
     n = len(names)
     dt = benchlib.dtype_name(ref[0])
     for x in got[:n + len(stats)]:
@@ -506,6 +516,10 @@ def check_kernel(kernel, label, got, ref):
             raise BenchFailure(f"{kernel} {label}: non-finite output")
     largest = benchlib.b4_largest(ref) if kernel == "B4" else None
     why = benchlib.disagreement(names, got[:n], ref[:n], dt, largest)
+    rows = None
+    if kernel == "B6b":
+        by_row, rows = benchlib.bank_row_disagreement(names, got, ref)
+        why = why or by_row
     for name, x, y in zip(stats, got[n:], ref[n:]):
         try:
             torch.testing.assert_close(x, y, **benchlib.PROBS_TOL)
@@ -515,7 +529,7 @@ def check_kernel(kernel, label, got, ref):
         raise BenchFailure(f"{kernel} {label}: {why}")
     err = max((x.float() - y.float()).abs().max().item()
               for x, y in zip(got[:n + len(stats)], ref))
-    return err, benchlib.rel_to_largest(got[:n], ref[:n], largest)
+    return err, benchlib.rel_to_largest(got[:n], ref[:n], largest), rows
 
 
 def kernel_row(kernel, source, step, run, smi):
@@ -527,7 +541,7 @@ def kernel_row(kernel, source, step, run, smi):
     a = named(kernel, args, kw)
     call = functools.partial(real, *args, **kw)
     plain = plain_call(kernel, a)
-    err, rel = check_kernel(kernel, source, call(), plain())
+    err, rel, _ = check_kernel(kernel, source, call(), plain())
     bound_ms, bound_by = kernel_bound(kernel, a, step["named"])
     q = a["q"]
     row = dict(kernel=kernel, wrapper=KERNEL_WRAPPERS[kernel][1],
@@ -738,7 +752,7 @@ class Bench:
         first batches through the DataLoader and Trainer.fit; a traced
         run of the latter."""
         from gtos_tpu_torch.models.generator import batch_to_device
-        from gtos_tpu_torch.train.trainer import Trainer
+        from gtos_tpu_torch.train.trainer import Trainer, check_metrics
 
         cfg, tcfg = configs(family, impl, self.widths, self.seed)
         ld, batches, n_head = self.train_batches(family, impl, cfg)
@@ -756,6 +770,8 @@ class Bench:
             out = [trainer.train_step(a) for a in on_card]
             losses = torch.stack([m["loss"] for m in out])
             sync(self.device)
+            for m in out:       # read after the sync: the card is idle
+                check_metrics(m)
             return losses
 
         class Feed:   # Trainer.fit's loader: the first n batches of epoch 1
@@ -828,9 +844,28 @@ class Bench:
                                        if v},
                     step_path=trainer.step_path(batches[0].arrays()),
                     graphs=graph_info(trainer._step.graphs),
-                    epoch_signatures=epoch_signatures(ld, cfg))
+                    epoch_signatures=epoch_signatures(ld, cfg, True))
+        if impl == "block_sparse":
+            info["plan_device_ms"] = self.plan_ms(on_card)
         del trainer, model, on_card
         return dict(metrics=m, traced=trace, smi=smi, info=info)
+
+    def plan_ms(self, on_card):
+        """The block-sparse backward plan's device ms on each batch of a
+        cell (once a step: the encoder stack builds it once), as
+        benchlib.device_ms reads it: one sample a batch, each its median
+        over PROFILE_ITERS calls."""
+        from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+            backward_plan, pair_cap)
+
+        samples = []
+        for a in on_card if self.measured else ():
+            samples.append(benchlib.device_ms(lambda a=a: backward_plan(
+                a["tile_src"], a["tile_rel"], a["tile_dst"],
+                a["tile_rel_src"], a["concept"].shape[1],
+                a["rel_bank"].shape[0], pair_cap(a)), PROFILE_ITERS)[
+                    "median"])
+        return metric("ms", samples, self.measured)
 
     def c2_train_pallas_local(self):
         return self.train_cell("c2_train_pallas_local", "c2",
@@ -932,7 +967,7 @@ class Bench:
                     first_hypothesis=" ".join(ref[0][0][:8]),
                     graphs=graph_info(decode.search_graphs(model)),
                     epoch_signatures=epoch_signatures(
-                        loader(family, impl, False, self.seed), cfg))
+                        loader(family, impl, False, self.seed), cfg, False))
         del model, served
         return dict(metrics=m, traced=trace, smi=smi, info=info)
 

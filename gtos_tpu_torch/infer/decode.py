@@ -134,7 +134,7 @@ def beam_decode_arrays(
     cfg = model.cfg
     dev = model.device
     impl = impl or resolve_attention_impl(cfg.attention_impl, arrays)
-    t = batch_to_device(arrays, dev)
+    t = batch_to_device(arrays, dev, train=False)
     B = t["concept"].shape[0]
     steps = min(max_steps, cfg.max_target_len - 1)
     key = ("search", impl, graphs_mod.signature(t), beam_size, steps, alpha,

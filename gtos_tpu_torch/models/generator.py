@@ -40,6 +40,9 @@ from gtos_tpu_torch.models.encoder import (
     Conv1d, GRUCell, RelationEncoder, TokenEncoder,
 )
 from gtos_tpu_torch.models.graph_transformer import GraphTransformer, check_impl
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+    PAIR_CAP, with_pair_cap,
+)
 from gtos_tpu_torch.utils.config import ModelConfig
 from gtos_tpu_torch.utils.device import resolve_device
 
@@ -265,7 +268,10 @@ class Generator(nn.Module):
         (cfg.label_smoothing), averaged over real target positions.
         Dropout is active in train mode; attention_impl "auto" is resolved
         for this batch (encode). Returns (loss, {"loss", "acc", "n_tok"}),
-        scalars on the device.
+        scalars on the device, and "layout_ok" where the encoder built
+        block-sparse backward plans: their device flag that the batch's
+        two tile layouts hold the same pairs (unread; the trainer raises
+        on a false one when it reads the step's metrics).
 
         data_group: under data parallelism, the group over which the batch
         rows are split. The sums are then divided by the GLOBAL target
@@ -300,6 +306,9 @@ class Generator(nn.Module):
                     + cfg.label_smoothing * smooth)
         acc = ((logp.argmax(-1) == tgt) * mask).sum() / n_tok
         metrics = {"loss": loss, "acc": acc, "n_tok": count}
+        checks = self.graph_transformer.plan_checks
+        if checks:      # the backward plans' layout checks, unread
+            metrics["layout_ok"] = torch.stack(checks).all()
         if data_group is not None:
             summed = torch.stack([loss.detach(), acc.detach()])
             torch.distributed.all_reduce(summed, group=data_group)
@@ -330,14 +339,18 @@ def batch_edges(batch: Dict[str, torch.Tensor]):
     keys = ("edge_src", "edge_dst", "edge_rel", "edge_mask", "tile_src",
             "tile_rel", "tile_dst", "tile_rel_src", "ctile_src", "ctile_rel",
             "ctile_dst", "ctile_rel_src", "bank_map", "rel_index_loc",
-            "loc_perm", "loc_bnd")
+            "loc_perm", "loc_bnd", PAIR_CAP)
     out = {k: batch[k] for k in keys if k in batch}
     return out or None
 
 
-def batch_to_device(arrays: Dict[str, np.ndarray], device
-                    ) -> Dict[str, torch.Tensor]:
+def batch_to_device(arrays: Dict[str, np.ndarray], device,
+                    train: bool = True) -> Dict[str, torch.Tensor]:
     """GraphBatch.arrays() -> tensors on `device` (dtypes kept: int32
-    indices, bool masks)."""
+    indices, bool masks). train: add the pair capacity that a block-sparse
+    train step's backward plan needs (ops/block_sparse_attention_bwd.py
+    with_pair_cap); False for a batch that only runs forward (serving)."""
+    if train:
+        arrays = with_pair_cap(arrays)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}

@@ -33,7 +33,12 @@ one set of parameters:
                  ops/block_sparse_attention.py): kernel B5 without
                  gradients, and with them the trainable entry, whose
                  forward is B5s and backward B6d, B6s and B6b. The
-                 backward's pair orders are built once per stack.
+                 backward's pair orders are built once per stack, on the
+                 card with no host read, padded to the batch's pair
+                 capacity (ops/block_sparse_attention_bwd.py pair_cap),
+                 so the step can be captured; the plan's check that both layouts
+                 hold the same pairs is a device flag, kept in
+                 `plan_checks` for the train step's metrics.
 
 "auto" is resolved per batch (models/generator.py resolve_attention_impl)
 into "block_sparse", "pallas" or "pallas_local" and handed to `forward` as
@@ -63,7 +68,9 @@ from gtos_tpu_torch.ops.attention import bank_relation_attention
 from gtos_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_relation_attention_trainable,
 )
-from gtos_tpu_torch.ops.block_sparse_attention_bwd import backward_plan
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+    backward_plan, pair_cap,
+)
 from gtos_tpu_torch.ops.local_relation_attention import (
     local_relation_attention, local_relation_attention_trainable,
     bank_runs, slot_order, split_banks,
@@ -249,6 +256,9 @@ class GraphTransformer(nn.Module):
             attn = getattr(self, f"layer{i}").self_attn
             attn.cp_mesh, attn.cp_schedule = cp_mesh, cp_schedule
         self.layers = layers
+        # the device flags of the last forward's backward plans (true: the
+        # layouts agree), which Generator.forward hands on as "layout_ok"
+        self.plan_checks = []
 
     def _cp_size(self) -> int:
         return 1 if self.cp_mesh is None else self.cp_mesh.size("graph")
@@ -258,6 +268,7 @@ class GraphTransformer(nn.Module):
         """impl: the route of this batch (default: the module's; "auto"
         must be resolved by the caller)."""
         impl = _route(impl or self.impl)
+        self.plan_checks = []
         if impl == "pallas_local":
             if edges is None or "bank_map" not in edges:
                 raise ValueError("attention_impl='pallas_local' needs "
@@ -295,7 +306,10 @@ class GraphTransformer(nn.Module):
                         edges.get("ctile_rel_src"))
                     if torch.is_grad_enabled() and "ctile_dst" in edges:
                         edges["ring_plans"] = ring_plans(
-                            cells, x.shape[1] // S, rel_vecs.shape[0])
+                            cells, x.shape[1] // S, rel_vecs.shape[0],
+                            pair_cap(edges))
+                        self.plan_checks = [p["ok"] for p in
+                                            edges["ring_plans"]]
             elif "edge_src" in edges:   # the COO form, flattened once
                 edges["flat_edges"] = flatten_edge_cells(
                     edges["edge_src"], edges["edge_dst"], edges["edge_rel"],
@@ -304,7 +318,9 @@ class GraphTransformer(nn.Module):
                     and "tile_dst" in edges):
                 edges["blk_plan"] = backward_plan(
                     edges["tile_src"], edges["tile_rel"], edges["tile_dst"],
-                    edges["tile_rel_src"], x.shape[1], rel_vecs.shape[0])
+                    edges["tile_rel_src"], x.shape[1], rel_vecs.shape[0],
+                    pair_cap(edges))
+                self.plan_checks = [edges["blk_plan"]["ok"]]
         for i in range(self.layers):
             x = getattr(self, f"layer{i}")(x, rel_vecs, rel_index,
                                            node_mask, edges, impl)

@@ -77,6 +77,40 @@ def tile_pairs(tiles, rels, N, P):
             rels[b, tn, s, row, col].long(), valid)
 
 
+def tile_pairs_padded(tiles, rels, N, P, cap: int):
+    """tile_pairs with shapes fixed by the layout's shape and `cap` and no
+    read of the card: (b, own, other, r) int64 [cap] each, the kept pairs
+    in the planes' order (tile_pairs' order) then `cap - E` padding slots
+    holding (0, 0, 0, P); E, the kept pairs, an int64 0-dim tensor; and
+    valid. Slot x takes the kept position whose inclusive count first
+    exceeds x (a cumsum and a searchsorted, no nonzero). Pairs past `cap`
+    are left out: a caller that cannot bound E checks E <= cap."""
+    B, Tn, S = tiles.shape
+    t = rels.shape[-1]
+    dev = rels.device
+    own = torch.arange(Tn * t, device=dev).view(Tn, 1, t, 1)
+    other = tiles.long()[..., None, None] * t + torch.arange(t, device=dev)
+    valid = ((rels >= 0) & (rels < P) & (tiles >= 0)[..., None, None]
+             & (other < N) & (own < N))
+    count = torch.cumsum(valid.flatten(), 0)
+    E = count[-1] if count.numel() else count.new_zeros(())
+    x = torch.arange(cap, device=dev)
+    src = torch.searchsorted(count, x, right=True).clamp_max(
+        max(count.numel() - 1, 0))
+    live = x < E
+    col = src % t
+    row = src // t % t
+    s = src // (t * t) % S
+    tn = src // (t * t * S) % Tn
+    b = src // (t * t * S * Tn)
+    tile = tiles.flatten()[(b * Tn + tn) * S + s].long()
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    return (torch.where(live, b, zero), torch.where(live, tn * t + row, zero),
+            torch.where(live, tile * t + col, zero),
+            torch.where(live, rels.flatten()[src].long(), zero + P), E,
+            valid)
+
+
 def bank_t4(a_bank, b_bank):
     """t4 [P, H] f32: a_r.b_r summed in f32 and rounded to the bank type
     (the TPU kernel's t4 lane). Computed once per call by the wrappers (or

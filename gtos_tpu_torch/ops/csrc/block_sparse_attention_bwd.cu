@@ -65,7 +65,12 @@
 // block's barrier-separated phases, each a round trip, set the time.
 //
 // B6b reads the pairs sorted by bank row (a stable order built once per
-// encoder stack by backward_plan, with its work list). The run of one bank
+// encoder stack by backward_plan on the card, with its work list). The
+// plan's arrays are padded to a pair capacity fixed by the batch
+// signature, so the launches are too: the grid is sized from the work
+// list's bounds, each block reads the list's counts from device memory and
+// a block past them returns at once, and the combine launch is always
+// issued (with no run of several chunks its blocks all return). The run of one bank
 // row is walked once for all heads: a block of up to 8 head warps stages
 // the pairs' q and k row offsets and their ge' (ge rounded to the input
 // type) for its heads in shared memory, and each head's warp gathers its
@@ -97,7 +102,9 @@ constexpr int kZeroRows = 64;         // B6b: unreferenced rows a block
 // The arrays of one pass. B6d: own1/own2 = q/gp, x1/x2 = k/v, own_bank =
 // b_bank, part_bank = a_bank, tiles/rels = tile_src/tile_rel, row_base the
 // first dst-major pair id of each plane row, dst2src each id's src-major
-// place; it writes out1 = dq, ge [H, E] and pair_s [H, E, 2]. B6s: x1/x2 =
+// place; it writes out1 = dq, ge [H, E] and pair_s [H, E, 2] (E: the
+// plan's pair capacity, their row stride; only the kept pairs' entries are
+// written). B6s: x1/x2 =
 // q/gp, own_bank = a_bank, tiles/rels = tile_dst/tile_rel_src, row_base the
 // first src-major place of each plane row; it reads pair_s and writes out1
 // = dk, out2 = dv. The pointers a pass does not use are null.
@@ -188,10 +195,12 @@ blk_attn_bwd_pass(const PassArgs<T> a) {
               load_chunk(a.part_bank + row + c * 8, pb[uu][cc]);
           }
         }
+        // an id or place past the capacity E (a plan whose `ok` flag is
+        // false) is neither read nor written
         if constexpr (kDst) {
           t4v[uu] = __ldg(a.t4 + static_cast<size_t>(r) * H + h);
-          sid[uu] = __ldg(a.dst2src + id[uu]);
-        } else {
+          sid[uu] = id[uu] < E ? __ldg(a.dst2src + id[uu]) : E;
+        } else if (id[uu] < E) {
           const float2 s = __ldg(reinterpret_cast<const float2*>(a.pair_s) +
                                  static_cast<size_t>(h) * E + id[uu]);
           gev[uu] = s.x;
@@ -230,7 +239,7 @@ blk_attn_bwd_pass(const PassArgs<T> a) {
         }
         pv[uu] = expf((s1 + t4v[uu]) * a.scale - m_own) / l_own;
         gev[uu] = pv[uu] * (dp - d_own) * a.scale;
-        if (ok && li == 0) {
+        if (ok && li == 0 && id[uu] < E && sid[uu] < E) {
           a.ge[static_cast<size_t>(h) * E + id[uu]] = gev[uu];
           reinterpret_cast<float2*>(a.pair_s)[static_cast<size_t>(h) * E +
                                               sid[uu]] =
@@ -296,22 +305,24 @@ blk_attn_bwd_pass(const PassArgs<T> a) {
 }
 
 // B6b: the bank gradients, from the pairs in bank-row order (stable): for
-// sorted place x, `pid[x]` the pair's id (its place in ge), `qrow[x]` and
+// sorted place x, `pid[x]` the pair's id (its column in ge), `qrow[x]` and
 // `krow[x]` its q and k rows (b*N + i, b*N + j). Work items, int4 each:
 // chunks (first place, pairs <= 256, bank row, workspace slot or -1 for a
 // run of one chunk), the longer runs' pieces; shorts (first place, pairs
 // <= 32, bank row, 0), whole runs, longest first; multi (first slot,
-// slots, bank row, 0), the runs of several chunks. used [P]: 0 for a row
-// no pair references.
+// slots, bank row, 0), the runs of several chunks. Each list holds
+// *_cap entries, of which counts[0], counts[1] and counts[2] (device
+// memory) are real. used [P]: 0 for a row no pair references.
 template <typename T> struct BankArgs {
   const T* q; const T* k; const T* a_bank; const T* b_bank; const float* ge;
   const int32_t* pid; const int32_t* qrow; const int32_t* krow;
   const int4* chunks; const int4* shorts; const int4* multi;
+  const int32_t* counts;
   const uint8_t* used;
   float* part;   // [slots, H, 2 Dh + 4] f32: a chunk's sums of ge' q, ge' k
                  // and ge' (at 2 Dh)
   T* g_a; T* g_b;
-  int H, N, Dh, E, P, n_chunks, n_short, n_multi;
+  int H, N, Dh, E, P, chunk_cap, short_cap, multi_cap;
 };
 
 // the bank row r of head h from its sums: g_b = sq + dt4 a_r and g_a =
@@ -342,9 +353,11 @@ __device__ __forceinline__ void write_bank_row(const BankArgs<T>& a, int r,
   }
 }
 
-// Blocks [0, n_chunks): a chunk each; then blocks of 4 short runs; then
-// (head block 0 only) blocks of kZeroRows rows that write the unreferenced
-// rows as 0. Warp w is head blockIdx.y * 8 + w (warps past H only stage).
+// Blocks [0, chunk_cap): a chunk each, those past counts[0] idle; then
+// blocks of 4 short runs (short_cap runs, those past counts[1] idle);
+// then (head block 0 only) blocks of kZeroRows rows that write the
+// unreferenced rows as 0. Warp w is head blockIdx.y * 8 + w (warps past H
+// only stage). E: ge's row stride, the plan's pair capacity.
 template <typename T, int kCpl, int kGu, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 blk_bank_grads(const BankArgs<T> a) {
@@ -361,12 +374,13 @@ blk_bank_grads(const BankArgs<T> a) {
   const int h = h0 + warp;
   const int n_heads = min(warps, H - h0);
   const int bx = blockIdx.x;
-  const int n_short_blocks = (a.n_short + kGroups - 1) / kGroups;
-  const bool is_chunk = bx < a.n_chunks;
+  const int short_blocks = (a.short_cap + kGroups - 1) / kGroups;
+  const bool is_chunk = bx < a.chunk_cap;
+  const int n_chunks = __ldg(a.counts), n_short = __ldg(a.counts + 1);
 
-  if (bx >= a.n_chunks + n_short_blocks) {   // unreferenced rows: 0
+  if (bx >= a.chunk_cap + short_blocks) {   // unreferenced rows: 0
     if (blockIdx.y != 0) return;
-    const int r0 = (bx - a.n_chunks - n_short_blocks) * kZeroRows;
+    const int r0 = (bx - a.chunk_cap - short_blocks) * kZeroRows;
     const int vecs = H * Dh * static_cast<int>(sizeof(T)) / 16;
     for (int x = threadIdx.x; x < kZeroRows * vecs; x += blockDim.x) {
       const int r = r0 + x / vecs;
@@ -378,6 +392,10 @@ blk_bank_grads(const BankArgs<T> a) {
     }
     return;
   }
+  // past the list's real entries: nothing to do (the whole block)
+  if (is_chunk ? bx >= n_chunks
+               : (bx - a.chunk_cap) * kGroups >= n_short)
+    return;
 
   // stage the block's pairs: slot s of a chunk is its pair s; slot s of a
   // block of short runs is pair s % 32 of run s / 32
@@ -388,8 +406,8 @@ blk_bank_grads(const BankArgs<T> a) {
     if (is_chunk) {
       item = a.chunks[bx];
     } else {
-      const int run = (bx - a.n_chunks) * kGroups + s / kShortRun;
-      item = run < a.n_short ? a.shorts[run] : make_int4(0, 0, 0, 0);
+      const int run = (bx - a.chunk_cap) * kGroups + s / kShortRun;
+      item = run < n_short ? a.shorts[run] : make_int4(0, 0, 0, 0);
       x = s % kShortRun;
     }
     if (x < item.y) {
@@ -455,8 +473,8 @@ blk_bank_grads(const BankArgs<T> a) {
 
   if (!is_chunk) {
     // group g: short run g of the block, whole, kGu pairs a round trip
-    const int run = (bx - a.n_chunks) * kGroups + grp;
-    if (run >= a.n_short) return;
+    const int run = (bx - a.chunk_cap) * kGroups + grp;
+    if (run >= n_short) return;
     const int4 it = a.shorts[run];
     const int base = grp * kShortRun;
     for (int x0 = 0; x0 < it.y; x0 += kGu) take(base + x0, 1, base + it.y);
@@ -494,16 +512,17 @@ blk_bank_grads(const BankArgs<T> a) {
   if (li == 0) part[2 * Dh] = dt4;
 }
 
-// B6b's second launch: a block per run of several chunks (warp w: head
-// blockIdx.y * 8 + w) adds the chunks' sums in chunk order and writes the
-// row.
+// B6b's second launch: a block per entry of `multi` (warp w: head
+// blockIdx.y * 8 + w; the blocks past counts[2] idle) adds the chunks'
+// sums of its run in chunk order and writes the row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 blk_bank_combine(const BankArgs<T> a) {
   constexpr int kVals = 2 * kMaxDh / 32;   // sums a lane adds
   const int h = blockIdx.y * kPassWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (h >= a.H) return;
+  if (h >= a.H || static_cast<int>(blockIdx.x) >= __ldg(a.counts + 2))
+    return;
   const int Dh = a.Dh, width = 2 * Dh + 4;
   const int4 it = a.multi[blockIdx.x];
   float s[kVals], dt4 = 0.f;
@@ -589,14 +608,14 @@ int launch_pass(const PassArgs<T>& a, int B, cudaStream_t stream) {
 
 template <typename T, int kCpl, int kGu, int kMinBlocks>
 int launch_bank_one(const BankArgs<T>& a, cudaStream_t stream) {
-  const int blocks = a.n_chunks + (a.n_short + 3) / 4 +
+  const int blocks = a.chunk_cap + (a.short_cap + 3) / 4 +
                      (a.P + kZeroRows - 1) / kZeroRows;
   const dim3 grid(blocks, (a.H + kPassWarps - 1) / kPassWarps);
   const int threads = 32 * (a.H < kPassWarps ? a.H : kPassWarps);
   blk_bank_grads<T, kCpl, kGu, kMinBlocks><<<grid, threads, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_multi == 0) return static_cast<int>(err);
-  blk_bank_combine<T><<<dim3(a.n_multi, grid.y), threads, 0, stream>>>(a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  blk_bank_combine<T><<<dim3(a.multi_cap, grid.y), threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,13 +647,14 @@ int launch_bank(const BankArgs<T>& a, cudaStream_t stream) {
 // Dh] (16-byte aligned); a_bank, b_bank [P, H, Dh] (16-byte aligned); t4
 // [P, H] float32 (a_r.b_r rounded to the bank type); m, l, delta [B, H, N]
 // float32; pair_s [H, E, 2] float32, each kept pair's (ge, p) at its
-// src-major place; Dh a multiple of 8, at most 128. Each returns the CUDA
+// src-major place (E: the plan's pair capacity, at least the kept pairs);
+// Dh a multiple of 8, at most 128. Each returns the CUDA
 // error code of its launch (0 = launched).
 
 // B6d: tile_src [B, Td, Smax], tile_rel [B, Td, Smax, 128, 128] int32;
 // row_base [B, Td, Smax, 128] int32, the id of each plane row's first kept
-// pair (E kept pairs in all); dst2src [E] int32, each id's src-major place;
-// writes dq [B, H, N, Dh], ge [H, E] float32 and pair_s.
+// pair; dst2src [E] int32, each id's src-major place; writes dq [B, H, N,
+// Dh], and ge [H, E] float32 and pair_s at the kept pairs' ids and places.
 extern "C" int gtos_blk_attn_bwd_dst(
     int dtype, const void* q, const void* k, const void* v,
     const void* a_bank, const void* b_bank, const void* t4, const void* gp,
@@ -705,22 +725,24 @@ extern "C" int gtos_blk_attn_bwd_variant(int v) {
   return kVariants;
 }
 
-// B6b: ge [H, E] float32 from B6d; pid, qrow, krow [E] int32 (the pairs in
-// bank-row order: pair id, b*N + i, b*N + j); chunks [n_chunks], shorts
-// [n_short], multi [n_multi] int32x4 (16-byte aligned) and used [P] uint8,
-// backward_plan's work list; part [slots, H, 2 Dh + 4] float32 scratch
-// (null without a run of several chunks); writes every row of g_a, g_b
-// [P, H, Dh]. Returns the CUDA error code of its launches.
+// B6b: ge [H, E] float32 from B6d (E: the plan's pair capacity); pid,
+// qrow, krow [E] int32 (the pairs in bank-row order: pair id, b*N + i,
+// b*N + j; the real ones first); chunks [chunk_cap], shorts [short_cap],
+// multi [multi_cap] int32x4 (16-byte aligned), counts [4] int32 (the real
+// chunks, shorts, multi entries, and slots) and used [P] uint8,
+// backward_plan's work list; part [slots, H, 2 Dh + 4] float32 scratch for
+// the plan's slot bound; writes every row of g_a, g_b [P, H, Dh]. Returns
+// the CUDA error code of its launches.
 extern "C" int gtos_blk_bank_grads(
     int dtype, const void* q, const void* k, const void* a_bank,
     const void* b_bank, const void* ge, const void* pid, const void* qrow,
-    const void* krow, const void* chunks, int n_chunks, const void* shorts,
-    int n_short, const void* multi, int n_multi, const void* used,
-    void* part, void* g_a, void* g_b, int H, int N, int Dh, int E, int P,
-    void* stream) {
+    const void* krow, const void* chunks, int chunk_cap, const void* shorts,
+    int short_cap, const void* multi, int multi_cap, const void* counts,
+    const void* used, void* part, void* g_a, void* g_b, int H, int N, int Dh,
+    int E, int P, void* stream) {
   if (H < 1 || N < 1 || Dh < 8 || Dh > kMaxDh || Dh % 8 != 0 || E < 0 ||
-      P < 1 || n_chunks < 0 || n_short < 0 || n_multi < 0 ||
-      (n_multi > 0 && part == nullptr))
+      P < 1 || chunk_cap < 1 || short_cap < 1 || multi_cap < 1 ||
+      counts == nullptr || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
@@ -731,9 +753,10 @@ extern "C" int gtos_blk_bank_grads(
         static_cast<const float*>(ge), static_cast<const int32_t*>(pid),
         static_cast<const int32_t*>(qrow), static_cast<const int32_t*>(krow),
         static_cast<const int4*>(chunks), static_cast<const int4*>(shorts),
-        static_cast<const int4*>(multi), static_cast<const uint8_t*>(used),
-        static_cast<float*>(part), static_cast<T*>(g_a), static_cast<T*>(g_b),
-        H, N, Dh, E, P, n_chunks, n_short, n_multi};
+        static_cast<const int4*>(multi), static_cast<const int32_t*>(counts),
+        static_cast<const uint8_t*>(used), static_cast<float*>(part),
+        static_cast<T*>(g_a), static_cast<T*>(g_b),
+        H, N, Dh, E, P, chunk_cap, short_cap, multi_cap};
     return launch_bank<T>(a, s);
   };
   if (dtype == 0) return run(0.f);

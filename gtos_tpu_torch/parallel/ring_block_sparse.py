@@ -108,9 +108,12 @@ def rank_cells(g: int, S: int, ctile_src, ctile_rel, ctile_dst=None,
     return [tuple(r[:, j].contiguous() for r in rows) for j in range(S)]
 
 
-def ring_plans(cells, Nl: int, P: int) -> List[dict]:
-    """backward_plan of each of a rank's cells (built once per batch)."""
-    return [bwd_ops.backward_plan(*c, Nl, P) for c in cells]
+def ring_plans(cells, Nl: int, P: int, cap: int) -> List[dict]:
+    """backward_plan of each of a rank's cells (built once per batch, on
+    the card with no host read; cap: the batch's pair capacity,
+    pair_capacity of the whole cell layout, which bounds every cell's
+    pairs)."""
+    return [bwd_ops.backward_plan(*c, Nl, P, cap) for c in cells]
 
 
 def ring_forward(xchg, qs, kvs, a_bank, b_bank, t4, cells, scale,
@@ -271,7 +274,8 @@ def ring_block_sparse_relation_attention(
                            ctile_rel_src)
     if ctile_dst is not None:
         if plans is None and torch.is_grad_enabled():
-            plans = ring_plans(cells, N // S, a_bank.shape[0])
+            plans = ring_plans(cells, N // S, a_bank.shape[0],
+                               bwd_ops.pair_capacity(ctile_rel))
         out = _RingBlockSparse.apply(q, k, v, a_bank, b_bank, group, cells,
                                      plans, scale)
     else:
@@ -315,7 +319,8 @@ def emulate(q, k, v, a_bank, b_bank, ctile_src, ctile_rel, S: int,
     out = torch.cat([f[0] for f in fin], 2)
     if g_out is None:
         return out
-    plans = [ring_plans(c, Nl, a_bank.shape[0]) for c in cells]
+    cap = bwd_ops.pair_capacity(ctile_rel)
+    plans = [ring_plans(c, Nl, a_bank.shape[0], cap) for c in cells]
     gps, deltas = zip(*[bwd_ops.prep_bwd_invariants(qs[s], blk(g_out, s),
                                                     fin[s][0])
                         for s in range(S)])

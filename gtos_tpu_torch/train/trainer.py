@@ -12,13 +12,18 @@ array's shape and the accumulation phase. `make_train_step` and
 signature's static inputs and replays forward, `autograd.grad`, the
 optimizer's update and the metrics (loss, acc, n_tok, grad_norm) into
 static outputs, reading nothing back. `TrainState` is the state such a
-step updates in place. On the CPU, or with compiled=False, the same step
-functions run uncaptured; routes that cannot be captured run uncaptured
-on the card and say why (`EAGER_TRAIN_ROUTES`). The host queues work for
-the card and reads a loss back only `max_inflight` steps later. Batches
-are packed and copied to the device `prefetch` ahead in a background
-thread. A non-finite loss stops training with a resumable checkpoint on
-disk.
+step updates in place. Every single-device route is captured, the
+block-sparse one included: its backward plan is built inside the step on
+the card with no host read, padded to the batch's pair capacity, which
+the signature holds (ops/block_sparse_attention_bwd.py backward_plan).
+The plan's check that the batch's two tile layouts hold the same pairs is
+a device flag that the step returns with its metrics ("layout_ok");
+`check_metrics` raises its ValueError when they are read. On the CPU, or
+with compiled=False, the same step functions run uncaptured. The host
+queues work for the card and reads a loss back only `max_inflight` steps
+later. Batches are packed and copied to the device `prefetch` ahead in a
+background thread. A non-finite loss stops training with a resumable
+checkpoint on disk.
 
 Under attention_impl "auto" the model resolves each batch's route itself
 (Generator.forward): one model, one parameter set and one optimizer state
@@ -56,21 +61,29 @@ from gtos_tpu_torch.data.prefetch import prefetch_iter
 from gtos_tpu_torch.models.generator import (
     Generator, batch_to_device, resolve_attention_impl,
 )
+from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
+    LAYOUT_MISMATCH, PAIR_CAP,
+)
 from gtos_tpu_torch.train.optim import Optimizer, global_norm
 from gtos_tpu_torch.utils import graphs
 from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 from gtos_tpu_torch.utils.device import resolve_device
 from gtos_tpu_torch.utils.profiling import StepTimer
 
-# routes whose train step runs uncaptured on the card, and why (ROADMAP A11)
-EAGER_TRAIN_ROUTES = {
-    "block_sparse": "its backward plan (ops/block_sparse_attention_bwd.py "
-                    "backward_plan) reads the card twice, and its pair "
-                    "count E, known only from the data, sets B6's grids",
-}
 EAGER_MESH = ("the mesh step (parallel/train.py) runs uncaptured: its "
               "collectives are not captured")
 METRICS = ("loss", "acc", "n_tok", "grad_norm")
+
+
+def check_metrics(metrics: Dict[str, torch.Tensor]):
+    """Raise what a step deferred to the reading of its metrics: the
+    block-sparse backward plan's ValueError where its two tile layouts
+    did not hold the same pairs ("layout_ok" false; a read of the card).
+    Trainer.fit calls it on every step it reads; a caller of train_step
+    or make_train_step's step calls it on each step's metrics."""
+    ok = metrics.get("layout_ok")
+    if ok is not None and not bool(ok):
+        raise ValueError(LAYOUT_MISMATCH)
 
 
 def _batch_edges_count(arrays) -> int:
@@ -117,11 +130,6 @@ class _TrainStep:
     def route(self, arrays) -> str:
         return resolve_attention_impl(self.model.cfg.attention_impl, arrays)
 
-    def captured(self, arrays) -> bool:
-        """Whether this batch's step replays a graph."""
-        return (self.graphs.enabled
-                and self.route(arrays) not in EAGER_TRAIN_ROUTES)
-
     def _update(self, arrays, phase):
         model, params = self.model, self.opt.params
         model.train()
@@ -130,25 +138,25 @@ class _TrainStep:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         self.opt.update(grads, phase)
+        ok = metrics.get("layout_ok")
+        if ok is None:      # no block-sparse plan: nothing to check
+            ok = torch.ones((), dtype=torch.bool, device=grads[0].device)
         return torch.stack([metrics["loss"].detach(), metrics["acc"].detach(),
                             metrics["n_tok"].detach().float(),
-                            global_norm(grads)])
+                            global_norm(grads), ok.float()])
 
     def __call__(self, arrays) -> Dict[str, torch.Tensor]:
         phase = self.opt.phase
         self.model.train()
-        if self.captured(arrays):
-            key = ("train", self.route(arrays), graphs.signature(arrays),
-                   phase)
-            static = self.graphs.inputs(key, arrays)
-            out = self.graphs.run(key, lambda: self._update(static, phase),
-                                  generators=(self.model.dropout_rng,))
+        key = ("train", self.route(arrays), graphs.signature(arrays), phase)
+        static = self.graphs.inputs(key, arrays)
+        out = self.graphs.run(key, lambda: self._update(static, phase),
+                              generators=(self.model.dropout_rng,))
+        if self.graphs.enabled:
             out = out.clone()
-        else:
-            out = self._update(arrays, phase)
         self.opt.advance()
         self.model.mark_updated()
-        return dict(zip(METRICS, out.unbind()))
+        return dict(zip(METRICS + ("layout_ok",), out.unbind()))
 
 
 def make_train_step(model: Generator, opt: Optimizer,
@@ -157,7 +165,8 @@ def make_train_step(model: Generator, opt: Optimizer,
     (state, metrics), one CUDA graph per batch signature on the card
     (compiled=False: uncaptured there too; the CPU: uncaptured). `state`
     is `init_state(model, opt)` or `train_state_from_jax(...)`: its
-    tensors are updated in place; metrics are device scalars."""
+    tensors are updated in place; metrics are device scalars, with
+    "layout_ok" (check_metrics raises on a false one)."""
     step = _TrainStep(model, opt, compiled)
 
     def train_step(state: TrainState, arrays: Dict[str, torch.Tensor]):
@@ -188,6 +197,8 @@ def make_eval_step(model: Generator, compiled: Optional[bool] = None
         # every call: a replay runs no Python, and the calls that do run
         # (a new signature's first) must not draw dropout masks
         model.eval()
+        # no backward plan: the pair capacity stays out of the signature
+        arrays = {k: v for k, v in arrays.items() if k != PAIR_CAP}
         route = resolve_attention_impl(model.cfg.attention_impl, arrays)
         key = ("eval", route, graphs.signature(arrays))
         static = cache.inputs(key, arrays)
@@ -360,7 +371,8 @@ class Trainer:
     def train_step(self, arrays: Dict[str, torch.Tensor]) -> dict:
         """One optimizer step on a batch on the device (a replay of its
         signature's graph on the card). Returns its metrics (loss, acc,
-        n_tok, grad_norm) as device scalars, unread."""
+        n_tok, grad_norm, layout_ok) as device scalars, unread: the caller
+        passes them to check_metrics when it reads them, as fit does."""
         metrics = (self._sharded_step(arrays) if self.mesh is not None
                    else self._step(arrays))
         self.step += 1
@@ -368,15 +380,12 @@ class Trainer:
 
     def step_path(self, arrays) -> str:
         """How a step on this batch runs: "captured", or "uncaptured: "
-        and why (the CPU, compiled=False, an uncaptured route, a mesh)."""
+        and why (the CPU, compiled=False, a mesh)."""
         if self.mesh is not None:
             return "uncaptured: " + EAGER_MESH
         if not self._step.graphs.enabled:
             return "uncaptured: " + ("the CPU" if self.device.type == "cpu"
                                      else "compiled=False")
-        route = self._step.route(arrays)
-        if route in EAGER_TRAIN_ROUTES:
-            return f"uncaptured: {route}: {EAGER_TRAIN_ROUTES[route]}"
         return "captured"
 
     @torch.no_grad()
@@ -411,6 +420,7 @@ class Trainer:
             while len(pending) > to_len:
                 s, m = pending.popleft()
                 loss_val = float(m["loss"])
+                check_metrics(m)
                 if not np.isfinite(loss_val):
                     if self.ckpt is not None:
                         self.ckpt.wait()

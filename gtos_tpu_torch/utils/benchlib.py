@@ -61,6 +61,12 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 KERNEL_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
               "bfloat16": dict(atol=3e-2, rtol=2e-2)}
 PROBS_TOL = dict(atol=1e-5, rtol=1e-4)
+# B6b's outputs held row by row (bank_row_reading): a bank row of few
+# pairs lies far below the largest row, where the whole output's scale
+# hides a pair summed into the wrong row or not at all. The limit lies
+# between the sound kernel's readings on an H100 and those of
+# chip_smoke.py's planted work lists (PERF.md, PR 14)
+BANK_ROW_TOL = 1e-4
 
 
 class ImpossibleReading(RuntimeError):
@@ -517,6 +523,42 @@ def disagreement(names, got, refs, dtype_name, largest=None):
     return None
 
 
+def bank_row_reading(got, ref):
+    """(reading, row) of an output [P, ...] against its plain version, row
+    by row: the largest |got - ref| in excess of one unit in the last
+    place of the output's type at that element, relative to its row's
+    largest plain value (inf for a row written where the plain row is 0).
+    Both versions round f32 sums of the same terms once to the output's
+    type, so a sound kernel's excess is the gap of its f32 sums, and a
+    pair left out or summed twice shows at the scale of its own row."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    ulp = torch.ldexp(torch.full_like(g, torch.finfo(got.dtype).eps),
+                      e - 1)
+    rows = lambda x: x.reshape(len(x), -1).amax(1)  # noqa: E731
+    excess = rows(((g - r).abs() - ulp).clamp_min(0))
+    top = rows(r.abs())
+    rel = torch.where(top > 0, excess / top.clamp_min(1e-30),
+                      torch.where(excess > 0, math.inf, 0.0))
+    row = int(rel.argmax())
+    return float(rel[row]), row
+
+
+def bank_row_disagreement(names, got, refs):
+    """Why B6b's outputs `got` disagree with the plain ones row by row
+    (bank_row_reading above BANK_ROW_TOL), or None; and the largest
+    reading."""
+    worst = 0.0
+    for name, x, y in zip(names, got, refs):
+        reading, row = bank_row_reading(x, y)
+        worst = max(worst, reading)
+        if not reading <= BANK_ROW_TOL:
+            return (f"{name}'s bank row {row} is off by {reading:.3e} of "
+                    f"its largest value beyond one rounding, above "
+                    f"{BANK_ROW_TOL}"), worst
+    return None, worst
+
+
 def b6b_library(q, k, a, ge, plan):
     """B6b's yardstick: one torch.sparse.mm that computes its per-row sums.
     A COO [P*H, 2*B*H*N] matrix holds two entries ge' per (pair, head), at
@@ -527,9 +569,12 @@ def b6b_library(q, k, a, ge, plan):
     where the card's sparse product refuses it. Returns (fn, its type's
     name, the largest error of its sums against the plain sums, the
     refusals met)."""
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import real_pairs
+
     B, H, N, Dh = q.shape
     P = a.shape[0]
-    bi, i, j, r = plan["pairs"]
+    bi, i, j, r = real_pairs(plan)
+    ge = ge[:, :len(r)]             # the kernel's is [H, E_cap]
     h = torch.arange(H, device=q.device)
     rows = (r[:, None] * H + h).flatten()
     cq = ((bi[:, None] * H + h) * N + i[:, None]).flatten()

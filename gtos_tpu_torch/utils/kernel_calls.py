@@ -122,7 +122,7 @@ def capture(model, batch, train, device):
             return real(*args, **kw)
         return record
 
-    t = batch_to_device(batch.arrays(), device)
+    t = batch_to_device(batch.arrays(), device, train)
     with kernels_wrapped(make):
         if train:
             model.train()

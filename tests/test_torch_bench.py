@@ -241,6 +241,34 @@ def test_check_kernel_refuses_a_wrong_output():
         bench.check_kernel("B6b", "toy", (ref[0], nan), ref)
 
 
+def test_check_kernel_holds_b6b_bank_rows_one_by_one():
+    """B6b's bank rows are held one by one (benchlib.bank_row_reading):
+    an output one unit in the last place off the plain one in many
+    elements passes; a small row (1e-3 of the largest) zeroed, or written
+    where the plain row is 0, is refused, though the whole output's
+    rtol of its largest value passes both."""
+    gen = torch.Generator().manual_seed(0)
+    P, H, Dh = 16, 2, 8
+    scale = torch.ones(P, 1, 1)
+    scale[5] = 1e-3
+    ref = tuple((torch.randn(P, H, Dh, generator=gen) * scale).to(
+        torch.bfloat16) for _ in range(2))
+    ref[0][9] = 0.0
+    up = ref[0].view(torch.int16) + ((torch.rand(P, H, Dh, generator=gen)
+                                      < 0.3) & (ref[0] != 0)).to(torch.int16)
+    flipped = (up.view(torch.bfloat16), ref[1])
+    assert bench.check_kernel("B6b", "toy", flipped, ref)[2] == 0.0
+    small = ref[0].clone()
+    small[5] = 0.0
+    written = ref[0].clone()
+    written[9] = 1e-3
+    for got in (small, written):
+        assert benchlib.disagreement(("g_a",), (got,), ref[:1],
+                                     "bfloat16") is None
+        with pytest.raises(bench.BenchFailure, match="bank row"):
+            bench.check_kernel("B6b", "toy", (got, ref[1]), ref)
+
+
 # ---------------------------------------------------------------- spans
 
 

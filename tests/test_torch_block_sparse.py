@@ -47,12 +47,14 @@ from gtos_tpu_torch.ops.block_sparse_attention import (
     block_sparse_relation_attention_trainable, tile_pairs,
 )
 from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
-    BANK_CHUNK, SHORT_RUN, backward_plan, bank_work,
-    block_sparse_bank_grads_reference,
+    BANK_CHUNK, PAIR_CAP, SHORT_RUN, backward_plan, bank_work,
+    block_sparse_bank_grads_reference, pair_cap, pair_capacity, real_pairs,
+    work_bounds, work_list_covers,
 )
 from gtos_tpu_torch.ops.sparse_relation import (
     flatten_edge_cells, sparse_relation_attention,
 )
+from gtos_tpu_torch.train.trainer import check_metrics
 from gtos_tpu_torch.utils.config import ModelConfig
 from test_torch_cuda import make_block_case, port_block_args
 
@@ -358,12 +360,13 @@ def test_backward_plan_src_major_order():
     ts, tr = (_t(x) for x in pack_block_sparse(kp, rp))
     td, trs = (_t(x) for x in pack_block_sparse_src(kp, rp))
     assert bool((ts < 0).any()) and bool((td < 0).any())
-    plan = backward_plan(ts, tr, td, trs, 200, 37)
+    plan = backward_plan(ts, tr, td, trs, 200, 37, pair_capacity(tr))
     *dst, valid = tile_pairs(ts, tr, 200, 37)
     sb, sj, si, sr, svalid = tile_pairs(td, trs, 200, 37)
-    d2s = plan["dst2src"].long()
-    assert plan["E"] == int(keep.sum())
-    assert torch.equal(torch.sort(d2s)[0], torch.arange(plan["E"]))
+    E = int(plan["E"])
+    d2s = plan["dst2src"].long()[:E]
+    assert E == int(keep.sum())
+    assert torch.equal(torch.sort(d2s)[0], torch.arange(E))
     for x, y in zip(dst, (sb, si, sj, sr)):
         assert torch.equal(x, y[d2s])
     for key, v in (("row_base", valid), ("src_row_base", svalid)):
@@ -374,7 +377,7 @@ def test_backward_plan_src_major_order():
                            torch.cumsum(counts, 0) - counts)
     trs[trs >= 0] = -1
     with pytest.raises(ValueError, match="src-major"):
-        backward_plan(ts, tr, td, trs, 200, 37)
+        backward_plan(ts, tr, td, trs, 200, 37, pair_capacity(tr))
 
 
 def test_bank_work_list():
@@ -417,19 +420,21 @@ def test_backward_plan_bank_work():
     plain version's bank gradients."""
     c = make_block_case(2, 2, 256, 16, 300, 0.1, seed=3, rows=200, hot=0.3)
     (q, k, _, a, b, ts, tr), (td, trs), _ = port_block_args(c)
-    plan = backward_plan(ts, tr, td, trs, 256, 300)
-    bi, i, j, r = plan["pairs"]
-    pid = plan["pid"].long()
+    plan = backward_plan(ts, tr, td, trs, 256, 300, pair_capacity(tr))
+    bi, i, j, r = real_pairs(plan)
+    E = len(r)
+    pid = plan["pid"].long()[:E]
     assert torch.equal(pid, torch.argsort(r, stable=True))
-    assert torch.equal(plan["qrow"].long(), (bi * 256 + i)[pid])
-    assert torch.equal(plan["krow"].long(), (bi * 256 + j)[pid])
+    assert torch.equal(plan["qrow"].long()[:E], (bi * 256 + i)[pid])
+    assert torch.equal(plan["krow"].long()[:E], (bi * 256 + j)[pid])
     rs = r[pid]
-    chunks, shorts, multi = (plan[n] for n in ("bank_chunks", "bank_shorts",
-                                               "bank_multi"))
+    counts = plan["bank_counts"].tolist()
+    chunks, shorts, multi = (plan[n][:c] for n, c in zip(
+        ("bank_chunks", "bank_shorts", "bank_multi"), counts))
     assert int((chunks[:, 1] > SHORT_RUN).sum()) > 0 and len(multi) > 0
     assert bool((shorts[:, 1] <= SHORT_RUN).all())
     assert bool((chunks[:, 1] <= BANK_CHUNK).all())
-    seen = torch.zeros(plan["E"], dtype=torch.int64)
+    seen = torch.zeros(E, dtype=torch.int64)
     for lo, n, row, _ in torch.cat([chunks, shorts]).tolist():
         seen[lo:lo + n] += 1
         assert bool((rs[lo:lo + n] == row).all())
@@ -437,9 +442,9 @@ def test_backward_plan_bank_work():
     used = torch.zeros(300, dtype=torch.uint8)
     used[r] = 1
     assert torch.equal(plan["bank_used"], used)
-    assert plan["bank_slots"] == int(multi[:, 1].sum())
+    assert counts[3] == int(multi[:, 1].sum()) <= plan["bank_slots"]
     # B6b's walk over the list, in f32
-    geq = torch.randn(2, plan["E"]).T.float()                   # [E, H]
+    geq = torch.randn(2, E).T.float()                           # [E, H]
     H, Dh = q.shape[1], q.shape[3]
     qr, kr = q[bi, :, i][pid], k[bi, :, j][pid]                 # [E, H, Dh]
     w = geq[pid][..., None]
@@ -449,7 +454,7 @@ def test_backward_plan_bank_work():
             (w[lo:lo + n] * kr[lo:lo + n]).sum(0), w[lo:lo + n, :, 0].sum(0)
     g_a = torch.zeros(300, H, Dh)
     g_b = torch.zeros(300, H, Dh)
-    part = [None] * plan["bank_slots"]
+    part = [None] * counts[3]
 
     def write(row, sq, sk, dt4):
         g_b[row] = sq + dt4[:, None] * a[row]
@@ -465,10 +470,231 @@ def test_backward_plan_bank_work():
         write(row, *(sum(p[x] for p in part[first:first + n])
                      for x in range(3)))
     ref_a, ref_b = block_sparse_bank_grads_reference(q, k, a, b, geq.T,
-                                                     plan["pairs"])
+                                                     plan)
     # f32 sums of up to ~4k terms of size ~1 in another order
     torch.testing.assert_close(g_a, ref_a, rtol=1e-5, atol=5e-4)
     torch.testing.assert_close(g_b, ref_b, rtol=1e-5, atol=5e-4)
+
+
+# ------------------------------------------- the capturable backward plan
+
+
+def _case(kind, seed=0):
+    """A block-sparse case of one kind of bank-row runs: "multi" (a third
+    of the pairs on bank row 0, a run of ~4k pairs, over 2 BANK_CHUNK),
+    "shorts" (every row's run at most SHORT_RUN pairs), "dense" (every
+    pair of both graphs kept: E = 2 * 128^2, a power of two, so the
+    batch's pair capacity is E itself) and "empty" (no pair kept)."""
+    if kind == "multi":
+        return make_block_case(2, 2, 128, 16, 300, 0.4, seed=seed, rows=200,
+                               hot=0.3)
+    if kind == "shorts":
+        return make_block_case(1, 2, 128, 16, 1000, 0.03, seed=seed)
+    c = make_block_case(2, 2, 128, 16, 50, 1.0, seed=seed)
+    c["keep"][:] = kind == "dense"
+    c["tile_src"], c["tile_rel"] = pack_block_sparse(c["keep"],
+                                                     c["rel_index"])
+    c["tile_dst"], c["tile_rel_src"] = pack_block_sparse_src(
+        c["keep"], c["rel_index"])
+    return c
+
+
+def _todays_plan(ts, tr, td, trs, N, P):
+    """The plan's real part built the way it was before it could be
+    captured (nonzero, unique_consecutive and numpy bank_work on the
+    host), as the reference for the padded plan's real prefix."""
+    bi, i, j, r, valid = tile_pairs(ts, tr, N, P)
+    sb, sj, si, sr, svalid = tile_pairs(td, trs, N, P)
+    skey = (sb * N + si) * N + sj
+    by_key = torch.argsort(skey)
+    at = torch.searchsorted(skey[by_key], (bi * N + i) * N + j)
+    order = torch.argsort(r, stable=True)
+    run_r, run_len = torch.unique_consecutive(r[order], return_counts=True)
+
+    def base(v):
+        n = v.sum(-1).flatten()
+        return (torch.cumsum(n, 0) - n).view(v.shape[:-1])
+    used = torch.zeros(P, dtype=torch.uint8)
+    used[run_r] = 1
+    return dict(row_base=base(valid), src_row_base=base(svalid),
+                dst2src=by_key[at], pid=order, qrow=(bi * N + i)[order],
+                krow=(bi * N + j)[order], bank_used=used,
+                work=bank_work(run_r.numpy(), run_len.numpy()))
+
+
+@pytest.mark.parametrize("kind", ["multi", "shorts", "dense", "empty"])
+def test_padded_plan_keeps_todays_order_and_matches_jax(kind):
+    """backward_plan at the batch's pair capacity (pair_capacity: a power
+    of two, E itself for "dense", 1 for "empty"): its shapes follow from
+    the layouts, P and the capacity alone; the real prefix of row_base,
+    src_row_base, dst2src, pid, qrow, krow and bank_used equals the
+    host-built plan's element for element; the work list's real entries
+    equal numpy bank_work's, its padding entries are no-ops ((0, 0, P, -1)
+    chunks, (0, 0, P, 0) shorts and multi) and work_list_covers holds it;
+    and the trainable entry's backward, whose plain B6b sums the padded
+    pairs, gives jax.vjp of the Pallas kernels' (interpret mode) gradients
+    at rtol 2e-3, atol 2e-4 (test_b6_plain_matches_pallas_vjp's)."""
+    c = _case(kind, seed=5)
+    args, (td, trs), g = port_block_args(c)
+    N, P = c["q"].shape[2], c["a_bank"].shape[0]
+    cap = pair_capacity(c["tile_rel"])
+    plan = backward_plan(args[5], args[6], td, trs, N, P, cap)
+    ref = _todays_plan(args[5], args[6], td, trs, N, P)
+    E = int(plan["E"])
+    assert E == int(c["keep"].sum()) and bool(plan["ok"])
+    assert cap == {"dense": E, "empty": 1}.get(kind, cap) and E <= cap
+    runs, n_chunks, n_multi, slots = work_bounds(cap, P)
+    for key, shape in (("dst2src", (cap,)), ("pid", (cap,)),
+                       ("qrow", (cap,)), ("krow", (cap,)),
+                       ("bank_chunks", (n_chunks, 4)),
+                       ("bank_shorts", (runs, 4)),
+                       ("bank_multi", (n_multi, 4)), ("bank_used", (P,))):
+        assert tuple(plan[key].shape) == shape, key
+    assert plan["cap"] == cap and plan["bank_slots"] == slots
+    for key in ("row_base", "src_row_base", "bank_used"):
+        assert torch.equal(plan[key].long(), ref[key].long()), key
+    for key in ("dst2src", "pid", "qrow", "krow"):
+        assert torch.equal(plan[key][:E].long(), ref[key]), key
+    counts = plan["bank_counts"].tolist()
+    names = ("bank_chunks", "bank_shorts", "bank_multi")
+    for name, n, want, pad in zip(names, counts, ref["work"],
+                                  ([0, 0, P, -1], [0, 0, P, 0],
+                                   [0, 0, P, 0])):
+        assert n == len(want), name
+        np.testing.assert_array_equal(plan[name][:n].numpy(), want, name)
+        assert bool((plan[name][n:] == torch.tensor(pad)).all()), name
+    assert counts[3] == int(ref["work"][2][:, 1].sum())
+    assert bool(work_list_covers(plan, P))
+    if kind == "multi":
+        assert counts[2] > 0 and int(ref["work"][2][:, 1].max()) > 2
+    if kind == "shorts":
+        assert counts[0] == 0 and counts[1] > 0
+    leaves = [x.clone().requires_grad_() for x in args[:5]]
+    out = block_sparse_relation_attention_trainable(
+        *leaves, *args[5:], tile_dst=td, tile_rel_src=trs, plan=plan)
+    grads = torch.autograd.grad(out, leaves, g)
+    ja = _jax_args(c)
+    _, vjp = jax.vjp(lambda *x: _blk_vjp_pallas(
+        True, *x, *ja[5:], jnp.asarray(c["tile_dst"]),
+        jnp.asarray(c["tile_rel_src"])), *ja[:5])
+    for name, x, y in zip(GRADS, grads, vjp(jnp.asarray(c["g"]))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=2e-3,
+                                   atol=2e-4, err_msg=name)
+
+
+def test_padded_plan_shapes_follow_the_signature():
+    """Two batches of one signature (layout shapes, P, pair capacity) but
+    different kept pairs give plans whose tensors have equal shapes and
+    dtypes, and the plain B6b over the padded plan equals the plain B6b
+    over the same plan cut to exactly E slots (the padding summed
+    nowhere); a src-major layout that holds other pairs, and a capacity
+    below E, raise ValueError at once on the CPU."""
+    plans, cases = [], []
+    for seed in (1, 2):
+        c = make_block_case(2, 2, 256, 16, 300, 0.1, seed=seed)
+        (q, k, _, a, b, ts, tr), (td, trs), _ = port_block_args(c)
+        plans.append(backward_plan(ts, tr, td, trs, 256, 300, 16384))
+        cases.append((q, k, a, b, ts, tr, td, trs))
+    assert int(plans[0]["E"]) != int(plans[1]["E"])
+    for key, x in plans[0].items():
+        y = plans[1][key]
+        for u, w in zip(*((x, y) if key == "pairs" else ((x,), (y,)))):
+            if isinstance(u, torch.Tensor):
+                assert u.shape == w.shape and u.dtype == w.dtype, key
+            else:
+                assert u == w, key
+    q, k, a, b, ts, tr, td, trs = cases[0]
+    plan = plans[0]
+    E = int(plan["E"])
+    tight = backward_plan(ts, tr, td, trs, 256, 300, E)
+    ge = torch.randn(2, 16384)
+    for x, y in zip(block_sparse_bank_grads_reference(q, k, a, b, ge, plan),
+                    block_sparse_bank_grads_reference(q, k, a, b, ge[:, :E],
+                                                      tight)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="capacity"):
+        backward_plan(ts, tr, td, trs, 256, 300, E - 1)
+    trs = trs.clone()
+    trs[0, 0, 0, 5, 5] = 7 if int(trs[0, 0, 0, 5, 5]) != 7 else 8
+    with pytest.raises(ValueError, match="src-major"):
+        backward_plan(ts, tr, td, trs, 256, 300, 16384)
+
+
+def _broken(plan, fault):
+    """The plan with one fault in B6b's work list."""
+    counts = plan["bank_counts"].tolist()
+    lists = {n: plan[n].clone() for n in ("bank_chunks", "bank_shorts",
+                                          "bank_multi", "bank_counts")}
+    chunks, shorts = lists["bank_chunks"], lists["bank_shorts"]
+    E = int(plan["E"])
+    if fault == "last chunk left out":
+        chunks[counts[0] - 1, 1] = 0
+    elif fault == "padding place read":         # the run ending at E
+        for w, n in ((chunks, counts[0]), (shorts, counts[1])):
+            end = (w[:n, 0] + w[:n, 1] == E).nonzero()
+            w[end, 1] += 1
+    elif fault == "a short summed twice":
+        shorts[1] = shorts[0]
+    elif fault == "wrong row":
+        shorts[0, 2] = (shorts[0, 2] + 1) % 300
+    elif fault == "padding entry counted":
+        lists["bank_counts"][1] += 1
+    elif fault == "a slot combined by none":
+        lists["bank_multi"][0, 1] -= 1
+    return dict(plan, **lists)
+
+
+@pytest.mark.parametrize("fault", [
+    "last chunk left out", "padding place read", "a short summed twice",
+    "wrong row", "padding entry counted", "a slot combined by none"])
+def test_work_list_check_refuses_a_broken_list(fault):
+    """work_list_covers, the check of the work list that the plain B6b
+    does not read, holds a sound plan ("multi": chunks, shorts and runs of
+    several chunks) and refuses each fault; the plain B6b (from the padded
+    pairs) is the same on the broken plan, so the kernel's gate, not the
+    plain version, sees a kernel that follows a broken list."""
+    c = _case("multi", seed=5)
+    (q, k, _, a, b, ts, tr), (td, trs), _ = port_block_args(c)
+    plan = backward_plan(ts, tr, td, trs, 128, 300, pair_capacity(tr))
+    assert bool(work_list_covers(plan, 300))
+    bad = _broken(plan, fault)
+    assert not bool(work_list_covers(bad, 300))
+    ge = torch.randn(2, plan["cap"])
+    for x, y in zip(block_sparse_bank_grads_reference(q, k, a, b, ge, plan),
+                    block_sparse_bank_grads_reference(q, k, a, b, ge, bad)):
+        assert torch.equal(x, y)
+
+
+def test_the_pair_capacity_rides_on_train_batches_only(corpora):
+    """batch_to_device gives a batch with a src-major tile layout its
+    pair capacity as a zero-element [0, E_cap] array (E_cap =
+    pair_capacity of tile_rel: a power of two at or above its kept
+    entries), which pair_cap reads back; train=False (the search) leaves
+    it out, and so does a batch without the src-major layout."""
+    _, (pi, pv) = corpora
+    pb = batchify(pi[:3], *pv, spec=BucketSpec(**SPEC), for_train=True,
+                  build_edges=True, build_block_tiles=True, sparse_khop=2)
+    t = batch_to_device(pb.arrays(), "cpu")
+    n = int((pb.tile_rel >= 0).sum())
+    cap = pair_capacity(pb.tile_rel)
+    assert t[PAIR_CAP].shape == (0, cap) and pair_cap(t) == cap
+    assert n <= cap < 2 * n and cap & (cap - 1) == 0
+    assert PAIR_CAP not in batch_to_device(pb.arrays(), "cpu", train=False)
+    plain = batchify(pi[:3], *pv, spec=BucketSpec(**SPEC), for_train=True)
+    assert PAIR_CAP not in batch_to_device(plain.arrays(), "cpu")
+    with pytest.raises(ValueError, match="pair capacity"):
+        pair_cap(batch_to_device(pb.arrays(), "cpu", train=False))
+
+
+def test_a_false_layout_flag_raises_when_the_metrics_are_read():
+    """On the card the plan's layout check is a device flag that the train
+    step returns as "layout_ok"; reading a false one raises the plan's
+    ValueError, a true or missing one nothing."""
+    check_metrics({"loss": torch.tensor(1.0), "layout_ok": torch.tensor(1.0)})
+    check_metrics({"loss": torch.tensor(1.0)})
+    with pytest.raises(ValueError, match="src-major"):
+        check_metrics({"loss": torch.tensor(1.0),
+                       "layout_ok": torch.tensor(0.0)})
 
 
 # ------------------------------------------------------- the whole model

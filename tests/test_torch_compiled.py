@@ -63,7 +63,8 @@ SMALL = dict(d_model=64, d_ff=128, heads=4, enc_layers=2, dec_layers=2,
 # rounding noise in both packages (tests/test_torch_train.py)
 ZERO_GRAD = ("self_attn.k_proj.bias", "cross_attn.k_proj.bias")
 IMPLS = {"pallas_local": "pallas_local_interpret",
-         "pallas": "pallas_interpret"}
+         "pallas": "pallas_interpret",
+         "block_sparse": "block_sparse_interpret"}
 
 
 def _setup(impl="pallas_local", for_train=True, **cfg):
@@ -81,6 +82,9 @@ def _jax_side(impl, for_train, cfg):
     jv = jax_build_vocabs(graphs_, targets)
     kw = dict(batch_size_bucket=8, for_train=for_train,
               build_local_banks=impl == "pallas_local")
+    if impl == "block_sparse":      # tile layouts at k-hop 2
+        kw.update(build_block_tiles=True, sparse_khop=2)
+        cfg = cfg + (("sparse_khop", 2),)
     ja = jax_batchify(jax_preprocess(graphs_, targets), *jv, **kw).arrays()
     g2, t2 = synthetic_amr_corpus(6, seed=3)
     pa = batchify(preprocess(g2, t2), *build_vocabs(g2, t2), **kw).arrays()
@@ -146,8 +150,11 @@ def _moments_close(got, ref, names, rtol, frac, what):
                                    err_msg=f"{what} {name}")
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_from_a_jax_state_matches_jax(accum):
+@pytest.mark.parametrize("accum,impl", [
+    pytest.param(1, "pallas_local", id="1"),
+    pytest.param(2, "pallas_local", id="2"),
+    pytest.param(1, "block_sparse", id="block_sparse")])
+def test_train_step_from_a_jax_state_matches_jax(accum, impl):
     """The port's make_train_step from train_state_from_jax of a JAX
     TrainState 4 optimizer steps in (past the 3-step warm-up), then 3
     steps of each package on two alternating batches, a clip every step
@@ -160,8 +167,11 @@ def test_train_step_from_a_jax_state_matches_jax(accum):
     same terms in another order, off by up to 2e-5 of a tensor's largest
     gradient, and an element near zero keeps that absolute error), the
     count and the step; with accumulation also MultiSteps' running mean
-    (as mu) and mini-step."""
-    s = _setup(copy_impl="scatter", label_smoothing=0.1)
+    (as mu) and mini-step. Under "pallas_local" and, with tile layouts at
+    k-hop 2, under "block_sparse" (the Pallas kernels in interpret mode
+    against B5s's and B6's plain versions, B6b walking the padded backward
+    plan built inside the step); each step's "layout_ok" is true."""
+    s = _setup(impl, copy_impl="scatter", label_smoothing=0.1)
     kw = dict(warmup_steps=3, grad_clip=0.5, accum_steps=accum,
               adam_eps=1e-6, weight_decay=0.01 if accum == 1 else 0.0)
     tx = make_optimizer(JaxTrainConfig(**kw), SMALL["d_model"])
@@ -190,6 +200,7 @@ def test_train_step_from_a_jax_state_matches_jax(accum):
         np.testing.assert_allclose(pmet["acc"].item(), float(jmet["acc"]),
                                    atol=1e-6)
         assert pmet["n_tok"].item() == float(jmet["n_tok"])
+        assert pmet["layout_ok"].item() == 1.0
     assert pstate.step == int(jstate.step) == 4 * accum + 3
     names = [n for n, _ in pm.named_parameters()]
     lr_sum = sum(opt.schedule(torch.tensor(c)).item() for c in range(7))

@@ -31,7 +31,7 @@ from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
     backward_plan, block_sparse_attention_bwd_dst,
     block_sparse_attention_bwd_dst_reference, block_sparse_attention_bwd_src,
     block_sparse_attention_bwd_src_reference, block_sparse_bank_grads,
-    block_sparse_bank_grads_reference, prep_bwd_invariants,
+    block_sparse_bank_grads_reference, pair_capacity, prep_bwd_invariants,
 )
 from gtos_tpu_torch.ops.localize import localize_bank
 from gtos_tpu_torch.ops.relation_attention import (
@@ -746,22 +746,25 @@ def test_cuda_block_sparse_kernels_match_plain_versions(
     torch.testing.assert_close(m, m_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=1e-5)
     gp, delta = prep_bwd_invariants(q, g, out)
-    plan = backward_plan(ts, tr, td, trs, N, P)
+    plan = backward_plan(ts, tr, td, trs, N, P, pair_capacity(tr))
     bwd = (q, k, v, a, b, t4, gp, m, l, delta)
     runs = []
+    E = int(plan["E"])   # ge, pair_s: [H, E_cap], the first E columns real
     for _ in range(2):
         dst = block_sparse_attention_bwd_dst(*bwd, ts, tr, plan)
         runs.append((dst, block_sparse_attention_bwd_src(
             *bwd, td, trs, plan, dst[2])))
     banks = [block_sparse_bank_grads(q, k, a, b, dst[1], plan)
              for dst, _ in runs]
+    runs = [((dq, ge[:, :E], ps[:, :E]), src)
+            for (dq, ge, ps), src in runs]
     (dq, ge, _), (dk, dv) = runs[0]
     dq_ref, ge_ref = block_sparse_attention_bwd_dst_reference(*bwd, ts, tr)
     dk_ref, dv_ref = block_sparse_attention_bwd_src_reference(*bwd, td, trs)
     ga_ref, gb_ref = block_sparse_bank_grads_reference(q, k, a, b, ge_ref,
-                                                       plan["pairs"])
+                                                       plan)
     torch.cuda.synchronize()
-    assert ge.shape == (H, plan["E"])
+    assert ge.shape == ge_ref.shape == (H, E)
     for x, y in zip((dq, ge, dk, dv, *banks[0]),
                     (dq_ref, ge_ref, dk_ref, dv_ref, ga_ref, gb_ref)):
         assert x.dtype == y.dtype
@@ -875,7 +878,7 @@ def test_cuda_block_sparse_edge_cases(card, case, dtype, tol):
     assert torch.equal(rows_out, torch.zeros_like(rows_out))
     assert bool((m.transpose(1, 2)[empty] == -1e9).all())
     assert bool((l.transpose(1, 2)[empty] == 0).all())
-    plan = backward_plan(ts, tr, td, trs, N, P)
+    plan = backward_plan(ts, tr, td, trs, N, P, pair_capacity(tr))
     gp, delta = prep_bwd_invariants(q, g, out)
     bwd = (q, k, v, a, b, t4, gp, m, l, delta)
     dq, ge, _ = block_sparse_attention_bwd_dst(*bwd, ts, tr, plan)
@@ -886,12 +889,13 @@ def test_cuda_block_sparse_edge_cases(card, case, dtype, tol):
         junk = [torch.full_like(a, float("nan")) for _ in range(2)]
         del junk
         banks.append(block_sparse_bank_grads(q, k, a, b, ge, plan))
-    refs = block_sparse_bank_grads_reference(q, k, a, b, ge, plan["pairs"])
+    refs = block_sparse_bank_grads_reference(q, k, a, b, ge, plan)
     torch.cuda.synchronize()
     used = plan["bank_used"].bool()
     if case == "long_run":
-        assert len(plan["bank_multi"]) >= 1
-        assert int(plan["bank_multi"][:, 1].max()) > 2
+        n_multi = int(plan["bank_counts"][2])
+        assert n_multi >= 1
+        assert int(plan["bank_multi"][:n_multi, 1].max()) > 2
     if case == "unreferenced_rows":
         assert int((~used).sum()) >= P - rows
     for x, y, again in zip(banks[0], refs, banks[1]):
@@ -933,7 +937,10 @@ def test_cuda_timers_read_events_and_device_time(card):
         benchlib.time_samples(b2, iters=3, cold=True, bound_s=1.0)
 
 
-def _small_train_setup(seed, dtype="float32", dropout=0.1):
+def _small_train_setup(seed, dtype="float32", dropout=0.1,
+                       impl="pallas_local"):
+    """A 2+2-layer d=64 model config and a training batch of 8 synthetic
+    graphs under `impl` ("block_sparse": tile layouts at k-hop 2)."""
     from gtos_tpu_torch.data import batchify
     from gtos_tpu_torch.data.dataloader import preprocess
     from gtos_tpu_torch.data.extract import build_vocabs
@@ -942,14 +949,17 @@ def _small_train_setup(seed, dtype="float32", dropout=0.1):
 
     g, t = synthetic_amr_corpus(8, seed=seed)
     tv, cv, rv, chv, lm = build_vocabs(g, t)
+    flags = (dict(build_block_tiles=True, sparse_khop=2)
+             if impl == "block_sparse" else dict(build_local_banks=True))
     batch = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
-                     build_local_banks=True)
+                     **flags)
     cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
                       relation_vocab=len(rv), char_vocab=len(chv),
                       d_model=64, d_ff=128, heads=4, enc_layers=2,
                       dec_layers=2, max_target_len=32, dropout=dropout,
                       label_smoothing=0.1, compute_dtype=dtype,
-                      attention_impl="pallas_local")
+                      attention_impl=impl,
+                      sparse_khop=2 if impl == "block_sparse" else 0)
     return cfg, batch
 
 
@@ -971,7 +981,8 @@ def _train_three(cfg, batch, compiled):
 
 
 @pytest.mark.cuda
-def test_cuda_captured_train_steps_match_eager(card):
+@pytest.mark.parametrize("impl", ["pallas_local", "block_sparse"])
+def test_cuda_captured_train_steps_match_eager(card, impl):
     """Three Trainer steps on one batch (dropout 0.1, so the dropout
     generator is in the graph) on the CUDA graph (the first step runs
     uncaptured and captures, the others replay) against three uncaptured
@@ -980,10 +991,15 @@ def test_cuda_captured_train_steps_match_eager(card):
     fixed order, and Adam makes a step of the learning rate of a last-bit
     change near 0): the losses and parameters as close as a second
     uncaptured run comes (twice its gap), and the dropout generator ends
-    in the same state."""
+    in the same state. Under "block_sparse" (the backward plan built
+    inside the step): the captured run's losses, parameters, Adam's
+    moments and count the same bits as the uncaptured run's; building the
+    plan and an uncaptured step read nothing from the card
+    (set_sync_debug_mode "error"); and B6b on the plan at the batch's
+    pair capacity gives the same bits as on the plan padded to exactly E."""
     from gtos_tpu_torch.utils.benchlib import deterministic_algorithms
 
-    cfg, batch = _small_train_setup(6)
+    cfg, batch = _small_train_setup(6, impl=impl)
     with deterministic_algorithms():
         e1, e2, got = (_train_three(cfg, batch, c)
                        for c in (False, False, None))
@@ -996,6 +1012,48 @@ def test_cuda_captured_train_steps_match_eager(card):
                       zip(a[1], b[1])])
 
     assert gap(got, e1) <= 2 * gap(e2, e1)
+    if impl == "block_sparse":
+        assert torch.equal(got[0], e1[0])
+        assert all(torch.equal(x, y) for x, y in zip(got[1], e1[1]))
+        sg, se = got[3].opt.state, e1[3].opt.state
+        assert int(sg["count"]) == int(se["count"]) == 3
+        for key in ("mu", "nu"):
+            assert all(torch.equal(x, y) for x, y in zip(sg[key], se[key]))
+        _block_sparse_step_reads_nothing(cfg, batch)
+
+
+def _block_sparse_step_reads_nothing(cfg, batch):
+    """The plan and an uncaptured block_sparse step under sync debug
+    "error", and B6b on the padded plan against the plan cut to E."""
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import pair_cap
+
+    a = batch_to_device(batch.arrays(), "cuda")
+    N, P = a["concept"].shape[1], a["rel_bank"].shape[0]
+    layouts = (a["tile_src"], a["tile_rel"], a["tile_dst"],
+               a["tile_rel_src"])
+    *_, trainer = _train_three(cfg, batch, False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = backward_plan(*layouts, N, P, pair_cap(a))
+        trainer.train_step(a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    E = int(plan["E"])
+    assert bool(plan["ok"]) and E <= plan["cap"]
+    plan = backward_plan(*layouts, N, P, 2 * plan["cap"])   # padding, surely
+    tight = backward_plan(*layouts, N, P, E)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    H, Dh = cfg.heads, cfg.d_model // cfg.heads
+    q, k = (torch.randn(a["concept"].shape[0], H, N, Dh, device="cuda",
+                        generator=rng) for _ in range(2))
+    ab = [torch.randn(P, H, Dh, device="cuda", generator=rng)
+          for _ in range(2)]
+    ge = torch.randn(H, plan["cap"], device="cuda", generator=rng)
+    got = block_sparse_bank_grads(q, k, *ab, ge, plan)
+    want = block_sparse_bank_grads(q, k, *ab, ge[:, :E].contiguous(), tight)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.cuda

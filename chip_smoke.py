@@ -138,7 +138,7 @@ Phases, each of which exits non-zero on failure:
   19. compiled — the compiled step and search (CUDA graphs per batch
                signature, utils/graphs.py; ROADMAP A11): c2 "pallas_local"
                training at full width with dropout 0.2, 5 batches twice,
-               three times uncaptured and once on the graphs: the same
+               twice uncaptured and once on the graphs: the same
                losses, the dropout generator and Adam's count, and every
                parameter and moment as close as the uncaptured runs come
                (COMPILED_SPREAD, COMPILED_FLOOR; these comparisons and
@@ -163,7 +163,23 @@ Phases, each of which exits non-zero on failure:
                real pair) failing there; printed: host launch calls, device kernels, busy ms
                and idle share of a captured train and decode step (c5's
                too), the graph pool and capture ms;
-  20. profile — with --profile only: torch.profiler over each served batch
+  20. mesh compiled — the mesh step captured (ROADMAP A11 item 2), in
+               this process on a data-parallel mesh of one NCCL rank (its
+               token-count, metric and gradient all-reduces on the card):
+               the first 3 train batches of c2 "pallas_local" and
+               "pallas", c4 and c5 "block_sparse", twice, the mesh Trainer
+               captured against the same Trainer uncaptured under
+               deterministic algorithms: every loss, parameter, moment,
+               Adam's count and the dropout generator the same bits, and
+               the mesh eval step the same bits; two planted faults in
+               the dropout generator's registration (MESH_PLANTS) fail
+               that or are refused at capture; for c2 and c5 a profile
+               of replayed and of uncaptured mesh steps (host launch
+               calls, device kernels, NCCL kernels, busy ms, idle share,
+               pool, capture ms) and the step from memory captured and
+               uncaptured, median [min-max] of 5 passes, beside the card
+               line;
+  21. profile — with --profile only: torch.profiler over each served batch
                ("pallas_local"), over one train step ("pallas_local" and
                "pallas") and over one c4 and one c5 train step on each
                captured batch ("pallas_local", "block_sparse"), the device busy time, idle share,
@@ -171,8 +187,9 @@ Phases, each of which exits non-zero on failure:
                "pallas_local" also the shares of B1p, B2 and of any copy
                of the bank halves a/b (and of their slice backward), for
                "pallas" those of B3, B3' and B4.
-The last three lines are the kernel table (JSON), the card's name and
-power limit, and {"ok": true, "device": {...}}.
+Each group of phases prints its seconds ("[time]"), and "[done]" all of
+them. The last three lines are the kernel table (JSON), the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -215,7 +232,7 @@ TRAIN_STEPS, LOG_EVERY = 20, 5
 # whose banks fit _inline_fits (B3')
 PALLAS_STEPS, PALLAS_INLINE_STEPS = 16, 4
 AUTO_STEPS_PER_ROUTE = 3
-WORK_SYNTHETIC, WORK_STEPS, WORK_GRAPHS = 256, 6, 48
+WORK_SYNTHETIC, WORK_STEPS, WORK_GRAPHS = 256, 4, 48
 OVERFIT_STEPS, OVERFIT_RATIO = 100, 0.5  # last loss < 0.5 x the first
 RESUME_AT, RESUME_MORE = 4, 4
 CAPTURE_BATCHES = 3                      # train batches behind the B1p/B2 rows
@@ -254,7 +271,7 @@ SPARSE_TOL = dict(rel=1e-3, loss=1e-5)
 # deterministic_algorithms): the default ones sum the copy mass, the char
 # CNN's and the embeddings' gradients and "sparse"'s messages in no fixed
 # order, and Adam turns a last-bit change of a gradient near 0 into a
-# step of the learning rate, a tail that three runs do not sample
+# step of the learning rate, a tail that a few runs do not sample
 COMPILED_SPREAD = 4.0
 COMPILED_FLOOR = dict(loss=2.0 ** -20, state=2.0 ** -20, score=2.0 ** -17)
 # phase_bench: the bench's cells that chip_smoke runs, and their repeats
@@ -2862,7 +2879,8 @@ def phase_mesh_cli():
     """(a) The train CLI on the c5 config under "block_sparse" as a mesh
     of one rank (--graph 1 --dp 1: init_process_group with NCCL,
     shard_arrays, the loss over the all-reduced token count, the gradient
-    all-reduce) against --dp 0 on the same synthetic corpus and seed: the
+    all-reduce; its [mesh] line must report the step captured) against
+    --dp 0 on the same synthetic corpus and seed: the
     same losses and parameters after WORK_STEPS steps, bit for bit; and
     the mesh run stopped at half the steps and resumed (rank 0 reads the
     checkpoint and broadcasts it, every data rank's dropout generator in
@@ -2902,10 +2920,11 @@ def phase_mesh_cli():
                   f"{lines[-1]['tokens_per_s']:.1f} target tokens/s, "
                   f"{1e3 * wall / WORK_STEPS:.1f} ms a step of CLI wall "
                   f"({wall:.1f} s, start-up included)", flush=True)
-            if tag == "dp1" and (not mesh or "nccl" not in mesh[0]
-                                 or "world 1" not in mesh[0]):
-                fail("the --dp 1 run did not report an NCCL mesh of one "
-                     f"rank: {mesh}")
+            if tag != "dp0" and (not mesh or "nccl" not in mesh[0]
+                                 or "world 1" not in mesh[0]
+                                 or "step captured" not in mesh[0]):
+                fail(f"the --dp 1 run ({tag}) did not report an NCCL mesh "
+                     f"of one rank whose step is captured: {mesh}")
         (l0, p0), (l1, p1) = runs["dp0"], runs["dp1"]
         same = (l0["loss"] == l1["loss"] and p0.keys() == p1.keys()
                 and all(torch.equal(p0[k], p1[k]) for k in p0))
@@ -3666,6 +3685,7 @@ def _ids(tv):
     return dict(str_id=tv.str_id, end_id=tv.end_id, unk_id=tv.unk_id)
 
 
+@functools.lru_cache(maxsize=None)
 def compiled_batches(family, impl):
     """The cell's train batches: the loader's first ones; under "pallas"
     two with the 4096-row bank (B3) and one whose bank fits _inline_fits
@@ -3725,7 +3745,7 @@ def run_gap(a, b):
 
 def compiled_train(family, impl):
     """(a)/(b): the cell's batches twice uncaptured (compiled=False) in
-    three runs, then on the graphs (phase_compiled runs this under
+    two runs, then on the graphs (phase_compiled runs this under
     deterministic algorithms): the captured run must agree with the
     first uncaptured run as closely as the uncaptured runs agree
     (COMPILED_SPREAD times their largest gap, at least COMPILED_FLOOR),
@@ -3734,11 +3754,10 @@ def compiled_train(family, impl):
     batches."""
     tag = tag_of("compiled train", impl, family)
     batches = compiled_batches(family, impl)
-    e1, e2, e3 = (train_run(family, impl, batches, False) for _ in range(3))
+    e1, e2 = (train_run(family, impl, batches, False) for _ in range(2))
     got = train_run(family, impl, batches, None)
     trainer = got[2]
-    spread = tuple(max(x, y) for x, y in zip(run_gap(e2[:2], e1[:2]),
-                                             run_gap(e3[:2], e1[:2])))
+    spread = run_gap(e2[:2], e1[:2])
     gap = run_gap(got[:2], e1[:2])
     graphs = trainer._step.graphs
     print(f"[{tag}] {len(batches)} batches twice "
@@ -3756,8 +3775,7 @@ def compiled_train(family, impl):
         if x != y:
             fail(f"{tag}: {what} {x} != {y}")
     import torch
-    if not all(torch.equal(r[1]["rng"], e1[1]["rng"]) for r in (e2, e3,
-                                                              got)):
+    if not all(torch.equal(r[1]["rng"], e1[1]["rng"]) for r in (e2, got)):
         fail(f"{tag}: the dropout generator ends in another state on the "
              "graphs")
     for i, what in ((0, "loss"), (1, "state")):
@@ -3773,7 +3791,7 @@ def compiled_eval(family, impl, model, batches):
     """make_eval_step of `model` (a captured train run's, left in train
     mode by its last step, or a served one) on each of the batches: twice
     on the graphs (the signature's first call captures, later ones
-    replay) and three times uncaptured (compiled=False): n_tok equal, the
+    replay) and twice uncaptured (compiled=False): n_tok equal, the
     loss (relative to itself) within COMPILED_SPREAD times the uncaptured
     runs' gap and at least COMPILED_FLOOR["loss"]. acc counts argmax
     hits, so a route whose uncaptured runs differ ("sparse": scatter-adds
@@ -3801,7 +3819,7 @@ def compiled_eval(family, impl, model, batches):
         arrays = batch_to_device(batch.arrays(), "cuda")
         cap1, cap2, ref, *more = (
             {k: v.item() for k, v in step(arrays).items()}
-            for step in (captured, captured, eager, eager, eager))
+            for step in (captured, captured, eager, eager))
         spread = tuple(max(x) for x in zip(*(gaps(m, ref) for m in more)))
         exact = all(m == ref for m in more)
         limit = (max(COMPILED_SPREAD * spread[0], COMPILED_FLOOR["loss"]),
@@ -4056,7 +4074,8 @@ def profile_steps(label, step, steps_per_call, n, card, graphs=None,
     """(f), printed: `n` calls of `step` under torch.profiler, after `warm`
     calls: host calls that launch work on the card (LAUNCH_APIS) a step,
     device kernels and copies a step, busy ms a step, idle share of the
-    wall, and the graph pool's size and capture ms."""
+    wall, and the graph pool's size and capture ms. Returns (the
+    profiler's key averages, steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4083,6 +4102,7 @@ def profile_steps(label, step, steps_per_call, n, card, graphs=None,
           f"kernels and copies a step, busy {busy / steps:.3f} ms a step, "
           f"idle {1 - busy / (wall * 1e3):.3f} of {wall * 1e3 / n:.3f} ms "
           f"a call ({steps} steps){pool}; card {card}", flush=True)
+    return events, steps
 
 
 def phase_compiled():
@@ -4204,6 +4224,282 @@ def phase_compiled():
           flush=True)
 
 
+# phase_mesh_compiled: the cells whose mesh step is captured against
+# uncaptured (MESH_BATCHES of each, twice, so that every signature
+# replays), those profiled and timed, and the timed repeats
+MESH_COMPILED = (("c2", "pallas_local"), ("c2", "pallas"),
+                 ("c4", "pallas_local"), ("c5", "block_sparse"))
+MESH_BATCHES = 3
+MESH_TIMED = (("c2", "pallas_local"), ("c5", "block_sparse"))
+MESH_REPEATS = 5
+# the kernels a captured mesh train step launches, by route: (forward
+# kernels, which together launch once a layer, and backward kernels, each
+# once a layer)
+MESH_ROUTE_KERNELS = {"pallas_local": (("B1p",), ("B2",)),
+                      "pallas": (("B3", "B3'"), ("B4",)),
+                      "block_sparse": (("B5s",), ("B6d", "B6s", "B6b"))}
+
+
+# phase_mesh_compiled (b): planted faults in the dropout generator's
+# registration with the mesh step's graphs
+MESH_PLANTS = {
+    "left out": "the dropout generator left out of every graph but the "
+                "first signature's",
+    "advance undone": "the dropout generator set back after each replay, "
+                      "so that every replay redraws the masks of the one "
+                      "before"}
+
+
+def mesh_run(family, impl, batches, compiled, mesh, plant=None):
+    """Trainer(mesh=mesh).train_step over the batches twice from one
+    seeded start (weights seed 0, the config's dropout): (losses, state:
+    parameters, Adam's moments and count, the dropout generator's state;
+    the trainer). plant: a key of MESH_PLANTS."""
+    import torch
+
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.trainer import Trainer, check_metrics
+
+    cfg, tcfg = configs(family, impl)
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, cfg, tcfg, batches[0].arrays(), device="cuda",
+                      compiled=compiled, mesh=mesh)
+    if plant is not None:
+        plant_registration(trainer, plant)
+    on_card = [trainer._put(b.arrays()) for b in batches] * 2
+    metrics = [trainer.train_step(a) for a in on_card]
+    for m in metrics:
+        check_metrics(m)
+    st = trainer.opt.state
+    state = dict(tensors=[t.detach().clone() for t in
+                          [*trainer.params, *st["mu"], *st["nu"]]],
+                 count=int(st["count"]), rng=model.dropout_rng.get_state())
+    return [m["loss"].item() for m in metrics], state, trainer
+
+
+def plant_registration(trainer, plant):
+    """Patch the trainer's graph cache with the fault MESH_PLANTS[plant]
+    in the dropout generator's registration."""
+    graphs, first, rng = trainer._step.graphs, [], trainer.model.dropout_rng
+    sound = graphs.run
+
+    def left_out(key, fn, generators=()):
+        first[:] = first or [key]
+        return sound(key, fn, generators if key == first[0] else ())
+
+    def advance_undone(key, fn, generators=()):
+        if key not in graphs.graphs:
+            return sound(key, fn, generators)
+        state = rng.get_state()
+        out = sound(key, fn, generators)
+        rng.set_state(state)
+        return out
+
+    graphs.run = {"left out": left_out,
+                  "advance undone": advance_undone}[plant]
+
+
+def same_bits(a, b) -> bool:
+    """Two mesh_runs end with the same losses, state and generator."""
+    import torch
+
+    (la, sa, _), (lb, sb, _) = a, b
+    return (la == lb and sa["count"] == sb["count"]
+            and torch.equal(sa["rng"], sb["rng"])
+            and all(torch.equal(x, y) for x, y in zip(sa["tensors"],
+                                                      sb["tensors"])))
+
+
+def mesh_eval(tag, captured, eager, batches):
+    """The mesh eval step of two trainers whose parameters are the same
+    bits: captured (the first call of a signature captures, the second
+    replays) against uncaptured, the same metrics bit for bit."""
+    for batch in batches:
+        raw = batch.arrays()
+        got = [captured._eval_step(captured._put(raw)) for _ in range(2)]
+        got = [{k: v.item() for k, v in m.items()} for m in got]
+        ref = {k: v.item() for k, v in
+               eager._eval_step(eager._put(raw)).items()}
+        if any(m != ref for m in got):
+            fail(f"{tag} ({describe(batch)}): the captured mesh eval step "
+                 f"gives {got}, uncaptured {ref}")
+
+
+def mesh_launches(tag, impl, trainer, steps):
+    """The kernel launches of a captured mesh run (counts zeroed before
+    it; a replay adds what its capture recorded): the route's forward
+    kernels enc_layers a step together, each backward kernel
+    enc_layers a step, and no other kernel."""
+    by_id = {KERNELS[name][0]: n for name, n in read_counts().items() if n}
+    fwd, bwd = MESH_ROUTE_KERNELS[impl]
+    want = trainer.model.cfg.enc_layers * steps
+    print(f"[{tag}] kernel launches over {steps} steps: {by_id}",
+          flush=True)
+    if (sum(by_id.get(k, 0) for k in fwd) != want
+            or any(by_id.get(k, 0) != want for k in bwd)
+            or set(by_id) - set(fwd) - set(bwd)):
+        fail(f"{tag}: launches {by_id}, {want} expected of {fwd} together "
+             f"and of each of {bwd}")
+
+
+def mesh_plants(family, impl, batches, mesh, eager):
+    """(b): each of MESH_PLANTS on a captured mesh run of the batches
+    must give other bits than the uncaptured run `eager`, or PyTorch must
+    refuse its capture."""
+    for plant, what in MESH_PLANTS.items():
+        try:
+            passed = same_bits(mesh_run(family, impl, batches, None, mesh,
+                                        plant), eager)
+            said = f"the same bits as compiled=False: {passed}"
+        except RuntimeError as e:
+            passed, said = False, f"PyTorch refused the capture: {e}"
+        print(f"[mesh compiled] planted {what}: {said}"[:400], flush=True)
+        if passed:
+            fail(f"a mesh run with {what} passed gate (a)")
+
+
+def time_steps(trainer, on_card):
+    """ms a step from memory: MESH_REPEATS passes over the batches after
+    one warm-up pass, each pass's wall (synchronized) over its steps."""
+    import torch
+
+    out = []
+    for i in range(MESH_REPEATS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in on_card:
+            trainer.train_step(a)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / len(on_card))
+    return out[1:]
+
+
+def phase_mesh_compiled():
+    """The mesh step captured (ROADMAP A11 item 2), in this process on a
+    data-parallel mesh of one NCCL rank (its token-count, metric and
+    gradient all-reduces run on the card): (a) for each cell of
+    MESH_COMPILED its first MESH_BATCHES train batches twice, the mesh
+    Trainer captured against the same Trainer with compiled=False from the
+    same weights and seed, under deterministic algorithms: every loss,
+    parameter, moment, Adam's count and the dropout generator the same
+    bits, and the mesh eval step captured against uncaptured on the same
+    batches the same bits, the captured run's kernel launches those of
+    its route (MESH_ROUTE_KERNELS); (b) on the first cell, each of
+    MESH_PLANTS
+    must fail (a) or be refused by PyTorch at its capture; (c) for
+    MESH_TIMED,
+    printed: a profile of a replayed mesh step (host launch calls, device
+    kernels, NCCL kernels, busy ms, idle share, pool MiB, capture ms)
+    against an uncaptured one, whose host launch calls must be at least
+    10x the replay's; (d) the mesh step from memory captured and uncaptured,
+    median [min-max] of MESH_REPEATS passes after a warm-up, beside the
+    card line."""
+    import torch
+    import torch.distributed as dist
+
+    from gtos_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from gtos_tpu_torch.utils.graphs import for_model
+
+    card = card_line()
+    t_start = t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[mesh compiled] {name} in {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_nccl_", dir=ROOT)
+    init_distributed(0, 1, f"file://{os.path.join(tmp, 'rdv')}", "cuda")
+    try:
+        mesh = make_mesh(dp=1)
+        print(f"[mesh compiled] {mesh.shape}, backend {mesh.backend}, NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))}",
+              flush=True)
+        for family, impl in MESH_COMPILED:
+            tag = tag_of("mesh compiled", impl, family)
+            batches = compiled_batches(family, impl)[:MESH_BATCHES]
+            with deterministic_algorithms():
+                eager = mesh_run(family, impl, batches, False, mesh)
+                zero_counts()
+                got = mesh_run(family, impl, batches, None, mesh)
+                trainer = got[2]
+                mesh_launches(tag, impl, trainer, len(got[0]))
+                graphs = trainer._step.graphs
+                path = trainer.step_path(batches[0].arrays())
+                same = same_bits(got, eager)
+                print(f"[{tag}] {len(batches)} batches twice "
+                      f"({', '.join(describe(b) for b in batches)}): step "
+                      f"{path}; {graphs.captures} signatures captured, "
+                      f"{graphs.replays} replays; losses, parameters, "
+                      f"moments, count and generator the same bits as "
+                      f"compiled=False: {'yes' if same else 'no'}; losses "
+                      f"{got[0]}", flush=True)
+                if path != "captured" or graphs.replays < len(batches):
+                    fail(f"{tag}: step {path}, {graphs.replays} replays")
+                if not same:
+                    fail(f"{tag}: the captured mesh step does not give the "
+                         f"uncaptured one's bits (losses {got[0]} against "
+                         f"{eager[0]})")
+                mesh_eval(tag, trainer, eager[2], batches)
+                print(f"[{tag}] eval step captured against uncaptured on "
+                      f"the {len(batches)} batches: the same bits",
+                      flush=True)
+                if (family, impl) == MESH_COMPILED[0]:
+                    mesh_plants(family, impl, batches, mesh, eager)
+            part(f"{tag} (a), (b)")
+            if (family, impl) in MESH_TIMED:
+                # (c), (d) on graphs of the default algorithms
+                for_model(trainer.model).clear()
+                on_card = [trainer._put(b.arrays()) for b in batches]
+                # one step profiled, after a pass that captures anew
+                for run, label in ((trainer, "captured"),
+                                   (eager[2], "uncaptured")):
+                    it = iter(range(10 ** 9))
+                    events, steps = profile_steps(
+                        f"{tag} step, {label}",
+                        lambda: run.train_step(
+                            on_card[next(it) % len(on_card)]),
+                        lambda m: 1, 1, card,
+                        run._step.graphs if run is trainer else None,
+                        warm=len(on_card) if run is trainer else 0)
+                    nccl = sum(e.count for e in events
+                               if e.device_type.name == "CUDA"
+                               and "nccl" in e.key.lower())
+                    launches = sum(e.count for e in events
+                                   if e.key in LAUNCH_APIS) / steps
+                    print(f"[{tag}] {label}: {nccl / steps:.1f} NCCL kernels "
+                          "a step" + ("" if nccl else
+                                      ": NCCL launches no kernel for a "
+                                      "one-rank all-reduce, so the card "
+                                      "checks the captured collectives' "
+                                      "calls, not NCCL inside a replay"),
+                          flush=True)
+                    if run is trainer:
+                        captured_launches = launches
+                    elif not launches >= 10 * captured_launches:
+                        fail(f"{tag}: {captured_launches:.1f} host launch "
+                             f"calls a replayed step against {launches:.1f}"
+                             " uncaptured")
+                ms = [time_steps(r, on_card) for r in (trainer, eager[2])]
+                print(f"[{tag}] step from memory ({len(on_card)} batches, "
+                      f"{MESH_REPEATS} repeats after a warm-up): captured "
+                      f"{np.median(ms[0]):.3f} [{min(ms[0]):.3f}-"
+                      f"{max(ms[0]):.3f}] ms, uncaptured "
+                      f"{np.median(ms[1]):.3f} [{min(ms[1]):.3f}-"
+                      f"{max(ms[1]):.3f}] ms; card {card}", flush=True)
+                part(f"{tag} (c), (d)")
+            del eager, got, trainer, graphs
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[mesh compiled] phase in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def _metrics(node, path="cells"):
     """Every metric of a bench result (a dict with "unit" and "median"),
     with its path."""
@@ -4308,11 +4604,22 @@ def main():
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = last = time.perf_counter()
+    laps = []
+
+    def lap(name):      # each group of phases' seconds, printed
+        nonlocal last
+        now = time.perf_counter()
+        laps.append(f"{name} {now - last:.1f}")
+        print(f"[time] {name}: {now - last:.1f} s", flush=True)
+        last = now
+
     phase_build()
+    lap("build")
     phase_kernels()
     phase_global_edges()
     phase_block_kernels()
+    lap("kernels")
     torch.cuda.empty_cache()   # free the plain versions' GBs before serving
     # "pallas_local": serving, encoder check, training, grads, resume
     cfg, model, tv, batches, seconds, serve_launches = phase_serve()
@@ -4327,6 +4634,7 @@ def main():
     train_inputs = capture_train_inputs(trainer, train_batches)
     rows = phase_main_shapes(b1_inputs, serve_launches, train_inputs,
                              train_launches)
+    lap("pallas_local")
     torch.cuda.empty_cache()
     # "pallas": the global-bank kernels B3, B3' and B4
     _, g_model, _, g_batches, _, g_serve_launches = phase_serve("pallas")
@@ -4345,37 +4653,48 @@ def main():
     torch.cuda.empty_cache()
     phase_auto()
     phase_work()
+    lap("pallas, auto, work")
     rows += phase_global_shapes(g_serve_inputs, g_serve_launches,
                                 g_train_inputs, g_train_launches)
+    lap("global shapes")
     del g_serve_inputs, g_train_inputs
     torch.cuda.empty_cache()
     # the c4 translator under "pallas_local", its CLIs on CoNLL files; the
     # host pipeline (native extractor, worker pools); batch_multiple
     rows += phase_c4(args.profile)
     phase_work_nmt()
+    lap("c4, work nmt")
     phase_host()
     phase_batch_multiple()
+    lap("host, batch_multiple")
     if not args.profile:
         del trainer, model
     torch.cuda.empty_cache()
     # "block_sparse": the c5 model and the kernels B5, B5s, B6d, B6s, B6b
     rows += phase_block_sparse(args.profile)
+    lap("c5 block_sparse")
     torch.cuda.empty_cache()
     # the multi-device tier: a mesh of one NCCL rank, the rings emulated
     rows += phase_mesh()
+    lap("mesh")
     torch.cuda.empty_cache()
     # the compiled step and search: CUDA graphs against eager
     phase_compiled()
+    lap("compiled")
     torch.cuda.empty_cache()
+    # the mesh step captured: a data-parallel mesh of one NCCL rank
+    phase_mesh_compiled()
+    lap("mesh compiled")
     # the port's bench on its north-star and kernel cells; the kernel
     # rows take its times
     rows = bench_timed(rows, phase_bench())
+    lap("bench")
     if args.profile:
         phase_profile(model, tv, batches, seconds)
         phase_profile_train(trainer, ms_step)
         phase_profile_train(g_trainer, g_ms_step, "pallas")
-    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s "
+          f"({', '.join(laps)})", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

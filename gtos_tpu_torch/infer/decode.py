@@ -16,8 +16,11 @@ state, and one search step (infer/beam.py `Search.step`; one graph per
 parity of the step, whose reorder gathers the self-KV buffers from one
 of the search's two sets into the other), replayed until the host reads
 that the search has ended. On the CPU, or with
-compiled=False, the same functions run uncaptured. Under a mesh the search
-runs uncaptured (`EAGER_MESH`).
+compiled=False, the same functions run uncaptured. Under a tensor-parallel
+mesh the search is captured the same way, its all-reduces and all-gathers
+inside the graphs (a signature's first call, uncaptured, creates the
+communicators); under a context-parallel mesh it runs uncaptured
+(`EAGER_MESH`).
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ from gtos_tpu_torch.models.generator import (
 )
 from gtos_tpu_torch.utils import graphs as graphs_mod
 
-# why a search runs uncaptured on the card (ROADMAP A11)
-EAGER_MESH = ("a search under a mesh runs uncaptured: its collectives "
-              "(tensor and context parallelism) are not captured")
+# why a search runs uncaptured on the card (ROADMAP A9)
+EAGER_MESH = ("a search under a context-parallel mesh (graph > 1) runs "
+              "uncaptured: its encoder's rings exchange node blocks point "
+              "to point (parallel/comm.py), which one card cannot check "
+              "(two NCCL ranks cannot share it); ROADMAP A9")
 # the tiled batch arrays the decode step reads
 _TILED = ("concept_mask", "cp_seq", "copy_mask")
 
@@ -51,21 +56,17 @@ class _Served:
         self.masks = None
 
 
-def _under_mesh(model) -> bool:
-    return (model.graph_transformer.cp_mesh is not None
-            or model.decoder.blocks()[0].cross_attn.tp_group is not None)
-
-
 def search_graphs(model: Generator, compiled: Optional[bool] = None):
     """The graph cache that `beam_decode_arrays` uses for `model` (that of
     its serving copy), or a disabled one where the search runs
-    uncaptured. compiled=True where the search cannot be captured (a mesh)
-    raises."""
+    uncaptured. compiled=True where the search cannot be captured (the
+    CPU, a context-parallel mesh) raises."""
     return _graphs(model.serving_copy(), compiled)
 
 
 def _graphs(served, compiled):
-    if _under_mesh(served):
+    mesh = served.graph_transformer.cp_mesh
+    if mesh is not None and mesh.size("graph") > 1:
         if compiled:
             raise ValueError(EAGER_MESH)
         compiled = False

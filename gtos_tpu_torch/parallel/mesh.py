@@ -84,11 +84,23 @@ def init_distributed(rank: int, world: int, init_method: str, device=None,
                      timeout_s: float = 600.0):
     """init_process_group for one rank: NCCL on a card (device "cuda" or
     "cuda:i"), gloo on the CPU; `init_method` a "tcp://host:port" or
-    "file://path" rendezvous. On a card the rank's device is set first."""
+    "file://path" rendezvous. On a card the rank's device is set first.
+
+    The mesh steps capture their NCCL collectives in CUDA graphs
+    (train/trainer.py), which sets nothing here: PyTorch's notes ask for
+    NCCL >= 2.9.6 (PyTorch ships a later one), an eager run before the
+    capture (a signature's first call runs uncaptured, utils/graphs.py,
+    and creates the communicators) and, for their DDP recipe, no
+    asynchronous error handling; ProcessGroupNCCL keeps captured work off
+    its watchdog's queue, and a one-rank NCCL mesh on an H100 (PyTorch
+    2.11, NCCL 2.28) captures and replays the steps bit for bit with its
+    defaults (tests/test_torch_cuda.py, chip_smoke.py)."""
     import datetime
 
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
     if not dist.is_initialized():
         dist.init_process_group(

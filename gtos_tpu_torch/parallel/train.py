@@ -11,65 +11,54 @@ tokens. Over the model and graph groups nothing is reduced: the model's
 boundaries (parallel/comm.py) leave the whole parameters' gradients equal
 on every rank of them and the shards' their own. Under TP the clip's
 norm sums the shards' squares over the model group.
+
+The steps are train/trainer.py's, given the data group: the JAX package
+jits the sharded steps into one program per signature, and the port
+captures them per signature on the card as it does on one device, the
+collectives inside the graph (trainer.py's docstring). Under a
+context-parallel mesh they run uncaptured (trainer.EAGER_MESH).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Optional
 
-import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 
 def all_reduce_grads(grads, group):
-    """Sum each gradient over the group, in one all-reduce (in place)."""
+    """The gradients summed over the group in one all-reduce: views of
+    one flat buffer, in the order and shapes of `grads`."""
     flat = _flatten_dense_tensors(grads)
     dist.all_reduce(flat, group=group)
-    for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
-        g.copy_(r)
-    return grads
+    return list(_unflatten_dense_tensors(flat, grads))
 
 
-def sharded_grads(model, params, arrays, mesh):
-    """(loss term, global metrics, gradients summed over the data group) of
-    this rank's part of a batch, in train mode."""
-    model.train()
-    loss, metrics = model(arrays, data_group=mesh.group("data"))
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    return loss, metrics, all_reduce_grads(grads, mesh.group("data"))
+def make_sharded_train_step(model, opt, mesh,
+                            compiled: Optional[bool] = None) -> Callable:
+    """train_step(arrays) -> metrics (device scalars: the global loss, acc
+    and n_tok, grad_norm, layout_ok): one optimizer step of `opt`
+    (train/optim.py, over the model's parameters, sharded before it was
+    built under TP) on this rank's part of a batch (parallel/mesh.py
+    shard_arrays), captured per signature on the card unless compiled is
+    False or the mesh is context-parallel."""
+    from gtos_tpu_torch.train.trainer import _TrainStep, mesh_compiled
 
-
-def make_sharded_train_step(model, opt, mesh) -> Callable:
-    """train_step(arrays) -> metrics (device scalars, the global loss, acc,
-    n_tok and grad_norm): one optimizer step of `opt` (train/optim.py,
-    over the model's parameters, sharded before it was built under TP) on
-    this rank's part of a batch (parallel/mesh.py shard_arrays)."""
-    params = opt.params
+    compiled = mesh_compiled(mesh, compiled)
     if mesh.size("model") > 1:
         from gtos_tpu_torch.parallel.tensor_parallel import global_norm
-        group = mesh.group("model")
+        params, group = opt.params, mesh.group("model")
         opt.norm_fn = lambda grads: global_norm(grads, params, group)
-
-    def train_step(arrays: Dict[str, torch.Tensor]) -> dict:
-        _, metrics, grads = sharded_grads(model, params, arrays, mesh)
-        opt.step(grads)
-        return {k: v.detach() for k, v in
-                dict(metrics, grad_norm=opt.norm_fn(grads)).items()}
-
-    return train_step
+    return _TrainStep(model, opt, compiled, mesh.group("data"))
 
 
-def make_sharded_eval_step(model, mesh) -> Callable:
+def make_sharded_eval_step(model, mesh, compiled: Optional[bool] = None
+                           ) -> Callable:
     """eval_step(arrays) -> the global metrics of a batch whose rows are
-    split over the data group (the same shard_arrays as training)."""
-    data = mesh.group("data")
+    split over the data group (the same shard_arrays as training),
+    captured as the train step."""
+    from gtos_tpu_torch.train.trainer import make_eval_step, mesh_compiled
 
-    @torch.no_grad()
-    def eval_step(arrays: Dict[str, torch.Tensor]) -> dict:
-        model.eval()
-        return model(arrays, data_group=data)[1]
-
-    return eval_step
+    return make_eval_step(model, mesh_compiled(mesh, compiled),
+                          mesh.group("data"))

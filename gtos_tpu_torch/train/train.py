@@ -404,10 +404,6 @@ def run(args, device=None):
         mesh = make_mesh(dp=args.dp or None, mp=args.mp, graph=args.graph,
                          device=device)
     lead = mesh is None or torch.distributed.get_rank() == 0
-    if mesh is not None and lead:
-        world = torch.distributed.get_world_size()
-        print(f"[mesh] {mesh.shape}: world {world}, backend {mesh.backend}",
-              file=sys.stderr, flush=True)
     path_cfg = RelationPathConfig(max_path_len=args.max_path_len)
     if args.synthetic:
         graphs, targets = load_synthetic(args.task, args.synthetic)
@@ -494,6 +490,11 @@ def run(args, device=None):
                       mesh=mesh, dev_bleu_fn=dev_bleu_fn,
                       prefetch=args.prefetch, max_inflight=args.max_inflight,
                       device=device)
+    if mesh is not None and lead:
+        world = torch.distributed.get_world_size()
+        print(f"[mesh] {mesh.shape}: world {world}, backend {mesh.backend}, "
+              f"step {trainer.step_path(first.arrays())}", file=sys.stderr,
+              flush=True)
     if args.resume:
         step = trainer.restore_if_available()
         print(f"resumed at step {step}", file=sys.stderr)

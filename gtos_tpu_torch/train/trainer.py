@@ -32,9 +32,20 @@ Trainer keeps a step per resolved route.
 
 With a mesh (parallel/mesh.py; this process is one rank of it) the model
 is split for tensor parallelism before the optimizer is built, each batch
-goes through shard_arrays to this rank's part, and the step is
-parallel/train.py's (gradients summed over the data group; evaluation's
-metrics global), which runs uncaptured (`EAGER_MESH`). Each rank's
+goes through shard_arrays to this rank's part, and the steps are these
+same ones with the mesh's data group (parallel/train.py: the loss over
+the global token count, the gradients summed over the group, evaluation's
+metrics global; under tensor parallelism the clip's norm summed over the
+model group). On the card they are captured as on one device, their NCCL
+collectives inside the graph, and a signature's first call, uncaptured,
+creates the communicators before any capture. Every data rank gets the
+same shapes for a batch (shard_arrays splits the rows evenly), so the
+ranks capture at the same call, except where a block-sparse batch's pair
+capacity, which each rank counts from its own rows, differs between
+them: there they capture at different calls, and their collectives stay
+matched, since a call runs them once whether it captures or replays. A
+context-parallel mesh (graph > 1) runs its steps uncaptured
+(`EAGER_MESH`). Each rank's
 dropout generator is seeded from (seed,
 data rank): the ranks of one data rank draw the same masks, as their
 activations are the same, and data rank 0 draws the single-device
@@ -64,15 +75,31 @@ from gtos_tpu_torch.models.generator import (
 from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
     LAYOUT_MISMATCH, PAIR_CAP,
 )
-from gtos_tpu_torch.train.optim import Optimizer, global_norm
+from gtos_tpu_torch.parallel.train import all_reduce_grads
+from gtos_tpu_torch.train.optim import Optimizer
 from gtos_tpu_torch.utils import graphs
 from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 from gtos_tpu_torch.utils.device import resolve_device
 from gtos_tpu_torch.utils.profiling import StepTimer
 
-EAGER_MESH = ("the mesh step (parallel/train.py) runs uncaptured: its "
-              "collectives are not captured")
+# why a mesh step runs uncaptured on the card (ROADMAP A9)
+EAGER_MESH = ("a context-parallel mesh (graph > 1) runs its steps "
+              "uncaptured: its rings exchange node blocks point to point "
+              "(parallel/comm.py), some posted in one autograd function and "
+              "waited in another, which one card cannot check (two NCCL "
+              "ranks cannot share it); ROADMAP A9")
 METRICS = ("loss", "acc", "n_tok", "grad_norm")
+
+
+def mesh_compiled(mesh, compiled: Optional[bool]) -> Optional[bool]:
+    """`compiled` for the steps of a model under `mesh`: as given without
+    a mesh or under data and tensor parallelism; False under a
+    context-parallel mesh (EAGER_MESH), where compiled=True raises."""
+    if mesh is None or mesh.size("graph") == 1:
+        return compiled
+    if compiled:
+        raise ValueError(EAGER_MESH)
+    return False
 
 
 def check_metrics(metrics: Dict[str, torch.Tensor]):
@@ -116,34 +143,46 @@ def init_state(model: Generator, opt: Optimizer, step: int = 0
                       rng=model.dropout_rng)
 
 
+def train_grads(model: Generator, params, arrays, data_group=None):
+    """(loss, metrics, one gradient per parameter) of a batch in train
+    mode. data_group: under a mesh, the group the batch rows are split
+    over: the loss is this rank's term of the global loss and the
+    gradients are summed over the group (parallel/train.py)."""
+    model.train()
+    loss, metrics = model(arrays, data_group=data_group)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    if data_group is not None:
+        grads = all_reduce_grads(grads, data_group)
+    return loss, metrics, grads
+
+
 class _TrainStep:
     """One optimizer step of `model` with `opt`, captured per signature
     on the card (module docstring). Called with a batch on the device,
     returns its metrics as device scalars, unread: copies of the graph's
-    outputs, so they outlive the next replay."""
+    outputs, so they outlive the next replay. data_group: under a mesh
+    (parallel/train.py make_sharded_train_step), as train_grads."""
 
     def __init__(self, model: Generator, opt: Optimizer,
-                 compiled: Optional[bool] = None):
-        self.model, self.opt = model, opt
+                 compiled: Optional[bool] = None, data_group=None):
+        self.model, self.opt, self.data_group = model, opt, data_group
         self.graphs = graphs.for_model(model, compiled)
 
     def route(self, arrays) -> str:
         return resolve_attention_impl(self.model.cfg.attention_impl, arrays)
 
     def _update(self, arrays, phase):
-        model, params = self.model, self.opt.params
-        model.train()
-        loss, metrics = model(arrays)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        _, metrics, grads = train_grads(self.model, self.opt.params, arrays,
+                                        self.data_group)
         self.opt.update(grads, phase)
         ok = metrics.get("layout_ok")
         if ok is None:      # no block-sparse plan: nothing to check
             ok = torch.ones((), dtype=torch.bool, device=grads[0].device)
         return torch.stack([metrics["loss"].detach(), metrics["acc"].detach(),
                             metrics["n_tok"].detach().float(),
-                            global_norm(grads), ok.float()])
+                            self.opt.norm_fn(grads), ok.float()])
 
     def __call__(self, arrays) -> Dict[str, torch.Tensor]:
         phase = self.opt.phase
@@ -180,17 +219,18 @@ def make_train_step(model: Generator, opt: Optimizer,
     return train_step
 
 
-def make_eval_step(model: Generator, compiled: Optional[bool] = None
-                   ) -> Callable:
+def make_eval_step(model: Generator, compiled: Optional[bool] = None,
+                   data_group=None) -> Callable:
     """The JAX package's make_eval_step: eval_step(arrays) -> metrics
     (loss, acc, n_tok; device scalars, copies of the graph's outputs) of
     the model in eval mode, one CUDA graph per batch signature on the
-    card."""
+    card. data_group: under a mesh, the group the batch rows are split
+    over (the metrics global)."""
     cache = graphs.for_model(model, compiled)
 
     def run(arrays):
         with torch.no_grad():
-            m = model(arrays)[1]
+            m = model(arrays, data_group=data_group)[1]
             return torch.stack([m["loss"], m["acc"], m["n_tok"].float()])
 
     def eval_step(arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -218,7 +258,8 @@ class Trainer:
     JSONL writer (utils/metrics.py). dev_bleu_fn(model) -> float is called
     at each eval. mesh: this rank's mesh (module docstring). compiled:
     None captures the steps on the card (module docstring), False runs
-    them uncaptured there too."""
+    them uncaptured there too; True raises where they cannot be captured
+    (the CPU, a context-parallel mesh)."""
 
     def __init__(
         self,
@@ -265,9 +306,9 @@ class Trainer:
         if mesh is not None:
             from gtos_tpu_torch.parallel.train import (
                 make_sharded_eval_step, make_sharded_train_step)
-            self._sharded_step = make_sharded_train_step(model, self.opt,
-                                                         mesh)
-            self._eval_step = make_sharded_eval_step(model, mesh)
+            self._step = make_sharded_train_step(model, self.opt, mesh,
+                                                 compiled)
+            self._eval_step = make_sharded_eval_step(model, mesh, compiled)
         else:
             self._step = _TrainStep(model, self.opt, compiled)
             self._eval_step = make_eval_step(model, compiled)
@@ -373,15 +414,14 @@ class Trainer:
         signature's graph on the card). Returns its metrics (loss, acc,
         n_tok, grad_norm, layout_ok) as device scalars, unread: the caller
         passes them to check_metrics when it reads them, as fit does."""
-        metrics = (self._sharded_step(arrays) if self.mesh is not None
-                   else self._step(arrays))
+        metrics = self._step(arrays)
         self.step += 1
         return metrics
 
     def step_path(self, arrays) -> str:
         """How a step on this batch runs: "captured", or "uncaptured: "
-        and why (the CPU, compiled=False, a mesh)."""
-        if self.mesh is not None:
+        and why (a context-parallel mesh, the CPU, compiled=False)."""
+        if self.mesh is not None and self.mesh.size("graph") > 1:
             return "uncaptured: " + EAGER_MESH
         if not self._step.graphs.enabled:
             return "uncaptured: " + ("the CPU" if self.device.type == "cpu"

@@ -38,6 +38,7 @@ replays a wrapper that no longer stands.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional
 
@@ -146,17 +147,25 @@ class Graphs:
             out = fn()
             before = _counts()
             t0 = time.perf_counter()
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
+            # no collection inside the capture: a dropped graph that a
+            # reference cycle kept alive, destroyed there, invalidates it
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                static = fn()
-            except BaseException:
-                try:        # end the broken capture; the error is fn's
-                    graph.capture_end()
-                except RuntimeError:
-                    pass
-                raise
-            graph.capture_end()
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    static = fn()
+                except BaseException:
+                    try:        # end the broken capture; the error is fn's
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             capture_s = time.perf_counter() - t0
         here.wait_stream(side)
         after = _counts()

@@ -963,17 +963,17 @@ def _small_train_setup(seed, dtype="float32", dropout=0.1,
     return cfg, batch
 
 
-def _train_three(cfg, batch, compiled):
+def _train_three(cfg, batch, compiled, mesh=None):
     from gtos_tpu_torch.models import Generator
-    from gtos_tpu_torch.models.generator import batch_to_device
     from gtos_tpu_torch.train.trainer import Trainer
     from gtos_tpu_torch.utils.config import TrainConfig
 
     model = Generator(cfg, device="cuda",
                       rng=torch.Generator().manual_seed(0))
     trainer = Trainer(model, cfg, TrainConfig(warmup_steps=2),
-                      batch.arrays(), device="cuda", compiled=compiled)
-    arrays = batch_to_device(batch.arrays(), "cuda")
+                      batch.arrays(), device="cuda", compiled=compiled,
+                      mesh=mesh)
+    arrays = trainer._put(batch.arrays())
     losses = torch.stack([trainer.train_step(arrays)["loss"]
                           for _ in range(3)]).cpu()
     return (losses, [p.detach().clone() for p in model.parameters()],
@@ -1054,6 +1054,79 @@ def _block_sparse_step_reads_nothing(cfg, batch):
     got = block_sparse_bank_grads(q, k, *ab, ge, plan)
     want = block_sparse_bank_grads(q, k, *ab, ge[:, :E].contiguous(), tight)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A data-parallel mesh of one NCCL rank (this process), destroyed
+    after the test: its loss and gradient all-reduces run on the card."""
+    import torch.distributed as dist
+
+    from gtos_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(0, 1, f"file://{tmp_path / 'rdv'}", "cuda")
+    try:
+        yield make_mesh(dp=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas_local", "block_sparse"])
+def test_cuda_captured_mesh_steps_match_uncaptured(nccl_mesh, impl):
+    """On a one-rank NCCL mesh, three Trainer steps captured (the first
+    call uncaptured and capturing, with the token-count, metric and
+    gradient all-reduces inside the graph; two replays) against three
+    uncaptured and three on one device with no mesh, dropout 0.1, under
+    deterministic algorithms: the losses, parameters, Adam's moments and
+    count and the dropout generator the same bits in all three; the step
+    path "captured"; then the eval step, captured (a capture and a
+    replay), gives the uncaptured eval step's metrics bit for bit."""
+    from gtos_tpu_torch.train.trainer import check_metrics
+    from gtos_tpu_torch.utils.benchlib import deterministic_algorithms
+
+    cfg, batch = _small_train_setup(9, impl=impl)
+    with deterministic_algorithms():
+        runs = [_train_three(cfg, batch, c, m) for c, m in
+                ((False, nccl_mesh), (None, nccl_mesh), (None, None))]
+        evals = [[{k: v.clone() for k, v in
+                   r[3]._eval_step(r[3]._put(batch.arrays())).items()}
+                  for _ in range(2)] for r in runs[:2]]
+    got = runs[1][3]
+    assert got.step_path(batch.arrays()) == "captured"
+    assert got._step.graphs.replays >= 2
+    for r in (runs[0], runs[2]):
+        assert torch.equal(r[0], runs[1][0])
+        assert all(torch.equal(x, y) for x, y in zip(r[1], runs[1][1]))
+        assert torch.equal(r[2], runs[1][2])
+        for key in ("mu", "nu"):
+            assert all(torch.equal(x, y) for x, y in
+                       zip(r[3].opt.state[key], got.opt.state[key]))
+        assert int(r[3].opt.state["count"]) == 3
+    for m in (*evals[0], *evals[1]):
+        check_metrics(m)
+        assert all(torch.equal(m[k], evals[0][0][k]) for k in m)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_layout_mismatch_raises_when_read(nccl_mesh):
+    """A captured block-sparse mesh step whose src-major tile layout holds
+    none of the dst-major layout's pairs (the same signature: a replay)
+    runs without a host read, and check_metrics raises LAYOUT_MISMATCH
+    when its metrics are read."""
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import LAYOUT_MISMATCH
+    from gtos_tpu_torch.train.trainer import check_metrics
+
+    cfg, batch = _small_train_setup(10, impl="block_sparse")
+    *_, trainer = _train_three(cfg, batch, None, nccl_mesh)
+    raw = batch.arrays()
+    wrong = dict(raw, tile_rel_src=np.full_like(raw["tile_rel_src"], -1))
+    replays = trainer._step.graphs.replays
+    metrics = trainer.train_step(trainer._put(wrong))
+    assert trainer._step.graphs.replays == replays + 1
+    with pytest.raises(ValueError) as err:
+        check_metrics(metrics)
+    assert str(err.value) == LAYOUT_MISMATCH
 
 
 @pytest.mark.cuda

@@ -39,6 +39,8 @@ TINY = dict(d_model=32, d_ff=64, heads=2, enc_layers=1, dec_layers=1,
             char_dim=8, char_filters=16, rel_emb_dim=8, rel_hidden=16,
             max_oov=16, max_target_len=32, dropout=0.0)
 GRAD_TOL = dict(rtol=5e-4, atol=1e-6)
+# test_mesh_steps_accumulate_path_and_layout's optimizer, in both packages
+MESH_TRAIN = dict(warmup_steps=3, accum_steps=2, adam_eps=1e-3)
 # the row arrays of the "xla" route, and the batch-global bank
 _BATCH_LEADING = ("concept", "concept_char", "concept_mask", "rel_index",
                   "token_in", "token_out", "token_mask", "cp_seq",
@@ -207,6 +209,92 @@ def test_tp_trainer_steps_and_checkpoint(tmp_path):
         for (name, p), mu in zip(pm.named_parameters(), out["mu"]):
             assert out["params"][name].shape == tuple(p.shape), name
             assert mu.shape == tuple(p.shape), name
+
+
+def test_mesh_steps_accumulate_path_and_layout(tmp_path):
+    """One spawn of two gloo ranks (torch_mesh_ranks.mesh_steps):
+
+      * the Trainer at dp=2 with accum_steps=2 (each rank half the rows),
+        two steps on the whole batch, so that both accumulation phases
+        run, against the JAX package's make_train_step on the whole
+        batch: Adam's moments and every parameter at GRAD_TOL, its count
+        and the mini-step exactly. Adam's eps is 1e-3 in both: at its
+        first update Adam moves each element by lr * g / (|g| + eps),
+        which at the default 1e-9 is the learning rate times the sign of
+        g, so that a gradient of rounding noise (the key biases', zero in
+        exact arithmetic) or one near eps moves its parameter by up to
+        the learning rate either way in the two packages;
+      * step_path: "uncaptured: the CPU" at dp=2, where compiled=True
+        raises the CPU's error; a context-parallel mesh (graph=2) names
+        trainer.EAGER_MESH and refuses compiled=True with it;
+      * search_graphs(compiled=True) refuses only the context-parallel
+        mesh's search: under mp=2 the error is the CPU's;
+      * block_sparse at dp=2: a step's "layout_ok" is true on the batch's
+        own tile layouts, and a src-major layout holding none of the
+        dst-major layout's pairs raises LAYOUT_MISMATCH (at once on the
+        CPU; on the card when check_metrics reads the metrics,
+        tests/test_torch_cuda.py)."""
+    from gtos_tpu.train import TrainState as JaxTrainState
+    from gtos_tpu.train import make_optimizer
+    from gtos_tpu.train.trainer import make_train_step as jax_make_train_step
+    from gtos_tpu.utils.config import TrainConfig as JaxTrainConfig
+    from gtos_tpu_torch.convert import _find
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+    from gtos_tpu_torch.infer.decode import EAGER_MESH as SEARCH_CP
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import LAYOUT_MISMATCH
+    from gtos_tpu_torch.train.trainer import EAGER_MESH
+
+    jm, params, ja, pcfg, _, files = _setup(tmp_path, "xla", "xla", seed=3)
+    tx = make_optimizer(JaxTrainConfig(**MESH_TRAIN), TINY["d_model"])
+    jstate = JaxTrainState(params=params, opt_state=tx.init(params),
+                           step=np.zeros((), np.int32),
+                           rng=jax.random.PRNGKey(1))
+    jstep = jax_make_train_step(jm, tx)
+    for _ in range(2):
+        jstate, _ = jstep(jstate, ja)
+    g, t = synthetic_amr_corpus(8, seed=3)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    bs = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
+                  batch_size_bucket=8, build_block_tiles=True,
+                  sparse_khop=2).arrays()
+    np.savez(tmp_path / "bs.npz", **bs)
+    bs_cfg = ModelConfig(**TINY, token_vocab=len(tv), concept_vocab=len(cv),
+                         relation_vocab=len(rv), char_vocab=len(chv),
+                         attention_impl="block_sparse", sparse_khop=2)
+    outs = ranks.spawn("mesh_steps", 2, tmp_path, **files,
+                       train_kw=MESH_TRAIN,
+                       bs_cfg_json=bs_cfg.to_json(),
+                       bs_arrays_path=str(tmp_path / "bs.npz"))
+    ref = state_dict_from_flax(jax.device_get(jstate.params))
+    adam = _find(jax.device_get(jstate.opt_state), ("count", "mu", "nu"))
+    multi = _find(jax.device_get(jstate.opt_state),
+                  ("mini_step", "acc_grads"))
+    mu, nu = (state_dict_from_flax(m) for m in (adam.mu, adam.nu))
+    for out in outs:
+        got = out["accum"]
+        assert got["count"] == int(adam.count) == 1
+        assert got["mini_step"] == int(multi.mini_step) == 0
+        assert sorted(got["names"]) == sorted(ref)
+        for i, name in enumerate(got["names"]):
+            for mine, theirs in ((got["mu"][i], mu[name]),
+                                 (got["nu"][i], nu[name])):
+                np.testing.assert_allclose(mine, theirs.numpy(), **GRAD_TOL,
+                                           err_msg=name)
+            np.testing.assert_allclose(got["params"][name],
+                                       ref[name].numpy(), **GRAD_TOL,
+                                       err_msg=name)
+        assert out["path"]["dp"] == "uncaptured: the CPU"
+        assert "need the card" in out["path"]["dp_compiled"]
+        assert out["path"]["cp"] == "uncaptured: " + EAGER_MESH
+        assert out["path"]["cp_compiled"] == EAGER_MESH
+        assert "need the card" in out["search"]["tp"]
+        assert out["search"]["tp_enabled"] is False
+        assert out["search"]["cp"] == SEARCH_CP
+        assert out["layout"]["ok"] == 1.0
+        assert out["layout"]["error"] == LAYOUT_MISMATCH
 
 
 def test_block_sparse_model_graph2_matches_single_device(tmp_path):

@@ -151,15 +151,16 @@ def train_step(cfg_json, state_path, arrays_path, dp, mp, graph):
     the sharded step computes them; and the token count of its rows."""
     from gtos_tpu_torch.parallel import tensor_parallel as tp
     from gtos_tpu_torch.parallel.mesh import shard_arrays
-    from gtos_tpu_torch.parallel.train import sharded_grads
     from gtos_tpu_torch.train.optim import global_norm
+    from gtos_tpu_torch.train.trainer import train_grads
 
     mesh = _mesh(dp, mp, graph)
     model = tp.shard_model(_model(cfg_json, state_path, mesh), mesh)
     names, params = zip(*model.named_parameters())
     arrays = shard_arrays(mesh, dict(np.load(arrays_path)),
                           model.cfg.cp_schedule)
-    _, metrics, grads = sharded_grads(model, params, arrays, mesh)
+    _, metrics, grads = train_grads(model, params, arrays,
+                                    mesh.group("data"))
     norm = (tp.global_norm(grads, params, mesh.group("model"))
             if mp > 1 else global_norm(grads))
     whole = {n: tp.gather_full(g, p).numpy()
@@ -189,6 +190,78 @@ def trainer_steps(cfg_json, state_path, arrays_path, dp, mp, graph, steps):
                 mu=[t.numpy() for t in state["opt_state"]["mu"]])
 
 
+def mesh_steps(cfg_json, state_path, arrays_path, bs_cfg_json,
+               bs_arrays_path, train_kw):
+    """The mesh steps' cases on two ranks, in one spawn:
+
+      accum   dp=2, TrainConfig(**train_kw) (accum_steps=2): the
+              Trainer's parameters, Adam's moments and count after two
+              steps on the whole batch;
+      path    step_path at dp=2, and the error of compiled=True there
+              (the CPU's); under a context-parallel mesh (graph=2) its
+              step_path and the error of compiled=True (EAGER_MESH);
+      search  search_graphs(compiled=True)'s error under a tensor-
+              parallel mesh (mp=2) and under graph=2;
+      layout  block_sparse at dp=2: the layout flag of a step on
+              matching tile layouts, and the error of a step whose
+              src-major layout holds no pair."""
+    from gtos_tpu_torch.infer.decode import search_graphs
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.parallel import tensor_parallel as tp
+    from gtos_tpu_torch.train.trainer import Trainer, check_metrics
+    from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    def error(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    dp, tpm, cp = _mesh(2), _mesh(1, 2), _mesh(1, 1, 2)
+    raw = dict(np.load(arrays_path))
+    tcfg = TrainConfig(**train_kw)
+
+    def new(mesh, model=None, **kw):
+        model = model or _model(cfg_json, state_path, mesh)
+        return Trainer(model, model.cfg, tcfg, raw, mesh=mesh,
+                       device="cpu", **kw)
+
+    trainer = new(dp)
+    for _ in range(2):
+        check_metrics(trainer.train_step(trainer._put(raw)))
+    state = trainer.state_dict()
+    out = dict(accum=dict(
+        params={k: v.numpy() for k, v in state["params"].items()},
+        names=[n for n, _ in trainer.model.named_parameters()],
+        mu=[t.numpy() for t in state["opt_state"]["mu"]],
+        nu=[t.numpy() for t in state["opt_state"]["nu"]],
+        count=int(state["opt_state"]["count"]),
+        mini_step=state["opt_state"]["mini_step"]))
+    cp_model = _model(cfg_json, state_path, cp)
+    out["path"] = dict(
+        dp=trainer.step_path(raw),
+        dp_compiled=error(lambda: new(dp, compiled=True)),
+        cp=new(cp, cp_model).step_path(raw),
+        cp_compiled=error(lambda: new(cp, compiled=True)))
+    tp_model = tp.shard_model(_model(cfg_json, state_path), tpm)
+    out["search"] = dict(
+        tp=error(lambda: search_graphs(tp_model, compiled=True)),
+        tp_enabled=search_graphs(tp_model).enabled,
+        cp=error(lambda: search_graphs(cp_model, compiled=True)))
+    bs_raw = dict(np.load(bs_arrays_path))
+    bs_cfg = ModelConfig.from_json(bs_cfg_json)
+    bs = Trainer(Generator(bs_cfg, device="cpu"), bs_cfg, tcfg, bs_raw,
+                 mesh=dp, device="cpu")
+    metrics = bs.train_step(bs._put(bs_raw))
+    check_metrics(metrics)
+    wrong = dict(bs_raw, tile_rel_src=np.full_like(bs_raw["tile_rel_src"],
+                                                   -1))
+    out["layout"] = dict(ok=float(metrics["layout_ok"]), error=error(
+        lambda: bs.train_step(bs._put(wrong))))
+    return out
+
+
 def decode(cfg_json, state_path, batch_path, beam, steps):
     """beam_decode_arrays' tokens under a CP mesh (graph = world)."""
     import pickle
@@ -216,4 +289,5 @@ def scaling(num_nodes):
 
 WORKERS = dict(mesh_layout=mesh_layout, shard_layout=shard_layout,
                cp_attention=cp_attention, train_step=train_step,
-               trainer_steps=trainer_steps, decode=decode, scaling=scaling)
+               trainer_steps=trainer_steps, mesh_steps=mesh_steps,
+               decode=decode, scaling=scaling)

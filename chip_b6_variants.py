@@ -63,8 +63,8 @@ plain version and timed; the last line gives each design's mean over the
 main-path inputs.
 --profile: this script's checkout's
 `phase_profile_train` (B3's, B3''s and B4's shares) over one more train
-step of the other checkout on each captured batch (the first
-CAPTURE_BATCHES take B3, the last B3').
+step of the other checkout on each captured batch (all B3', the card's
+rule).
 
 Every mode sets the checkout's `time_ms` spin (`set_spin`) to this
 script's checkout's, so that two checkouts are timed with the same spin.
@@ -333,11 +333,13 @@ def main_global(cs, checkout, args):
     rows = cs.phase_global_shapes(serve_inputs, serve_launches, train_inputs,
                                   train_launches)
     main_ms = {row["name"]: row["ms"] for row in rows}
-    variant_cases = [(f"{tag}{i}", args)
+    # B3's main-path inputs: the tables of the B3' inputs (the card's rule
+    # routes every bank to B3')
+    variant_cases = [(f"{tag}{i}", cs.table_args(args) if kind == cs.B3I
+                      else args)
                      for tag, captured in (("serve", serve_inputs),
                                            ("train", train_inputs))
-                     for i, (kind, args, _) in enumerate(captured)
-                     if kind == cs.B3]
+                     for i, (kind, args, _) in enumerate(captured)]
     cases_ms = {}
     for name, spec in (("N32_P2048", (16, 0, 10, 14, 32, 2048)),
                        ("N32_P4096", (16, 0, 16, 20, 32, 4096)),

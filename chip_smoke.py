@@ -30,7 +30,8 @@ Phases, each of which exits non-zero on failure:
                backward) at N=32 (B=16) and N=128 (B=8), P=2048 and 4096,
                each output also within KERNEL_TOL's rtol of its largest
                value (B4: the same bits twice), with B3 and B3' timed on
-               the same inputs, then their edge cases GLOBAL_EDGES; B5
+               the same inputs beside the forward the card's rule
+               (`_inline_fits`) picks, then their edge cases GLOBAL_EDGES; B5
                (block-sparse forward), B5s (with the softmax statistics),
                B6d, B6s and B6b (its backward: dst pass, src pass, bank
                gradients) at c5 widths on batchify tile layouts of N=256
@@ -65,15 +66,19 @@ Phases, each of which exits non-zero on failure:
                (and the JAX package's) sorted prefix sum over
                loc_perm/loc_bnd, both timed;
   9. pallas  — phases 4-7 under attention_impl "pallas": serving (each
-               batch's P and whether it took B3 or B3'; B3 + B3' =
-               enc_layers per batch), training on loader batches with the
-               4096-row bank (B3) and with banks that fit _inline_fits
-               (B3'), B3 + B3' = B4 = enc_layers per step; the gradient
+               batch's P and the forward the card's rule gives its bank,
+               B3' at every shape the kernels take; B3' = enc_layers per
+               batch), training on the loader's first PALLAS_STEPS
+               batches, B3' = B4 = enc_layers per step; the gradient
                check with two planted wrong B4s; a bit-identical resume;
   10. auto   — training and serving under "auto" on batches of both
-               routes (each printed with its P and P_loc), the launches of
-               each kernel, and for one batch of each route the loss under
-               "auto" equal to the fixed route's to the last bit; then an
+               routes (each printed with its P and P_loc): the auto
+               loader's batches, which carry local banks and so all take
+               the localized route (the card's AUTO_LOCAL_RATIO, 1), and
+               the "pallas" loader's, which carry none and take the
+               global one; the launches of each kernel, and for one batch
+               of each route the loss under "auto" equal to the fixed
+               route's to the last bit; then an
                N=128 batch whose paths overflow the local-bank ladder: it
                falls back to tiles, routes to "block_sparse" (B5s) and its
                loss equals the fixed route's to the last bit;
@@ -127,7 +132,8 @@ Phases, each of which exits non-zero on failure:
                version and timed per batch: the table rows (a planted B2 with g_a zeroed, a
                planted B4 with g_t3 zeroed and two planted B3s, one reading
                t3 at the query row and one without the t2 term, must fail
-               the gate there);
+               the gate there); B3, which the card's rule routes no bank
+               to, on the tables build_tables makes of the B3' inputs;
   18. bench  — the port's bench (`python -m gtos_tpu_torch.bench`) in
                this process on its north-star and kernels cells with two
                repeats: its last line parses, every timing in it is
@@ -144,7 +150,7 @@ Phases, each of which exits non-zero on failure:
                (COMPILED_SPREAD, COMPILED_FLOOR; these comparisons and
                those of eval and serving under deterministic
                algorithms, whose graphs are then dropped); the same for c2
-               "pallas" (B3 and B3' batches), c2 "sparse" and "xla", c4
+               "pallas" (B3' and B4), c2 "sparse" and "xla", c4
                and c5 "block_sparse" (its first 3 batches, the backward
                plan built inside the step), and each run's eval step
                captured against uncaptured; the resume of phase 7 (and
@@ -155,7 +161,7 @@ Phases, each of which exits non-zero on failure:
                as close as two uncaptured searches; the encoder and
                gradient gates of phases 4 and 6 on a captured encode and
                a captured forward and backward, the planted B1s and B2s
-               failing there; B1, B1p and B2 (c2, c4), B3, B3', B4 (c2),
+               failing there; B1, B1p and B2 (c2, c4), B3', B4 (c2),
                B5 (c5 serving) and B5s, B6d, B6s and B6b (a c5 train
                step) inside a replay against their plain versions
                (B6b's bank rows one by one), and B6b on two planted work
@@ -186,7 +192,7 @@ Phases, each of which exits non-zero on failure:
                top kernels and each block-sparse kernel's share; for
                "pallas_local" also the shares of B1p, B2 and of any copy
                of the bank halves a/b (and of their slice backward), for
-               "pallas" those of B3, B3' and B4.
+               "pallas" those of B3' and B4.
 Each group of phases prints its seconds ("[time]"), and "[done]" all of
 them. The last three lines are the kernel table (JSON), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -228,9 +234,8 @@ from gtos_tpu_torch.utils.kernel_calls import capture, replaced
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BEAM, MAX_STEPS, SERVE_BATCHES = 8, 64, 3
 TRAIN_STEPS, LOG_EVERY = 20, 5
-# "pallas" training: loader batches (4096-row banks: B3), then batches
-# whose banks fit _inline_fits (B3')
-PALLAS_STEPS, PALLAS_INLINE_STEPS = 16, 4
+# "pallas" training: the loader's first batches (B3' and B4)
+PALLAS_STEPS = 16
 AUTO_STEPS_PER_ROUTE = 3
 WORK_SYNTHETIC, WORK_STEPS, WORK_GRAPHS = 256, 4, 48
 OVERFIT_STEPS, OVERFIT_RATIO = 100, 0.5  # last loss < 0.5 x the first
@@ -772,8 +777,8 @@ def phase_kernels():
     corpus's largest local bank, H=8, Dh=64, in f32 and bf16. Then B3, B3'
     and B4 on real batchify global index arrays at N=32 (B=16) and N=128
     (B=8) with P=2048 and P=4096, and B3 (with and without its table
-    build) and B3' timed on the same inputs: where the JAX package's
-    _inline_fits rule stands on this card."""
+    build) and B3' timed on the same inputs, beside the forward the
+    card's rule (_inline_fits, set from chip_crossovers.py) picks."""
     import torch
 
     from gtos_tpu_torch.ops.relation_attention import (
@@ -810,11 +815,12 @@ def phase_kernels():
                     *args[:2], *args[3:5]))
                 inline = time_ms(lambda: fused_relation_attention_inline(
                     *args))
+                faster = "B3'" if inline <= path else "B3"
                 print(f"[kernel] B3 vs B3' {name} bf16: build_tables "
                       f"{tables:.6f} ms + B3 = {path:.6f} ms; B3' "
-                      f"{inline:.6f} ms; _inline_fits (the TPU rule) picks "
-                      + ("B3'" if _inline_fits(args[0], args[3]) else "B3"),
-                      flush=True)
+                      f"{inline:.6f} ms; the card's rule picks "
+                      + ("B3'" if _inline_fits(args[0], args[3]) else "B3")
+                      + f", the faster here {faster}", flush=True)
         torch.cuda.empty_cache()
     print("[kernel] library_ms: none — no single PyTorch call computes the "
           "global-bank relation attention or its backward (the score "
@@ -1109,19 +1115,22 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
                         train_launches):
     """B3, B3' and B4 on the inputs the "pallas" paths gave them, held
     against their plain versions and timed: layer 0's forward of each
-    served batch and each captured train batch (B3 or B3' as the batch's
-    bank decided; on the train inputs the planted B3s of B3_PLANTS must
-    fail B3's gate), layer 0's backward of each captured train batch (B4,
-    where a planted zero g_t3 must fail the gate), bf16. The launches are those of the "pallas" serving run and training
-    run together (B3, B3') and of the training run (B4)."""
+    served batch and each captured train batch (the forward the card's
+    rule gave the batch's bank: B3' at every shape the kernels take, and
+    B3, which the rule routes no bank to, on the tables that build_tables
+    makes of those inputs; on the train inputs the planted B3s of
+    B3_PLANTS must fail B3's gate), layer 0's backward of each captured
+    train batch (B4, where a planted zero g_t3 must fail the gate), bf16.
+    The launches are those of the "pallas" serving run and training run
+    together (B3, B3') and of the training run (B4)."""
     rows = {B3: [], B3I: [], B4: []}
     for tag, captured in (("serve", serve_inputs), ("train", train_inputs)):
         for i, (kind, args, bwd) in enumerate(captured):
             label = f"{tag}{i}"
-            if kind == B3:
-                rows[B3].append(check_b3(label, args, plant=tag == "train"))
-            else:
+            if kind == B3I:
                 rows[B3I].append(check_b3i(label, args))
+                args = table_args(args)
+            rows[B3].append(check_b3(label, args, plant=tag == "train"))
             if bwd is not None:
                 rows[B4].append(check_b4(label, bwd, plant=True))
     for name, found in rows.items():
@@ -1129,7 +1138,13 @@ def phase_global_shapes(serve_inputs, serve_launches, train_inputs,
             fail(f"the pallas paths gave {name} no inputs to check")
     launches = {name: serve_launches[name] + train_launches[name]
                 for name in KERNELS}
-    return [table_row(name, rows[name], launches) for name in (B3, B3I, B4)]
+    out = [table_row(name, rows[name], launches) for name in (B3, B3I, B4)]
+    if not launches[B3]:
+        out[0]["note"] = ("the card's rule (_inline_fits, set from "
+                          "chip_crossovers.py) routes no bank to B3: held "
+                          "and timed on the tables build_tables makes of "
+                          "the main path's B3' inputs")
+    return out
 
 
 def tag_of(base, impl="pallas_local", family="c2"):
@@ -1141,8 +1156,9 @@ def tag_of(base, impl="pallas_local", family="c2"):
 
 def route_of(impl, arrays, cfg):
     """(the attention route of a batch under `impl`, and for the global
-    route the forward kernel its bank gets: B3' when it passes
-    _inline_fits, else B3; for the localized route B1)."""
+    route the forward kernel the card's rule (_inline_fits) gives its
+    bank: B3' within the kernels' limits, else B3; for the localized
+    route B1)."""
     import torch
 
     from gtos_tpu_torch.models.generator import resolve_attention_impl
@@ -1198,9 +1214,9 @@ def serving_setup(impl="pallas_local", family="c2"):
 
 def phase_serve(impl="pallas_local", family="c2"):
     """Serve SERVE_BATCHES batches, the fullest of each of the smallest
-    node buckets, through decode_batch, after one warm-up decode; under
-    "pallas" also the fullest batch whose bank takes B3', under "auto" the
-    fullest batch of a route the others miss. Returns the batches served,
+    node buckets, through decode_batch, after one warm-up decode; and the
+    fullest batch of a kernel the route's rules can pick that the others
+    miss (`needs`). Returns the batches served,
     their seconds and the launches of each kernel in that run: enc_layers
     per batch of the kernel its route and bank select, none of any
     other."""
@@ -1242,9 +1258,10 @@ def phase_serve(impl="pallas_local", family="c2"):
               f"{sum(sizes)} requests, {min(sizes)}-{max(sizes)} per batch")
     plan = [fullest[N] for N in sorted(fullest)[:SERVE_BATCHES]]
     kernels = {route_of(impl, b.arrays(), cfg)[1] for b, _ in plan}
-    # each of these must run: "pallas" both forward kernels, "auto" both
-    # routes (its global route with B3 or B3')
-    needs = {"pallas": [(B3,), (B3I,)], "auto": [(B1,), (B3, B3I)]}
+    # each of these must run: the forward kernel the card's rule gives
+    # every "pallas" bank; "auto"'s localized route, which takes every
+    # batch of its loader (each carries local banks)
+    needs = {"pallas": [(B3I,)], "auto": [(B1,)]}
     for options in needs.get(impl, []):
         if not kernels & set(options):
             pick = next((k for k in options if k in by_kernel), None)
@@ -1464,28 +1481,6 @@ def train_loader(seed=None, impl="pallas_local", family="c2", **kw):
                       seed=tcfg.seed if seed is None else seed, **kw)
 
 
-def route_plan(impl, cfg, head, picks):
-    """Training batches from one epoch of the `impl` loader: its first
-    `head` batches, then for each (kernel, count) of `picks` the first
-    `count` later batches whose route and bank select that kernel."""
-    plan, extra = [], {kern: [] for kern, _ in picks}
-    want = dict(picks)
-    for i, batch in enumerate(train_loader(impl=impl)):
-        if i < head:
-            plan.append(batch)
-            continue
-        kern = route_of(impl, batch.arrays(), cfg)[1]
-        if kern in extra and len(extra[kern]) < want[kern]:
-            extra[kern].append(batch)
-        if all(len(extra[k]) == want[k] for k in want):
-            break
-    for kern, count in picks:
-        if len(extra[kern]) < count:
-            fail(f"one epoch of the {impl} loader has {len(extra[kern])} "
-                 f"batches for {kern}, {count} wanted")
-    return plan, extra
-
-
 def new_trainer(cfg, tcfg, seed, ckpt=None, log=None, family="c2"):
     import torch
 
@@ -1519,24 +1514,18 @@ def phase_train(impl="pallas_local", family="c2"):
     0.2, label smoothing 0.1, the config's schedule) under attention_impl
     `impl`, counting the launches of that run: "pallas_local" TRAIN_STEPS
     steps from the DataLoader, then for c2 the overfit; "pallas"
-    PALLAS_STEPS steps, the loader's first batches (4096-row banks: B3)
-    and then PALLAS_INLINE_STEPS batches of the same epoch whose banks fit
-    _inline_fits (B3'). Returns the trainer, its mean ms per step after
-    the first logged interval, the launches and the batches trained on."""
+    PALLAS_STEPS steps (B3' and B4). Returns the trainer, its mean ms per
+    step after the first logged interval, the launches and the batches
+    trained on."""
     import torch
 
     cfg, tcfg = configs(family)
     cfg = dataclasses.replace(cfg, attention_impl=impl)
     tag = tag_of("train", impl, family)
-    if impl == "pallas_local":
-        steps, source = TRAIN_STEPS, train_loader(family=family)
-        batches = [b for _, b in zip(range(steps),
-                                     train_loader(family=family))]
-    else:
-        steps = PALLAS_STEPS
-        head, extra = route_plan(impl, cfg, steps - PALLAS_INLINE_STEPS,
-                                 [(B3I, PALLAS_INLINE_STEPS)])
-        batches = source = head + extra[B3I]
+    steps = TRAIN_STEPS if impl == "pallas_local" else PALLAS_STEPS
+    source = train_loader(impl=impl, family=family)
+    batches = [b for _, b in zip(range(steps),
+                                 train_loader(impl=impl, family=family))]
     log = StepLog(tag)
     trainer = new_trainer(cfg, dataclasses.replace(
         tcfg, total_steps=steps, checkpoint_every=10 ** 9), 0, log=log,
@@ -1871,12 +1860,14 @@ def capture_global_inputs(model, batches, train):
 
 def phase_auto():
     """attention_impl "auto" on the c2 model: Trainer.fit on batches of
-    both routes (the loader's first AUTO_STEPS_PER_ROUTE batches, which
-    take the localized route, and as many later batches of the same epoch
-    that take the global one), each printed with its route, P and P_loc,
-    and the launches of that run; then, for one batch of each route, the
-    loss under "auto" against the loss under the fixed route (dropout off,
-    the same weights): the same bits; then serving under "auto"."""
+    both routes (the auto loader's first AUTO_STEPS_PER_ROUTE batches,
+    which carry local banks and so take the localized route under the
+    card's AUTO_LOCAL_RATIO, and as many of the "pallas" loader's, which
+    carry none and take the global one), each printed with its route, P
+    and P_loc, and the launches of that run; then, for one batch of each
+    route, the loss under "auto" against the loss under the fixed route
+    (dropout off, the same weights): the same bits; then serving under
+    "auto"."""
     import torch
 
     from gtos_tpu_torch.models import Generator
@@ -1884,13 +1875,16 @@ def phase_auto():
 
     cfg, tcfg = configs()
     cfg = dataclasses.replace(cfg, attention_impl="auto")
-    local, extra = route_plan("auto", cfg, AUTO_STEPS_PER_ROUTE,
-                              [(B3, AUTO_STEPS_PER_ROUTE)])
-    plan = [b for pair in zip(local, extra[B3]) for b in pair]
+    local, glob = ([b for _, b in zip(range(AUTO_STEPS_PER_ROUTE),
+                                      train_loader(impl=impl))]
+                   for impl in ("auto", "pallas"))
+    plan = [b for pair in zip(local, glob) for b in pair]
     for i, batch in enumerate(plan):
         route, kern = route_of("auto", batch.arrays(), cfg)
         print(f"[auto] step {i + 1} batch: {describe(batch)} -> route "
               f"{route} ({kern})")
+        if route != ("pallas_local", "pallas")[i % 2]:
+            fail(f"auto routed batch {i} ({describe(batch)}) to {route}")
     log = StepLog("auto", every=1)
     trainer = new_trainer(cfg, dataclasses.replace(
         tcfg, total_steps=len(plan), checkpoint_every=10 ** 9), 0, log=log)
@@ -1908,7 +1902,7 @@ def phase_auto():
 
     model = Generator(dataclasses.replace(cfg, dropout=0.0), device="cuda",
                       rng=torch.Generator().manual_seed(7)).train()
-    for batch in (local[0], extra[B3][0]):
+    for batch in (local[0], glob[0]):
         arrays = batch_to_device(batch.arrays(), "cuda")
         route = route_of("auto", batch.arrays(), cfg)[0]
         losses = []
@@ -3687,14 +3681,8 @@ def _ids(tv):
 
 @functools.lru_cache(maxsize=None)
 def compiled_batches(family, impl):
-    """The cell's train batches: the loader's first ones; under "pallas"
-    two with the 4096-row bank (B3) and one whose bank fits _inline_fits
-    (B3')."""
-    cfg, _ = configs(family, impl)
+    """The cell's train batches: the loader's first ones."""
     n = COMPILED_BATCHES[(family, impl)]
-    if impl == "pallas":
-        head, extra = route_plan(impl, cfg, n - 1, [(B3I, 1)])
-        return head + extra[B3I]
     loader = (c5_loader(True) if family == "c5"
               else train_loader(impl=impl, family=family))
     return [b for _, b in zip(range(n), loader)]
@@ -4180,8 +4168,7 @@ def phase_compiled():
     for family, impl, fwd, kernels in (
             ("c2", "pallas_local", B1, ("B1p", "B2")),
             ("c4", "pallas_local", B1, ("B1p", "B2")),
-            ("c2", "pallas", B3, ("B3", "B4")),
-            ("c2", "pallas", B3I, ("B3'",))):
+            ("c2", "pallas", B3I, ("B3'", "B4"))):
         trainer, batches = trainers[(family, impl)]
         pick = next(b for b in batches
                     if route_of(impl, b.arrays(), cfg)[1] == fwd)

@@ -29,8 +29,9 @@ weights from the seed):
                      loader batches already on the card, then the same
                      batches through the DataLoader and Trainer.fit
                      (prefetch 2): ms/step and target tokens/s of each
-  c2_train_pallas    the same under "pallas" (the batches' 4096-row banks
-                     take B3; plus 4 batches whose banks take B3')
+  c2_train_pallas    the same under "pallas" (every bank takes B3', the
+                     card's rule; B3's kernel row takes the tables that
+                     build_tables makes of batch 0's layer-0 inputs)
   c2_serve           decode_batch (beam 8, 64 steps) of the fullest batch
                      of the node buckets 16/32/64 of 1024 requests
   c4_train, c4_serve configs/c4_nmt_ende.json on 400 synthetic dependency
@@ -65,6 +66,7 @@ import dataclasses
 import functools
 import hashlib
 import inspect
+import itertools
 import json
 import os
 import subprocess
@@ -99,7 +101,6 @@ C5_SPEC = dict(nodes=(128, 256, 512),
                edge_cells=(1024, 4096, 16384, 32768, 65536))
 SERVE_REQUESTS, SERVE_BUCKETS, BEAM, MAX_STEPS = 1024, 3, 8, 64
 TRAIN_BATCHES = {"c2": 20, "c4": 20, "c5": 6}
-PALLAS_INLINE_BATCHES = 4
 NORTH_STAR = (32, 10, 31)        # graphs, nodes: the JAX bench.py batch
 KERNEL_ITERS = 20                # cold calls a repeat, per kernel row
 PROFILE_ITERS = 10
@@ -255,19 +256,6 @@ def loader(family, impl, for_train, seed=0):
     graphs, targets = raw_corpus(family, seed + 1, SERVE_REQUESTS)
     return DataLoader(preprocess(graphs, targets), *vocabs,
                       batch_size_tokens=4096, for_train=False, **flags)
-
-
-def uses_inline(cfg, arrays) -> bool:
-    """Whether a "pallas" batch's bank takes B3' (_inline_fits) or B3."""
-    from gtos_tpu_torch.ops.relation_attention import _inline_fits
-
-    B, N = arrays["concept"].shape
-    H, Dh = cfg.heads, cfg.d_model // cfg.heads
-    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    q = torch.empty(B, H, N, Dh, dtype=dt, device="meta")
-    a = torch.empty(arrays["rel_bank"].shape[0], H, Dh, dtype=dt,
-                    device="meta")
-    return _inline_fits(q, a)
 
 
 def shape_of(batch) -> dict:
@@ -724,28 +712,18 @@ class Bench:
 
     # -------------------------------------------------- training
 
-    def train_batches(self, family, impl, cfg):
+    def train_batches(self, family, impl):
         """The cell's fixed batch list: the first TRAIN_BATCHES[family]
-        batches of epoch 1 of the train loader; under "pallas" then the
-        first PALLAS_INLINE_BATCHES later batches whose banks take B3'.
-        Returns (the loader, the batches, how many come first)."""
+        batches of epoch 1 of the train loader. Returns (the loader, the
+        batches)."""
         ld = loader(family, impl, True, self.seed)
         n = TRAIN_BATCHES[family]
-        head, extra = [], []
         ld.epoch = 0
-        for batch in ld:
-            if len(head) < n:
-                head.append(batch)
-            elif impl == "pallas" and uses_inline(cfg, batch.arrays()):
-                extra.append(batch)
-            if len(head) == n and (impl != "pallas" or len(extra)
-                                   == PALLAS_INLINE_BATCHES):
-                break
-        if len(head) < n or (impl == "pallas"
-                             and len(extra) < PALLAS_INLINE_BATCHES):
+        batches = list(itertools.islice(ld, n))
+        if len(batches) < n:
             raise BenchFailure(f"{family} {impl}: one epoch has "
-                               f"{len(head)} + {len(extra)} batches")
-        return ld, head + extra, n
+                               f"{len(batches)} batches")
+        return ld, batches
 
     def train_cell(self, name, family, impl):
         """Trainer.train_step over the fixed batches on the card, then the
@@ -755,16 +733,16 @@ class Bench:
         from gtos_tpu_torch.train.trainer import Trainer, check_metrics
 
         cfg, tcfg = configs(family, impl, self.widths, self.seed)
-        ld, batches, n_head = self.train_batches(family, impl, cfg)
+        ld, batches = self.train_batches(family, impl)
+        n = len(batches)
         tcfg = dataclasses.replace(tcfg, checkpoint_every=10 ** 9)
         trainer = Trainer(self.model(cfg), cfg, tcfg, batches[0].arrays(),
                           device=self.device)
-        self.captured[name] = self.capture_train(trainer.model, cfg, impl,
+        self.captured[name] = self.capture_train(trainer.model, impl,
                                                  batches)
         on_card = [batch_to_device(b.arrays(), self.device)
                    for b in batches]
         tokens = sum(int(b.token_mask.sum()) for b in batches)
-        head_tokens = sum(int(b.token_mask.sum()) for b in batches[:n_head])
 
         def from_memory():
             out = [trainer.train_step(a) for a in on_card]
@@ -787,7 +765,7 @@ class Bench:
                         batch = next(it)
                     yield batch
 
-        def from_loader(spans=False, n=n_head):
+        def from_loader(spans=False, n=n):
             trainer.train_cfg = dataclasses.replace(
                 tcfg, total_steps=trainer.step + n)
             last = trainer.fit(Feed(n, spans), log_every=10 ** 9)
@@ -814,7 +792,7 @@ class Bench:
         launches = {k: (wrapper(k).launches - counts0[k])
                     // self.repeats for k in KERNEL_WRAPPERS}
         model = trainer.model
-        n_traced = min(TRACE_BATCHES, n_head)
+        n_traced = min(TRACE_BATCHES, n)
         with traced(self.device, lambda: from_loader(n=n_traced)) as prof, \
                 attrs_spanned([
                     (trainer, "train_step", "train_step"),
@@ -829,16 +807,16 @@ class Bench:
         m = dict(
             ms_per_step=self.ms([s / steps for s in mem]),
             target_tokens_per_s=self.rate("tokens/s", tokens, mem),
-            loader_ms_per_step=self.ms([s / n_head for s in feed]),
-            loader_target_tokens_per_s=self.rate("tokens/s", head_tokens,
+            loader_ms_per_step=self.ms([s / n for s in feed]),
+            loader_target_tokens_per_s=self.rate("tokens/s", tokens,
                                                  feed))
         trace = read_trace(prof, wall, n_traced, np.median(
-            [s / n_head * n_traced for s in feed]) if feed else 0.0,
+            [s / n * n_traced for s in feed]) if feed else 0.0,
             self.device)
         trace["traced"] = (f"Trainer.fit through the loader, the first "
                            f"{n_traced} batches; per step: a step")
         info = dict(impl=impl, steps_from_memory=steps,
-                    steps_through_loader=n_head,
+                    steps_through_loader=n,
                     batches=[shape_of(b) for b in batches],
                     launches_per_pass={k: v for k, v in launches.items()
                                        if v},
@@ -1012,12 +990,7 @@ class Bench:
         rows, smi = [], []
         for kernel, source in self.KERNEL_SOURCES:
             if kernel not in self.captured[source]["calls"]:
-                # at narrow widths every "pallas" bank fits B3'
-                if self.measured:
-                    raise BenchFailure(f"{source} never called {kernel}")
-                rows.append(dict(kernel=kernel, source=source,
-                                 missing="not called at these widths"))
-                continue
+                raise BenchFailure(f"{source} never called {kernel}")
             rows.append(kernel_row(kernel, source, self.captured[source],
                                    self, smi))
             print(f"[bench] kernel {kernel} ({source}): " + json.dumps(
@@ -1038,18 +1011,22 @@ class Bench:
                 model, self.serve_plan(family, impl)[0], False, self.device)
             return
         self.captured[source] = self.capture_train(
-            model, cfg, impl, self.train_batches(family, impl, cfg)[1])
+            model, impl, self.train_batches(family, impl)[1])
 
-    def capture_train(self, model, cfg, impl, batches):
-        """capture() of a train cell's first batch; under "pallas" B3'
-        from its first batch whose bank takes B3'."""
+    def capture_train(self, model, impl, batches):
+        """capture() of a train cell's first batch; under "pallas" also a
+        B3 call, which the card's rule (ops/relation_attention.py
+        _inline_fits) routes no bank to: on the tables that build_tables
+        makes of that batch's layer-0 B3' inputs, so that B3's row keeps
+        the c2 batch's shape."""
+        from gtos_tpu_torch.ops.relation_attention import build_tables
+
         step = capture(model, batches[0], True, self.device)
         if impl == "pallas":
-            inline = next(b for b in batches if uses_inline(cfg,
-                                                            b.arrays()))
-            call = capture(model, inline, True, self.device)["calls"]["B3'"]
-            step["calls"]["B3'"], step["named"]["B3'"] = (
-                call, named("B3'", *call))
+            (q, k, v, a, b, *rest), kw = step["calls"]["B3'"]
+            call = ((q, k, v, *build_tables(q, k, a, b), *rest), kw)
+            step["calls"]["B3"], step["named"]["B3"] = call, named("B3",
+                                                                   *call)
         return step
 
     # -------------------------------------------------- host

@@ -50,10 +50,16 @@ EPS = 1e-9
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # "auto" sends a batch to the per-graph localized banks when they are at
-# least this much smaller than the batch-global bank. The JAX package's
-# value, a crossover measured on the TPU; the port keeps it until it is
-# measured on the H100 (ROADMAP A7).
-AUTO_LOCAL_RATIO = 4
+# least this much smaller than the batch-global bank (P_loc * ratio <= P).
+# The smallest P/P_loc at which the captured "pallas_local" train step was
+# no slower than the "pallas" one on an H100 (chip_crossovers.py, PERF.md
+# §6 "The route crossovers", table (b)): it was faster at every measured
+# batch of the c2 corpus, from P/P_loc = 1 (P_loc = P) to 16, so every
+# batch that carries local banks goes local. Serving disagrees: the
+# captured encode under "pallas" (B3') was no slower than under
+# "pallas_local" at 34 of those 35 batches (by 0-17%), so its
+# crossover lies past 16. Training decides.
+AUTO_LOCAL_RATIO = 1
 
 
 def resolve_attention_impl(impl: str, arrays) -> str:
@@ -62,9 +68,10 @@ def resolve_attention_impl(impl: str, arrays) -> str:
     package's order: "block_sparse" when it carries tile layouts (batchify
     builds them under "auto" for a batch whose paths overflow the local
     bank ladder at a tile-aligned bucket); "pallas_local" when it
-    carries localized banks at least AUTO_LOCAL_RATIO times smaller than
-    the global bank; "pallas" (the global-bank kernels) otherwise. Other
-    impls pass through unchanged."""
+    carries localized banks of at most P / AUTO_LOCAL_RATIO rows (the
+    card's ratio 1: every batch that carries them; the JAX package's 4);
+    "pallas" (the global-bank kernels) otherwise. Other impls pass
+    through unchanged."""
     if not impl.startswith("auto"):
         return impl
     suffix = "_interpret" if impl.endswith("_interpret") else ""
@@ -174,10 +181,13 @@ class Generator(nn.Module):
         to the compute type (the values each layer would round them to)
         and its Dense/Conv1d/Embedding layers turned into the plain torch
         layers they extend, so that no layer casts a weight or checks a
-        type per decode step. The copy is kept until a parameter changes
-        in place (an optimizer step, load_state_dict, a replayed train
-        step: `mark_updated`); the search's CUDA graphs belong to the copy
-        and go with it."""
+        type per decode step. A layer that tensor parallelism split (`tp`
+        set) stays a Dense: a row layer's output is the group's sum only
+        after Dense.forward's all-reduce, before its bias. The tensor
+        parallel groups are shared with the copy, not copied. The copy is
+        kept until a parameter changes in place (an optimizer step,
+        load_state_dict, a replayed train step: `mark_updated`); the
+        search's CUDA graphs belong to the copy and go with it."""
         if self.dtype == torch.float32:
             return self
         key = (self._updates, tuple(p._version for p in self.parameters()))
@@ -197,7 +207,8 @@ class Generator(nn.Module):
                     if not isinstance(mod, LayerNorm):
                         for p in mod.parameters(recurse=False):
                             p.data = p.data.to(self.dtype)
-                    if type(mod) in (Dense, Conv1d, Embedding):
+                    if type(mod) in (Dense, Conv1d, Embedding) \
+                            and getattr(mod, "tp", None) is None:
                         mod.__class__ = type(mod).__bases__[0]
             self._serving[:] = [key, clone.eval()]
         return self._serving[1]

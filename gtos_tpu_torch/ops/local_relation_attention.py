@@ -45,6 +45,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
+import types
 
 import torch
 
@@ -492,3 +494,17 @@ def local_relation_attention_trainable(q, k, v, ab, rel_index_loc,
     return _LocalRelationAttention.apply(
         q, k, v, ab, rel_index_loc, node_mask, pair_order, slot_start, runs,
         _default_scale(q, scale))
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as its `local_relation_attention`: the JAX
+    package exports that function under the module's own name
+    (gtos_tpu.ops.pallas.local_relation_attention, ops/__init__.py), and
+    the port imports this module by that name. The function is looked up
+    at call time, as the model looks up every wrapper."""
+
+    def __call__(self, *args, **kw):
+        return self.local_relation_attention(*args, **kw)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -30,9 +30,11 @@ for CPU tensors and raises for anything else, and counts its launches in
       ([B, N, H, P], table type), csrc/relation_attention_bwd.cu (a row
       pass and a column pass, two launches counted as one call).
 
-`pallas_relation_attention` picks B3' when the banks pass the JAX
-package's `_inline_fits` rule and B3 otherwise. The differentiable entry
-`relation_attention_trainable` is a torch.autograd.Function: forward B3 or
+`pallas_relation_attention` picks the forward by `_inline_fits`, the
+card's rule: B3' at every shape the kernels take (measured on an H100,
+PERF.md §6); B3 stays as the forward from tables, public and checked.
+The differentiable entry `relation_attention_trainable` is a
+torch.autograd.Function: forward B3 or
 B3' (no probabilities saved), backward the JAX package's `_rel_attn_bwd`:
 rebuild the tables, B4, then the table -> q/k/bank contractions and the
 t4 redistribution in torch, in f32, gradients returned in the inputs'
@@ -56,8 +58,6 @@ SOURCES = (FWD_SOURCE, BWD_SOURCE)
 MAX_NODES = 128   # node bucket limit of the kernels (and of the TPU kernels)
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the JAX package's VMEM budget rule for the inline kernel, with its numbers
-_VMEM_BUDGET = 13 * 1024 * 1024
 
 
 def _default_scale(q, scale):
@@ -166,17 +166,20 @@ def walk_orders(rel_index):
 
 
 def _inline_fits(q, a_bank) -> bool:
-    """The JAX package's rule for the inline kernel (both banks and the
-    double-buffered blocks within a 13 MB VMEM budget), with its numbers:
-    B3' when True, B3 otherwise."""
-    B, H, N, Dh = q.shape
-    P = a_bank.shape[0]
-    Dh_pad = -(-(Dh + 1) // 128) * 128
-    P_pad = -(-P // 128) * 128
-    itemsize = q.element_size()
-    banks = 2 * H * P_pad * Dh_pad * itemsize
-    blocks = 2 * (4 * H * N * Dh_pad * itemsize + 2 * N * N * 4 + N * 4)
-    return banks + blocks <= _VMEM_BUDGET
+    """The card's rule for the global-bank forward: B3' when True, B3 on
+    `build_tables` otherwise. B3' reads each pair's bank rows from device
+    memory and keeps no bank in shared memory, so no bank size bounds it.
+    At every shape `chip_crossovers.py` timed on an H100 (PERF.md §6, "The
+    route crossovers", table (a): H=8, Dh=64, N 16-128 at the c2 loader's
+    batch sizes, P 128-8192, bf16 and f32) B3' took 1.5-118x less device
+    time than build_tables + B3, and forward plus backward (whose
+    backward is the same on both) 1.08-1.5x less. So B3' within the
+    kernels' own limits (node bucket up to MAX_NODES, head dim up to
+    MAX_HEAD_DIM), which B3 shares: past them both refuse, and the CPU's
+    plain versions compute the same function. A function of the shapes
+    alone, so a captured step's signature fixes its kernel."""
+    N, Dh = q.shape[2], q.shape[3]
+    return N <= MAX_NODES and Dh <= MAX_HEAD_DIM
 
 
 # ---------------------------------------------------------------- checks
@@ -430,10 +433,10 @@ fused_relation_attention_bwd.launches = 0
 def pallas_relation_attention(q, k, v, a_bank, b_bank, rel_index, node_mask,
                               scale=None):
     """The global-bank forward, output only (no probabilities: the
-    fusion's point): B3' when the banks pass `_inline_fits`, else B3 on
-    `build_tables`. q, k, v: [B, H, N, Dh]; a_bank/b_bank: [P, H, Dh], as
-    B3' takes them (strided views such as `split_banks`' halves too);
-    rel_index: [B, N, N] int32. Returns (out [B, H, N, Dh], None), as the
+    fusion's point): B3' where `_inline_fits` (the card's rule) says so,
+    else B3 on `build_tables`. q, k, v: [B, H, N, Dh]; a_bank/b_bank:
+    [P, H, Dh], as B3' takes them (strided views such as `split_banks`'
+    halves too); rel_index: [B, N, N] int32. Returns (out [B, H, N, Dh], None), as the
     JAX package's."""
     if _inline_fits(q, a_bank):
         return fused_relation_attention_inline(

@@ -44,6 +44,14 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def make_optimizer(cfg: TrainConfig, d_model: int,
+                   params: List[torch.Tensor]) -> "Optimizer":
+    """The JAX package's make_optimizer(cfg, d_model), which returns the
+    optax chain that a train state initialises on the parameters: here
+    the Optimizer over `params`, the chain with its state."""
+    return Optimizer(cfg, d_model, params)
+
+
 class Optimizer:
     """The optax chain of gtos_tpu/train/optim.py over `params` (f32
     tensors updated in place). `step(grads)` takes one gradient per

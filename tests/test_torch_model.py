@@ -413,7 +413,8 @@ def _route_batches():
     """Two batches of the same corpus with the "auto" aux flags: eight
     small graphs over a 1024-row global bank with 128-row local banks (the
     localized route), and two graphs whose local bank is the global one
-    (the global route)."""
+    (the global route in the JAX package, the localized one in the
+    port)."""
     kw = dict(build_block_tiles="auto", build_local_banks="auto")
     out = []
     for corpus, bvocab, bat in ((jax_corpus, jax_build_vocabs, jax_batchify),
@@ -432,28 +433,39 @@ def _route_batches():
 
 
 def test_resolve_attention_impl_matches_jax():
-    """resolve_attention_impl on batches that route each way equals the
+    """resolve_attention_impl on batches that route each way against the
     JAX package's (the counterpart of tests/test_train.py's
-    test_auto_impl_dispatch): local banks at least AUTO_LOCAL_RATIO times
-    smaller than the global bank go local, others global, batches without
-    local banks global, other impls unchanged; and the port's model gives
-    one batch the same loss on either route (one parameter set)."""
+    test_auto_impl_dispatch): "auto" sends a batch with local banks of at
+    most P / AUTO_LOCAL_RATIO rows local and others global. The port's
+    ratio is the card's, 1 (measured on an H100, PERF.md §6), the JAX
+    package's the TPU's 4, so the two differ on the batch whose local bank
+    is the global one (P_loc = P): local in the port, global in the JAX
+    package. They agree on the batch of P_loc = P / 8 (local), on batches
+    without local banks (global) and for the other impls (unchanged); and
+    the port's model gives one batch the same loss on either route (one
+    parameter set)."""
     (j_local, j_global, _), (p_local, p_global, pv) = _route_batches()
     cases = [(j_local.arrays(), p_local.arrays()),
              (j_global.arrays(), p_global.arrays())]
     no_banks = [{k: v for k, v in a.items() if k != "bank_map"}
                 for a in cases[0]]
-    routes = []
+    routes, jax_routes = [], []
     for ja, pa in cases + [tuple(no_banks)]:
-        for impl in ("auto", "xla", "pallas_local", "sparse"):
+        for impl in ("xla", "pallas_local", "sparse"):
             want = jax_resolve_attention_impl(impl, ja)
             assert resolve_attention_impl(impl, pa) == want, impl
             assert resolve_attention_impl(
                 impl, batch_to_device(pa, "cpu")) == want
         routes.append(resolve_attention_impl("auto", pa))
-        assert jax_resolve_attention_impl("auto_interpret", ja) == \
+        assert resolve_attention_impl(
+            "auto", batch_to_device(pa, "cpu")) == routes[-1]
+        assert resolve_attention_impl("auto_interpret", pa) == \
             routes[-1] + "_interpret"
-    assert routes == ["pallas_local", "pallas", "pallas"]
+        jax_routes.append(jax_resolve_attention_impl("auto", ja))
+    assert (p_global.rel_bank.shape[0], p_global.bank_map.shape[1]) == \
+        (128, 128)
+    assert routes == ["pallas_local", "pallas_local", "pallas"]
+    assert jax_routes == ["pallas_local", "pallas", "pallas"]
     tv, cv, rv, chv, _ = pv
     cfg = ModelConfig(**dict(C1, token_vocab=len(tv), concept_vocab=len(cv),
                              relation_vocab=len(rv), char_vocab=len(chv),
@@ -474,11 +486,16 @@ def test_auto_trainer_trains_mixed_batches():
     routes on the CPU (the counterpart of tests/test_train.py's
     test_auto_aux_prefers_local_banks_at_every_bucket): one parameter set
     and one optimizer state, finite losses, and each step's loss equal to
-    the loss the same model gives the batch under its fixed route."""
+    the loss the same model gives the batch under its fixed route. Under
+    the card's AUTO_LOCAL_RATIO every batch that carries local banks goes
+    local, so the global route's batch carries none."""
     from gtos_tpu_torch.train.trainer import Trainer
     from gtos_tpu_torch.utils.config import TrainConfig
 
     _, (p_local, p_global, pv) = _route_batches()
+    local_keys = ("bank_map", "rel_index_loc", "loc_perm", "loc_bnd")
+    p_global = {k: v for k, v in p_global.arrays().items()
+                if k not in local_keys}
     tv, cv, rv, chv, _ = pv
     cfg = ModelConfig(**dict(C1, token_vocab=len(tv), concept_vocab=len(cv),
                              relation_vocab=len(rv), char_vocab=len(chv),
@@ -488,9 +505,11 @@ def test_auto_trainer_trains_mixed_batches():
                       p_local.arrays(), device="cpu")
     torch.set_num_threads(1)   # the same sums in both evaluations
     try:
-        for batch in (p_local, p_global, p_local, p_global):
-            arrays = batch_to_device(batch.arrays(), "cpu")
+        routes = []
+        for raw in (p_local.arrays(), p_global) * 2:
+            arrays = batch_to_device(raw, "cpu")
             route = resolve_attention_impl("auto", arrays)
+            routes.append(route)
             model.cfg = dataclasses.replace(cfg, attention_impl=route)
             with torch.no_grad():
                 fixed = model.train()(arrays)[0].item()
@@ -502,3 +521,4 @@ def test_auto_trainer_trains_mixed_batches():
     finally:
         torch.set_num_threads(2)
     assert trainer.step == 4
+    assert routes == ["pallas_local", "pallas"] * 2

@@ -6,7 +6,8 @@ TP (dp=2, mp=2): loss rtol 1e-5, grad_norm 1e-4, every gradient rtol
 5e-4 / atol 1e-6; the full model under "block_sparse" on a graph=2 mesh
 against the single-device loss within 2e-4; beam tokens under a CP mesh
 equal to the single-device tokens; the scaling report's keys. f32,
-dropout off, the JAX init's parameters converted."""
+dropout off, the JAX init's parameters converted. Beam tokens under a TP
+mesh (mp=2) in bf16 compute equal one process's in bf16 compute."""
 
 import dataclasses
 import json
@@ -15,6 +16,7 @@ import pickle
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import optax
@@ -29,6 +31,7 @@ from gtos_tpu.models import Generator as JaxGenerator
 from gtos_tpu.utils.config import ModelConfig as JaxModelConfig
 from gtos_tpu_torch.convert import state_dict_from_flax
 from gtos_tpu_torch.models import Generator
+from gtos_tpu_torch.models.components import Dense
 from gtos_tpu_torch.models.generator import batch_to_device
 from gtos_tpu_torch.parallel.mesh import rank_coords
 from gtos_tpu_torch.utils.config import ModelConfig
@@ -211,8 +214,53 @@ def test_tp_trainer_steps_and_checkpoint(tmp_path):
             assert mu.shape == tuple(p.shape), name
 
 
-def test_mesh_steps_accumulate_path_and_layout(tmp_path):
-    """One spawn of two gloo ranks (torch_mesh_ranks.mesh_steps):
+@pytest.fixture(scope="module")
+def mesh_steps_run(tmp_path_factory):
+    """One spawn of two gloo ranks (torch_mesh_ranks.mesh_steps) that
+    test_mesh_steps_accumulate_path_and_layout and
+    test_tp_search_bf16_matches_one_process read, with the JAX package's
+    two accumulation steps on the whole batch and the files the ranks
+    read."""
+    from gtos_tpu.train import TrainState as JaxTrainState
+    from gtos_tpu.train import make_optimizer
+    from gtos_tpu.train.trainer import make_train_step as jax_make_train_step
+    from gtos_tpu.utils.config import TrainConfig as JaxTrainConfig
+    from gtos_tpu_torch.data import batchify
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
+
+    tmp_path = tmp_path_factory.mktemp("mesh_steps")
+    jm, params, ja, pcfg, _, files = _setup(tmp_path, "xla", "xla", seed=3)
+    tx = make_optimizer(JaxTrainConfig(**MESH_TRAIN), TINY["d_model"])
+    jstate = JaxTrainState(params=params, opt_state=tx.init(params),
+                           step=np.zeros((), np.int32),
+                           rng=jax.random.PRNGKey(1))
+    jstep = jax_make_train_step(jm, tx)
+    for _ in range(2):
+        jstate, _ = jstep(jstate, ja)
+    g, t = synthetic_amr_corpus(8, seed=3)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    bs = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
+                  batch_size_bucket=8, build_block_tiles=True,
+                  sparse_khop=2).arrays()
+    np.savez(tmp_path / "bs.npz", **bs)
+    bs_cfg = ModelConfig(**TINY, token_vocab=len(tv), concept_vocab=len(cv),
+                         relation_vocab=len(rv), char_vocab=len(chv),
+                         attention_impl="block_sparse", sparse_khop=2)
+    search_cfg = dataclasses.replace(pcfg, compute_dtype="bfloat16")
+    outs = ranks.spawn("mesh_steps", 2, tmp_path, **files,
+                       train_kw=MESH_TRAIN,
+                       bs_cfg_json=bs_cfg.to_json(),
+                       bs_arrays_path=str(tmp_path / "bs.npz"),
+                       search_cfg_json=search_cfg.to_json())
+    return dict(outs=outs, jstate=jstate, files=files,
+                search_cfg=search_cfg)
+
+
+def test_mesh_steps_accumulate_path_and_layout(mesh_steps_run):
+    """The spawn of mesh_steps_run (two gloo ranks,
+    torch_mesh_ranks.mesh_steps):
 
       * the Trainer at dp=2 with accum_steps=2 (each rank half the rows),
         two steps on the whole batch, so that both accumulation phases
@@ -234,40 +282,12 @@ def test_mesh_steps_accumulate_path_and_layout(tmp_path):
         dst-major layout's pairs raises LAYOUT_MISMATCH (at once on the
         CPU; on the card when check_metrics reads the metrics,
         tests/test_torch_cuda.py)."""
-    from gtos_tpu.train import TrainState as JaxTrainState
-    from gtos_tpu.train import make_optimizer
-    from gtos_tpu.train.trainer import make_train_step as jax_make_train_step
-    from gtos_tpu.utils.config import TrainConfig as JaxTrainConfig
     from gtos_tpu_torch.convert import _find
-    from gtos_tpu_torch.data import batchify
-    from gtos_tpu_torch.data.dataloader import preprocess
-    from gtos_tpu_torch.data.extract import build_vocabs
-    from gtos_tpu_torch.data.synthetic import synthetic_amr_corpus
     from gtos_tpu_torch.infer.decode import EAGER_MESH as SEARCH_CP
     from gtos_tpu_torch.ops.block_sparse_attention_bwd import LAYOUT_MISMATCH
     from gtos_tpu_torch.train.trainer import EAGER_MESH
 
-    jm, params, ja, pcfg, _, files = _setup(tmp_path, "xla", "xla", seed=3)
-    tx = make_optimizer(JaxTrainConfig(**MESH_TRAIN), TINY["d_model"])
-    jstate = JaxTrainState(params=params, opt_state=tx.init(params),
-                           step=np.zeros((), np.int32),
-                           rng=jax.random.PRNGKey(1))
-    jstep = jax_make_train_step(jm, tx)
-    for _ in range(2):
-        jstate, _ = jstep(jstate, ja)
-    g, t = synthetic_amr_corpus(8, seed=3)
-    tv, cv, rv, chv, lm = build_vocabs(g, t)
-    bs = batchify(preprocess(g, t), tv, cv, rv, chv, lm, for_train=True,
-                  batch_size_bucket=8, build_block_tiles=True,
-                  sparse_khop=2).arrays()
-    np.savez(tmp_path / "bs.npz", **bs)
-    bs_cfg = ModelConfig(**TINY, token_vocab=len(tv), concept_vocab=len(cv),
-                         relation_vocab=len(rv), char_vocab=len(chv),
-                         attention_impl="block_sparse", sparse_khop=2)
-    outs = ranks.spawn("mesh_steps", 2, tmp_path, **files,
-                       train_kw=MESH_TRAIN,
-                       bs_cfg_json=bs_cfg.to_json(),
-                       bs_arrays_path=str(tmp_path / "bs.npz"))
+    outs, jstate = mesh_steps_run["outs"], mesh_steps_run["jstate"]
     ref = state_dict_from_flax(jax.device_get(jstate.params))
     adam = _find(jax.device_get(jstate.opt_state), ("count", "mu", "nu"))
     multi = _find(jax.device_get(jstate.opt_state),
@@ -295,6 +315,61 @@ def test_mesh_steps_accumulate_path_and_layout(tmp_path):
         assert out["search"]["cp"] == SEARCH_CP
         assert out["layout"]["ok"] == 1.0
         assert out["layout"]["error"] == LAYOUT_MISMATCH
+
+
+class _TwoShardRow(Dense):
+    """A row layer of one process that computes what the layer split at
+    mp=2 computes: each half of the input columns times its half of the
+    weight, each product rounded to the compute type, their sum (the
+    group's all-reduce of two ranks), then the bias."""
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        n = w.shape[1] // 2
+        y0, y1 = (F.linear(x[..., i * n:(i + 1) * n].contiguous(),
+                           w[:, i * n:(i + 1) * n].contiguous())
+                  for i in (0, 1))
+        return (y0 + y1) + self.bias.to(x.dtype)
+
+
+def test_tp_search_bf16_matches_one_process(mesh_steps_run):
+    """Beam search (beam 2, 8 steps, "xla") under a tensor-parallel mesh
+    (mp=2, 2 gloo ranks, a spawn shared with
+    test_mesh_steps_accumulate_path_and_layout) in bf16 compute, where
+    the search runs on the serving copy: the two ranks agree in tokens and
+    scores, and each rank's tokens and scores equal those of one process
+    with the same weights in bf16 compute whose row layers (attention
+    out_proj, FFN fc2, as shard_model splits them) sum their two halves'
+    bf16 products as the group's all-reduce does (_TwoShardRow). In bf16
+    that order of rounding is part of what mp=2 computes: one process's
+    single rounding of the whole product moves the scores slightly and
+    can flip near-tied beams of these random weights. The serving
+    copy keeps the split layers Dense, so a row layer's output is the
+    group's sum before its bias; a copy of plain layers returns each
+    rank's partial sum plus the whole bias, and the ranks decode other
+    tokens than this reference and than each other. Replaying the captured TP search on several cards waits
+    for a machine with several cards (ROADMAP A9 (a))."""
+    from gtos_tpu_torch.infer.decode import beam_decode_arrays
+    from gtos_tpu_torch.models.components import FeedForward
+    from gtos_tpu_torch.parallel.tensor_parallel import _attention_modules
+
+    files = mesh_steps_run["files"]
+    model = Generator(mesh_steps_run["search_cfg"], device="cpu")
+    model.load_state_dict(torch.load(files["state_path"]))
+    rows = [m.out_proj for m in _attention_modules(model) if m.heads % 2 == 0]
+    rows += [m.fc2 for m in model.modules() if isinstance(m, FeedForward)
+             and m.fc1.weight.shape[0] % 2 == 0]
+    assert len(rows) == 5    # 3 attentions, 2 FFNs (one layer a stack)
+    for layer in rows:
+        layer.__class__ = _TwoShardRow
+    ref = beam_decode_arrays(model, dict(np.load(files["arrays_path"])),
+                             beam_size=2, max_steps=8)
+    got = [out["tp_search"] for out in mesh_steps_run["outs"]]
+    for out in got:
+        np.testing.assert_array_equal(out["seqs"], ref.seqs.numpy())
+        np.testing.assert_array_equal(out["scores"], ref.scores.numpy())
+    np.testing.assert_array_equal(got[0]["seqs"], got[1]["seqs"])
+    np.testing.assert_array_equal(got[0]["scores"], got[1]["scores"])
 
 
 def test_block_sparse_model_graph2_matches_single_device(tmp_path):

@@ -53,10 +53,10 @@ def _real_rows(x, N):
 def test_tables_and_plain_b3_match_jax(N, P):
     """build_tables against the JAX package's _build_tables, and the
     plain B3 (what a CPU tensor runs) against fused_relation_attention
-    under the interpreter, on the JAX tables; last at the bank size at
-    which B3 serves (P=4096, N=32). The JAX kernel takes P a multiple of
-    128 only, so B3 at other P is held on the card, against the plain
-    version."""
+    under the interpreter, on the JAX tables; last at the c2 batches'
+    bank size (P=4096, N=32), where the TPU's rule takes B3. The JAX
+    kernel takes P a multiple of 128 only, so B3 at other P is held on
+    the card, against the plain version."""
     c = make_global_case(B, H, N, DH, P)
     q, k, v, ab, bb, idx, mask = _jax(c, "q", "k", "v", "a_bank", "b_bank",
                                       "rel_index", "mask")
@@ -150,25 +150,48 @@ def test_trainable_grads_match_jax(N, P):
                                    **TOL, err_msg=name)
 
 
+# where the card's rule and the JAX package's (the TPU's VMEM budget)
+# part, at the shapes chip_crossovers.py times (H=8, Dh=64, N at the c2
+# loader's largest batch per bucket, P on the bank ladder and 8192):
+# (dtype, N) -> the smallest P at which the JAX rule takes B3
+JAX_TAKES_B3_FROM = {("float32", 16): 2048, ("float32", 32): 2048,
+                     ("float32", 64): 2048, ("float32", 128): 2048,
+                     ("bfloat16", 16): 4096, ("bfloat16", 32): 4096,
+                     ("bfloat16", 64): 4096, ("bfloat16", 128): 4096}
+SWEEP_B = {16: 128, 32: 16, 64: 8, 128: 1}
+
+
 def test_inline_fits_matches_jax():
-    """The port's _inline_fits (which of B3'/B3 a forward takes) equals the
-    JAX package's over a grid of shapes and both types, c2's heads and
-    head dim among them."""
+    """The port's _inline_fits (which of B3'/B3 a forward takes) is the
+    card's rule, set from chip_crossovers.py's sweep on an H100 (PERF.md
+    §6): B3' at every shape the sweep timed, in both types, and at every
+    shape within the kernels' limits (node bucket up to MAX_NODES, head
+    dim up to MAX_HEAD_DIM); B3 only past them. The JAX package's rule
+    (both banks within the TPU's VMEM) differs, shape by shape, where it
+    takes B3 (JAX_TAKES_B3_FROM); the two forwards compute the same
+    function, so only the choice differs."""
+    from gtos_tpu_torch.ops.relation_attention import MAX_HEAD_DIM, MAX_NODES
+
     for dtype, jdt in ((torch.float32, jnp.float32),
                        (torch.bfloat16, jnp.bfloat16)):
-        for Bq, H, N, Dh in ((16, 8, 32, 64), (8, 8, 128, 64),
-                             (2, 4, 16, 32), (32, 2, 64, 128)):
-            for P in (128, 1000, 2048, 4096, 8192):
-                q = torch.zeros(Bq, H, N, Dh, dtype=dtype)
-                a = torch.zeros(P, H, Dh, dtype=dtype)
-                jq = jax.ShapeDtypeStruct((Bq, H, N, Dh), jdt)
-                ja = jax.ShapeDtypeStruct((P, H, Dh), jdt)
-                assert _inline_fits(q, a) == jax_ra._inline_fits(jq, ja), (
-                    dtype, Bq, H, N, Dh, P)
-    c2 = torch.zeros(16, 8, 32, 64, dtype=torch.bfloat16)
-    assert _inline_fits(c2, torch.zeros(2048, 8, 64, dtype=torch.bfloat16))
-    assert not _inline_fits(c2, torch.zeros(4096, 8, 64,
-                                            dtype=torch.bfloat16))
+        name = str(dtype).replace("torch.", "")
+        for N, Bq in SWEEP_B.items():
+            for P in (128, 256, 512, 1024, 2048, 4096, 8192):
+                q = torch.zeros(Bq, 8, N, 64, dtype=dtype)
+                a = torch.zeros(P, 8, 64, dtype=dtype)
+                jq = jax.ShapeDtypeStruct((Bq, 8, N, 64), jdt)
+                ja = jax.ShapeDtypeStruct((P, 8, 64), jdt)
+                assert _inline_fits(q, a), (name, Bq, N, P)
+                assert jax_ra._inline_fits(jq, ja) == (
+                    P < JAX_TAKES_B3_FROM[name, N]), (name, Bq, N, P)
+        for Bq, H, N, Dh in ((2, 4, 16, 32), (32, 2, 64, 128),
+                             (8, 12, 128, 128)):
+            for P in (128, 1000, 65536):
+                assert _inline_fits(torch.zeros(Bq, H, N, Dh, dtype=dtype),
+                                    torch.zeros(P, H, Dh, dtype=dtype))
+    for N, Dh in ((MAX_NODES * 2, 64), (32, MAX_HEAD_DIM * 2)):
+        assert not _inline_fits(torch.zeros(1, 2, N, Dh),
+                                torch.zeros(128, 2, Dh))
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():

@@ -191,7 +191,7 @@ def trainer_steps(cfg_json, state_path, arrays_path, dp, mp, graph, steps):
 
 
 def mesh_steps(cfg_json, state_path, arrays_path, bs_cfg_json,
-               bs_arrays_path, train_kw):
+               bs_arrays_path, train_kw, search_cfg_json):
     """The mesh steps' cases on two ranks, in one spawn:
 
       accum   dp=2, TrainConfig(**train_kw) (accum_steps=2): the
@@ -202,10 +202,13 @@ def mesh_steps(cfg_json, state_path, arrays_path, bs_cfg_json,
               step_path and the error of compiled=True (EAGER_MESH);
       search  search_graphs(compiled=True)'s error under a tensor-
               parallel mesh (mp=2) and under graph=2;
+      tp_search  beam_decode_arrays (beam 2, 8 steps) of the batch by the
+              model of search_cfg_json (bf16 compute) split at mp=2: its
+              tokens and scores, searched on the serving copy;
       layout  block_sparse at dp=2: the layout flag of a step on
               matching tile layouts, and the error of a step whose
               src-major layout holds no pair."""
-    from gtos_tpu_torch.infer.decode import search_graphs
+    from gtos_tpu_torch.infer.decode import beam_decode_arrays, search_graphs
     from gtos_tpu_torch.models import Generator
     from gtos_tpu_torch.parallel import tensor_parallel as tp
     from gtos_tpu_torch.train.trainer import Trainer, check_metrics
@@ -249,6 +252,9 @@ def mesh_steps(cfg_json, state_path, arrays_path, bs_cfg_json,
         tp=error(lambda: search_graphs(tp_model, compiled=True)),
         tp_enabled=search_graphs(tp_model).enabled,
         cp=error(lambda: search_graphs(cp_model, compiled=True)))
+    bf16 = tp.shard_model(_model(search_cfg_json, state_path), tpm)
+    res = beam_decode_arrays(bf16, raw, beam_size=2, max_steps=8)
+    out["tp_search"] = dict(seqs=res.seqs.numpy(), scores=res.scores.numpy())
     bs_raw = dict(np.load(bs_arrays_path))
     bs_cfg = ModelConfig.from_json(bs_cfg_json)
     bs = Trainer(Generator(bs_cfg, device="cpu"), bs_cfg, tcfg, bs_raw,

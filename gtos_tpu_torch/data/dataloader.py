@@ -8,6 +8,10 @@ then to `batch_multiple`, and batches built in this process or by a pool
 of worker processes or threads, yielded in plan order with the same
 arrays. Under data parallelism (host_count > 1) every rank plans the same
 batches and fills only its own rows (batchify's host_shard).
+
+Spans (utils/profiling.py): "gtos/loader/emit", each batchify call in
+this process (on a thread pool's threads too); "gtos/loader/pool_wait",
+the iterating thread's wait for the pool's next group.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from gtos_tpu_torch.graph.ir import Graph
 from gtos_tpu_torch.graph.paths import (
     PathInterner, RelationPathConfig, pack_relation_paths,
 )
+from gtos_tpu_torch.utils.profiling import annotate
 
 # which extractor the last preprocess call ran: "native" (the C++
 # extractor, gtos_tpu_torch/native) or "python" (its build or load failed)
@@ -227,25 +232,27 @@ class DataLoader:
         m = self.batch_multiple
         bsz = -(-bsz // m) * m
         try:
-            yield batchify(
-                group,
-                self.vocabs["token"], self.vocabs["concept"],
-                self.vocabs["relation"], self.vocabs["char"],
-                self.lexical_map, spec=self.spec,
-                batch_size_bucket=bsz, for_train=self.for_train,
-                build_edges=self.build_edges, cp_shards=self.cp_shards,
-                sparse_khop=self.sparse_khop,
-                build_block_tiles=self.build_block_tiles,
-                build_local_banks=self.build_local_banks,
-                host_shard=((self.host_rank, self.host_count)
-                            if self.host_count > 1 else None),
-            ), group
+            with annotate("gtos/loader/emit"):
+                batch = batchify(
+                    group,
+                    self.vocabs["token"], self.vocabs["concept"],
+                    self.vocabs["relation"], self.vocabs["char"],
+                    self.lexical_map, spec=self.spec,
+                    batch_size_bucket=bsz, for_train=self.for_train,
+                    build_edges=self.build_edges, cp_shards=self.cp_shards,
+                    sparse_khop=self.sparse_khop,
+                    build_block_tiles=self.build_block_tiles,
+                    build_local_banks=self.build_local_banks,
+                    host_shard=((self.host_rank, self.host_count)
+                                if self.host_count > 1 else None))
         except BatchCapacityError:
             if len(group) == 1:
                 raise  # one instance over the cap is a data/config problem
             mid = len(group) // 2
             yield from self._emit(group[:mid])
             yield from self._emit(group[mid:])
+        else:
+            yield batch, group
 
     def _emit_sizes(self, group) -> List[tuple]:
         """_emit's batches, each with the count of the group's instances
@@ -310,7 +317,8 @@ class DataLoader:
             while futs:
                 fut, group = futs.popleft()
                 try:
-                    done = fut.result(timeout=POOL_TIMEOUT_S)
+                    with annotate("gtos/loader/pool_wait"):
+                        done = fut.result(timeout=POOL_TIMEOUT_S)
                 except concurrent.futures.TimeoutError:
                     self.close()
                     raise TimeoutError(

@@ -3,7 +3,8 @@
 `prefetch_iter` runs the host-side transform of upcoming items (batchify ->
 numpy -> tensors on the device) in a daemon thread, `depth` items ahead of
 the training loop, so the per-batch Python work overlaps the card's work
-on the steps already queued.
+on the steps already queued. The consumer's wait for each item is the
+span "gtos/prefetch/wait" (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
+
+from gtos_tpu_torch.utils.profiling import annotate
 
 _DONE = object()
 
@@ -31,9 +34,15 @@ def prefetch_iter(
     daemon thread still inside torch when the interpreter exits can abort
     the process)."""
     if depth <= 0:
-        for item in iterable:
-            yield fn(item) if fn is not None else item
-        return
+        it = iter(iterable)
+        while True:
+            with annotate("gtos/prefetch/wait"):
+                item = next(it, _DONE)
+                if item is not _DONE and fn is not None:
+                    item = fn(item)
+            if item is _DONE:
+                return
+            yield item
 
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -65,7 +74,8 @@ def prefetch_iter(
     t.start()
     try:
         while True:
-            item = q.get()
+            with annotate("gtos/prefetch/wait"):
+                item = q.get()
             if item is _DONE:
                 if err:
                     raise err[0]

@@ -24,7 +24,10 @@ same shapes:
     steps late, through pinned memory and an event on the card, so the
     card always has steps queued (at most LAG - 1 of them past the end).
     The CPU runs the same loop; its copy of the flag is synchronous, so
-    there it is current when read.
+    there it is current when read. `Search.launched_steps` counts the
+    steps every search of the process has launched; each launch is the
+    span "gtos/search/step" and each wait for the flag
+    "gtos/search/wait_flag" (utils/profiling.py).
 
 Top-k keeps `jax.lax.top_k`'s order on ties (lower index first) by a
 stable descending sort; dead beams tie at -1e9, so this matters for token
@@ -40,6 +43,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from gtos_tpu_torch.utils.device import resolve_device
+from gtos_tpu_torch.utils.profiling import annotate
 
 NEG_INF = -1e9
 # steps the host reads the end-of-search flag behind the card
@@ -110,6 +114,9 @@ class Search:
     caches); reorder_fn(caches, flat_parent [B*K] int64, out) writes the
     reordered per-beam leaves of `caches` into `out` (default: every
     leaf; leaves the two sets share are left as they are)."""
+
+    # steps launched by `run`, summed over every search of the process
+    launched_steps = 0
 
     def __init__(self, batch_size: int, beam_size: int, max_steps: int,
                  ext_vocab: int, token_vocab: int, str_id: int, end_id: int,
@@ -241,20 +248,26 @@ class Search:
         cuda = self.dev.type == "cuda"
         lag = LAG
         done = [None] * lag     # per ring slot: the step's event
+        launched = 0
         for s in range(self.Tmax):
             if s >= lag:
-                ev = done[s % lag]
-                if ev is not None:
-                    ev.synchronize()
-                # the flag was copied by step s - lag or a later one: it
-                # only ever turns false
-                if not bool(self.flag):
+                with annotate("gtos/search/wait_flag"):
+                    ev = done[s % lag]
+                    if ev is not None:
+                        ev.synchronize()
+                    # the flag was copied by step s - lag or a later one:
+                    # it only ever turns false
+                    go = bool(self.flag)
+                if not go:
                     break
-            step(self.parity(s))
+            with annotate("gtos/search/step"):
+                step(self.parity(s))
+            launched += 1
             self.flag.copy_(self.go, non_blocking=cuda)
             if cuda:
                 done[s % lag] = torch.cuda.Event()
                 done[s % lag].record()
+        Search.launched_steps += launched
 
 
 def beam_search(

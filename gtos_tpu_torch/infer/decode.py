@@ -21,6 +21,13 @@ mesh the search is captured the same way, its all-reduces and all-gathers
 inside the graphs (a signature's first call, uncaptured, creates the
 communicators); under a context-parallel mesh it runs uncaptured
 (`EAGER_MESH`).
+
+Spans (utils/profiling.py), each served batch's inside its
+"gtos/decode/batch": "gtos/decode/to_device" (the batch's copy to the card
+and into the graph's inputs), "gtos/decode/prep" (the encode's launch),
+the search's "gtos/search/step" and "gtos/search/wait_flag" (infer/beam.py),
+"gtos/decode/read" (the result's gathers and their read back, the wait for
+the last steps) and "gtos/decode/detok".
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from gtos_tpu_torch.models.generator import (
     Generator, batch_edges, batch_to_device, resolve_attention_impl,
 )
 from gtos_tpu_torch.utils import graphs as graphs_mod
+from gtos_tpu_torch.utils.profiling import annotate
 
 # why a search runs uncaptured on the card (ROADMAP A9)
 EAGER_MESH = ("a search under a context-parallel mesh (graph > 1) runs "
@@ -135,21 +143,23 @@ def beam_decode_arrays(
     cfg = model.cfg
     dev = model.device
     impl = impl or resolve_attention_impl(cfg.attention_impl, arrays)
-    t = batch_to_device(arrays, dev, train=False)
-    B = t["concept"].shape[0]
-    steps = min(max_steps, cfg.max_target_len - 1)
-    key = ("search", impl, graphs_mod.signature(t), beam_size, steps, alpha,
-           str_id, end_id, unk_id)
-    cache = model.searches if graphs.enabled else {}
-    served = cache.get(key)
-    if served is None:
-        served = cache[key] = _Served(Search(
-            B, beam_size, steps, cfg.ext_vocab, cfg.token_vocab, str_id,
-            end_id, unk_id, alpha, dev))
-    static = graphs.inputs(key, t)
+    with annotate("gtos/decode/to_device"):
+        t = batch_to_device(arrays, dev, train=False)
+        B = t["concept"].shape[0]
+        steps = min(max_steps, cfg.max_target_len - 1)
+        key = ("search", impl, graphs_mod.signature(t), beam_size, steps,
+               alpha, str_id, end_id, unk_id)
+        cache = model.searches if graphs.enabled else {}
+        served = cache.get(key)
+        if served is None:
+            served = cache[key] = _Served(Search(
+                B, beam_size, steps, cfg.ext_vocab, cfg.token_vocab, str_id,
+                end_id, unk_id, alpha, dev))
+        static = graphs.inputs(key, t)
     search = served.search
-    graphs.run(key + ("prep",), lambda: _prep(model, static, served, impl,
-                                              steps))
+    with annotate("gtos/decode/prep"):
+        graphs.run(key + ("prep",), lambda: _prep(model, static, served,
+                                                  impl, steps))
     masks = served.masks
 
     def step_fn(tokens, pos, caches):
@@ -158,7 +168,8 @@ def beam_decode_arrays(
     search.step_fn = step_fn
     search.run(lambda parity: graphs.run(
         key + ("step", parity), lambda: search.step(parity)))
-    return search.result()
+    with annotate("gtos/decode/read"):
+        return search.result()
 
 
 def decode_batch(model: Generator, batch, token_vocab, beam_size: int = 8,
@@ -169,14 +180,17 @@ def decode_batch(model: Generator, batch, token_vocab, beam_size: int = 8,
     token_vocab: the target-side Vocab (id -> string table and the
     STR/END/UNK ids). attention_impl "auto" is resolved here, per batch.
     compiled: as `beam_decode_arrays`."""
-    arrays = batch.arrays()
-    res = beam_decode_arrays(
-        model, arrays, beam_size=beam_size, max_steps=max_steps,
-        alpha=alpha, str_id=token_vocab.str_id, end_id=token_vocab.end_id,
-        unk_id=token_vocab.unk_id,
-        impl=resolve_attention_impl(model.cfg.attention_impl, arrays),
-        compiled=compiled)
-    seqs = res.seqs[:, 0].cpu().numpy()
-    return [detokenize(seqs[b], token_vocab.itos, batch.oov_lists[b],
-                       end_id=token_vocab.end_id)
-            for b in range(len(batch.oov_lists))]
+    with annotate("gtos/decode/batch"):
+        arrays = batch.arrays()
+        res = beam_decode_arrays(
+            model, arrays, beam_size=beam_size, max_steps=max_steps,
+            alpha=alpha, str_id=token_vocab.str_id,
+            end_id=token_vocab.end_id, unk_id=token_vocab.unk_id,
+            impl=resolve_attention_impl(model.cfg.attention_impl, arrays),
+            compiled=compiled)
+        with annotate("gtos/decode/read"):
+            seqs = res.seqs[:, 0].cpu().numpy()
+        with annotate("gtos/decode/detok"):
+            return [detokenize(seqs[b], token_vocab.itos, batch.oov_lists[b],
+                               end_id=token_vocab.end_id)
+                    for b in range(len(batch.oov_lists))]

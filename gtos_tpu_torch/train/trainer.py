@@ -25,6 +25,13 @@ later. Batches are packed and copied to the device `prefetch` ahead in a
 background thread. A non-finite loss stops training with a resumable
 checkpoint on disk.
 
+Spans (utils/profiling.py), for a profile of `fit`: on the prefetch thread
+"gtos/trainer/prep" with its children "gtos/trainer/pack" and
+"gtos/trainer/to_device"; on the main thread "gtos/prefetch/wait" (the
+step waits for the feed), "gtos/train/step" (the host's part of a step,
+around utils/graphs.py's "gtos/graphs/*"), "gtos/fit/read_metrics" (the
+host waits for the card to read a loss) and "gtos/fit/checkpoint".
+
 Under attention_impl "auto" the model resolves each batch's route itself
 (Generator.forward): one model, one parameter set and one optimizer state
 for every route; the step cache holds each route's graphs, as the JAX
@@ -80,7 +87,7 @@ from gtos_tpu_torch.train.optim import Optimizer
 from gtos_tpu_torch.utils import graphs
 from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
 from gtos_tpu_torch.utils.device import resolve_device
-from gtos_tpu_torch.utils.profiling import StepTimer
+from gtos_tpu_torch.utils.profiling import StepTimer, annotate
 
 # why a mesh step runs uncaptured on the card (ROADMAP A9)
 EAGER_MESH = ("a context-parallel mesh (graph > 1) runs its steps "
@@ -406,15 +413,19 @@ class Trainer:
     def _prep(self, batch):
         """Host-side work per batch (runs in the prefetch thread): pack to
         numpy, then copy (this rank's part) to the device."""
-        raw = batch.arrays()
-        return raw, self._put(raw)
+        with annotate("gtos/trainer/prep"):
+            with annotate("gtos/trainer/pack"):
+                raw = batch.arrays()
+            with annotate("gtos/trainer/to_device"):
+                return raw, self._put(raw)
 
     def train_step(self, arrays: Dict[str, torch.Tensor]) -> dict:
         """One optimizer step on a batch on the device (a replay of its
         signature's graph on the card). Returns its metrics (loss, acc,
         n_tok, grad_norm, layout_ok) as device scalars, unread: the caller
         passes them to check_metrics when it reads them, as fit does."""
-        metrics = self._step(arrays)
+        with annotate("gtos/train/step"):
+            metrics = self._step(arrays)
         self.step += 1
         return metrics
 
@@ -459,8 +470,9 @@ class Trainer:
         def drain(to_len: int = 0):
             while len(pending) > to_len:
                 s, m = pending.popleft()
-                loss_val = float(m["loss"])
-                check_metrics(m)
+                with annotate("gtos/fit/read_metrics"):
+                    loss_val = float(m["loss"])
+                    check_metrics(m)
                 if not np.isfinite(loss_val):
                     if self.ckpt is not None:
                         self.ckpt.wait()
@@ -470,11 +482,12 @@ class Trainer:
                 drained[0] = (s, m, loss_val)
 
         def save():
-            state = self.state_dict()   # every rank: TP gathers
-            if self.lead:
-                self.ckpt.save(self.step, state, cursor={
-                    "epoch": getattr(train_loader, "epoch", 0),
-                    "batch": batch_idx})
+            with annotate("gtos/fit/checkpoint"):
+                state = self.state_dict()   # every rank: TP gathers
+                if self.lead:
+                    self.ckpt.save(self.step, state, cursor={
+                        "epoch": getattr(train_loader, "epoch", 0),
+                        "batch": batch_idx})
 
         if self._resume_cursor is not None and hasattr(train_loader,
                                                        "epoch"):
@@ -501,9 +514,10 @@ class Trainer:
                     drain(0)
                     _, m, loss_val = drained[0]
                     rates = timer.rates()
-                    last = {"step": step, "loss": loss_val,
-                            "acc": float(m["acc"]),
-                            "grad_norm": float(m["grad_norm"]),
+                    with annotate("gtos/fit/read_metrics"):
+                        acc, grad_norm = float(m["acc"]), float(m["grad_norm"])
+                    last = {"step": step, "loss": loss_val, "acc": acc,
+                            "grad_norm": grad_norm,
                             "tokens_per_s": rates["tokens_per_s"],
                             "edges_per_s": rates["edges_per_s"]}
                     if self.metrics is not None:

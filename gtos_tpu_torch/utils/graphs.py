@@ -34,6 +34,11 @@ keeps the launches its capture recorded, takes them back off the counts
 can be swapped for stand-ins at call time (utils/kernel_calls.py: planted
 kernels, the bench's spans); a swap empties every cache, so a graph never
 replays a wrapper that no longer stands.
+
+Spans (utils/profiling.py): "gtos/graphs/inputs" (the refill of the static
+inputs), "gtos/graphs/replay" (a replay's launch), and at a signature's
+first call "gtos/graphs/first" (the uncaptured run) then
+"gtos/graphs/capture".
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Callable, Dict, Hashable, Optional
 import torch
 
 from gtos_tpu_torch.utils import kernel_calls
+from gtos_tpu_torch.utils.profiling import annotate
 
 
 def use_graphs(device: torch.device, compiled: Optional[bool]) -> bool:
@@ -111,8 +117,9 @@ class Graphs:
         if static is None:
             static = self._inputs[key] = {k: torch.empty_like(v)
                                           for k, v in arrays.items()}
-        for k, v in arrays.items():
-            static[k].copy_(v, non_blocking=True)
+        with annotate("gtos/graphs/inputs"):
+            for k, v in arrays.items():
+                static[k].copy_(v, non_blocking=True)
         return static
 
     def run(self, key: Hashable, fn: Callable, generators=()):
@@ -125,7 +132,8 @@ class Graphs:
             self._swaps = kernel_calls.swaps()
         g = self.graphs.get(key)
         if g is not None:
-            g.graph.replay()
+            with annotate("gtos/graphs/replay"):
+                g.graph.replay()
             _add_counts(g.launches, 1)
             self.replays += 1
             return g.out
@@ -144,7 +152,8 @@ class Graphs:
         for gen in generators:
             graph.register_generator_state(gen)
         with torch.cuda.stream(side):
-            out = fn()
+            with annotate("gtos/graphs/first"):
+                out = fn()
             before = _counts()
             t0 = time.perf_counter()
             # no collection inside the capture: a dropped graph that a
@@ -152,17 +161,18 @@ class Graphs:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                graph.capture_begin(pool=self._pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    static = fn()
-                except BaseException:
-                    try:        # end the broken capture; the error is fn's
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                graph.capture_end()
+                with annotate("gtos/graphs/capture"):
+                    graph.capture_begin(pool=self._pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        static = fn()
+                    except BaseException:
+                        try:    # end the broken capture; the error is fn's
+                            graph.capture_end()
+                        except RuntimeError:
+                            pass
+                        raise
+                    graph.capture_end()
             finally:
                 if collecting:
                     gc.enable()

@@ -1056,6 +1056,51 @@ def _block_sparse_step_reads_nothing(cfg, batch):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+@pytest.mark.cuda
+def test_cuda_train_step_spans_show_the_capture_then_the_replay(card):
+    """Under the profiler (host and card), a signature's first Trainer
+    step records "gtos/graphs/first" and then "gtos/graphs/capture" inside
+    its "gtos/train/step", and the next step on that signature exactly one
+    "gtos/graphs/replay" inside its own (utils/graphs.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import TrainConfig
+
+    cfg, batch = _small_train_setup(6)
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, cfg, TrainConfig(warmup_steps=2),
+                      batch.arrays(), device="cuda")
+    arrays = trainer._put(batch.arrays())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(arrays)
+        trainer.train_step(arrays)
+        torch.cuda.synchronize()
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("gtos/")
+             and str(e.device_type()) == "DeviceType.CPU"]
+
+    def inside(step, name):
+        return [s for s in spans
+                if s[0] == name and step[1] <= s[1] and s[2] <= step[2]]
+
+    steps = sorted((s for s in spans if s[0] == "gtos/train/step"),
+                   key=lambda s: s[1])
+    assert len(steps) == 2
+    first = inside(steps[0], "gtos/graphs/first")
+    capture = inside(steps[0], "gtos/graphs/capture")
+    assert len(first) == 1 and len(capture) == 1
+    assert first[0][2] <= capture[0][1]
+    assert not inside(steps[0], "gtos/graphs/replay")
+    assert len(inside(steps[1], "gtos/graphs/replay")) == 1
+    assert not inside(steps[1], "gtos/graphs/first")
+    assert trainer._step.graphs.replays == 1
+
+
 @pytest.fixture
 def nccl_mesh(card, tmp_path):
     """A data-parallel mesh of one NCCL rank (this process), destroyed

@@ -3,8 +3,11 @@
 `prefetch_iter` runs the host-side transform of upcoming items (batchify ->
 numpy -> tensors on the device) in a daemon thread, `depth` items ahead of
 the training loop, so the per-batch Python work overlaps the card's work
-on the steps already queued. The consumer's wait for each item is the
-span "gtos/prefetch/wait" (utils/profiling.py).
+on the steps already queued. The Trainer's transform on one card queues
+the copy to the card on a stream of its own and does not wait for it
+(train/feed.py): the item reaches the consumer before its copy has
+landed, and the step waits for it on the card. The consumer's wait for
+each item is the span "gtos/prefetch/wait" (utils/profiling.py).
 """
 
 from __future__ import annotations

@@ -21,9 +21,15 @@ a device flag that the step returns with its metrics ("layout_ok");
 `check_metrics` raises its ValueError when they are read. On the CPU, or
 with compiled=False, the same step functions run uncaptured. The host
 queues work for the card and reads a loss back only `max_inflight` steps
-later. Batches are packed and copied to the device `prefetch` ahead in a
-background thread. A non-finite loss stops training with a resumable
-checkpoint on disk.
+later, on the card on a stream of its own that waits for that step alone
+(an `.item()` on the step's stream would wait for the steps queued after
+it too, and the card would run dry while the host queues the next).
+Batches are packed `prefetch` ahead in a background thread. On one card
+that thread also stages each batch's copy to the card (train/feed.py: one
+pinned buffer, one asynchronous copy on a stream of its own) and waits for
+nothing there; the step makes its stream wait for the copy's event.
+Evaluation, the CPU and a mesh copy synchronously (`_put`). A non-finite
+loss stops training with a resumable checkpoint on disk.
 
 Spans (utils/profiling.py), for a profile of `fit`: on the prefetch thread
 "gtos/trainer/prep" with its children "gtos/trainer/pack" and
@@ -67,6 +73,7 @@ view of its directory.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from collections import deque
@@ -80,9 +87,10 @@ from gtos_tpu_torch.models.generator import (
     Generator, batch_to_device, resolve_attention_impl,
 )
 from gtos_tpu_torch.ops.block_sparse_attention_bwd import (
-    LAYOUT_MISMATCH, PAIR_CAP,
+    LAYOUT_MISMATCH, PAIR_CAP, with_pair_cap,
 )
 from gtos_tpu_torch.parallel.train import all_reduce_grads
+from gtos_tpu_torch.train.feed import StagedBatch, StagedCopy
 from gtos_tpu_torch.train.optim import Optimizer
 from gtos_tpu_torch.utils import graphs
 from gtos_tpu_torch.utils.config import ModelConfig, TrainConfig
@@ -324,6 +332,13 @@ class Trainer:
         self.dev_bleu_fn = dev_bleu_fn
         self.prefetch = prefetch
         self.max_inflight = max_inflight
+        # the training feed's copy on one card (_prep); `.batches` counts
+        # the batches it staged, 0 on the CPU and under a mesh
+        self.staged_copy = StagedCopy(self.device)
+        # on the card: the event after the newest queued step, and the
+        # stream fit reads metrics on (_reading)
+        self.step_done = None
+        self._read_stream = None
         self._resume_cursor = None
 
     # ---------------- state ----------------
@@ -412,22 +427,43 @@ class Trainer:
 
     def _prep(self, batch):
         """Host-side work per batch (runs in the prefetch thread): pack to
-        numpy, then copy (this rank's part) to the device."""
+        numpy, then copy (this rank's part) to the device; on one card a
+        staged copy (train/feed.py), queued and not waited for."""
         with annotate("gtos/trainer/prep"):
             with annotate("gtos/trainer/pack"):
                 raw = batch.arrays()
             with annotate("gtos/trainer/to_device"):
+                if self.mesh is None and self.device.type == "cuda":
+                    return raw, self.staged_copy(with_pair_cap(raw))
                 return raw, self._put(raw)
 
     def train_step(self, arrays: Dict[str, torch.Tensor]) -> dict:
         """One optimizer step on a batch on the device (a replay of its
         signature's graph on the card). Returns its metrics (loss, acc,
         n_tok, grad_norm, layout_ok) as device scalars, unread: the caller
-        passes them to check_metrics when it reads them, as fit does."""
+        passes them to check_metrics when it reads them, as fit does. A
+        staged batch (_prep) is waited for on the card first; on the card
+        `step_done` is then an event recorded after the step."""
         with annotate("gtos/train/step"):
+            if isinstance(arrays, StagedBatch):
+                arrays.wait(torch.cuda.current_stream(self.device))
             metrics = self._step(arrays)
+            if self.device.type == "cuda":
+                self.step_done = torch.cuda.Event()
+                self.step_done.record()
         self.step += 1
         return metrics
+
+    def _reading(self, done):
+        """Where fit reads a queued step's metrics: on the card, the read
+        stream, made to wait for `done` (that step's `step_done`) alone;
+        elsewhere, where the caller is. Called inside a span."""
+        if done is None:
+            return contextlib.nullcontext()
+        if self._read_stream is None:
+            self._read_stream = torch.cuda.Stream(self.device)
+        self._read_stream.wait_event(done)
+        return torch.cuda.stream(self._read_stream)
 
     def step_path(self, arrays) -> str:
         """How a step on this batch runs: "captured", or "uncaptured: "
@@ -461,16 +497,17 @@ class Trainer:
         timer.start()
         last: Dict[str, float] = {}
         batch_idx = skip = 0
-        # (step, device metrics) of queued but unread steps: reading a loss
-        # waits for its step, so the deque keeps the host max_inflight
-        # steps ahead of the card
+        # (step, device metrics, step_done) of queued but unread steps:
+        # reading a loss waits for its step alone (_reading), so the deque
+        # keeps the host max_inflight steps ahead of the card
         pending: deque = deque()
-        drained = [None]  # (step, metrics, loss) of the newest read step
+        # (step, metrics, loss, step_done) of the newest read step
+        drained = [None]
 
         def drain(to_len: int = 0):
             while len(pending) > to_len:
-                s, m = pending.popleft()
-                with annotate("gtos/fit/read_metrics"):
+                s, m, done = pending.popleft()
+                with annotate("gtos/fit/read_metrics"), self._reading(done):
                     loss_val = float(m["loss"])
                     check_metrics(m)
                 if not np.isfinite(loss_val):
@@ -479,7 +516,7 @@ class Trainer:
                     raise FloatingPointError(
                         f"non-finite loss {loss_val} at step {s}; restart "
                         "with --resume from the last checkpoint")
-                drained[0] = (s, m, loss_val)
+                drained[0] = (s, m, loss_val, done)
 
         def save():
             with annotate("gtos/fit/checkpoint"):
@@ -505,16 +542,18 @@ class Trainer:
             for raw, arrays in prefetch_iter(src, self._prep,
                                              depth=self.prefetch):
                 batch_idx += 1
-                pending.append((self.step + 1, self.train_step(arrays)))
+                metrics = self.train_step(arrays)
+                pending.append((self.step, metrics, self.step_done))
                 timer.step(n_tokens=int(raw["token_mask"].sum()),
                            n_edges=_batch_edges_count(raw))
                 drain(self.max_inflight)
                 step = self.step
                 if step % log_every == 0 or step == cfg.total_steps:
                     drain(0)
-                    _, m, loss_val = drained[0]
+                    _, m, loss_val, done = drained[0]
                     rates = timer.rates()
-                    with annotate("gtos/fit/read_metrics"):
+                    with annotate("gtos/fit/read_metrics"), \
+                            self._reading(done):
                         acc, grad_norm = float(m["acc"]), float(m["grad_norm"])
                     last = {"step": step, "loss": loss_val, "acc": acc,
                             "grad_norm": grad_norm,

@@ -40,6 +40,7 @@ from gtos_tpu_torch.ops.relation_attention import (
     fused_relation_attention_inline_reference,
     fused_relation_attention_reference, walk_orders,
 )
+from gtos_tpu_torch.utils.graphs import signature
 
 # the three cases of tests/test_local_kernel.py (B, H, N, Dh, P, P_loc)
 CASES = [(2, 2, 32, 16, 200, 128), (2, 2, 16, 16, 600, 512),
@@ -1272,3 +1273,180 @@ def test_cuda_evaluate_and_search_after_captured_steps_run_in_eval_mode(
         assert torch.equal(getattr(got, field), getattr(ref, field))
     limit = 2.0 ** -17 * ref.scores.abs().max().item()
     assert (got.scores - ref.scores).abs().max().item() <= limit
+
+
+def _c4_feed_setup(dropout=0.1):
+    """The c4 translator's shape at small widths (no copy, node positions,
+    localized banks; dropout in the graph) and the training loader of 64
+    dependency trees of 10-15 tokens in 256-token batches (4 an epoch,
+    the first, second and fourth of one signature)."""
+    from gtos_tpu_torch.data import DataLoader
+    from gtos_tpu_torch.data.dataloader import preprocess
+    from gtos_tpu_torch.data.extract import build_vocabs
+    from gtos_tpu_torch.data.synthetic import synthetic_dependency_corpus
+    from gtos_tpu_torch.utils.config import ModelConfig
+
+    g, t = synthetic_dependency_corpus(64, seed=3, min_len=10, max_len=15)
+    tv, cv, rv, chv, lm = build_vocabs(g, t)
+    dl = DataLoader(preprocess(g, t), tv, cv, rv, chv, lm,
+                    batch_size_tokens=256, for_train=True,
+                    build_local_banks=True)
+    cfg = ModelConfig(token_vocab=len(tv), concept_vocab=len(cv),
+                      relation_vocab=len(rv), char_vocab=len(chv),
+                      d_model=64, d_ff=128, heads=4, enc_layers=2,
+                      dec_layers=2, max_target_len=32, dropout=dropout,
+                      label_smoothing=0.1, use_copy=False,
+                      use_node_positions=True, attention_impl="pallas_local")
+    return cfg, dl
+
+
+def _c4_trainer(cfg, example, **kw):
+    from gtos_tpu_torch.models import Generator
+    from gtos_tpu_torch.train.trainer import Trainer
+    from gtos_tpu_torch.utils.config import TrainConfig
+
+    model = Generator(cfg, device="cuda",
+                      rng=torch.Generator().manual_seed(0))
+    return Trainer(model, cfg, TrainConfig(warmup_steps=2, **kw), example,
+                   device="cuda")
+
+
+# card cycles of torch.cuda._sleep for about 50 ms (an H100 runs at up to
+# 1.98 GHz)
+SLEEP_50MS = 100_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas_local", "block_sparse"])
+def test_cuda_staged_copy_equals_batch_to_device(card, impl):
+    """The training feed's staged copy (train/feed.py) of a batch with
+    its pair capacity, waited for on the current stream: the keys,
+    dtypes, shapes and values of batch_to_device's, bit for bit, and the
+    same signature; the copy counted."""
+    from gtos_tpu_torch.models.generator import batch_to_device
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import with_pair_cap
+    from gtos_tpu_torch.train.feed import StagedCopy
+
+    if impl == "pallas_local":
+        raw = next(iter(_c4_feed_setup()[1])).arrays()
+    else:
+        raw = _small_train_setup(6, impl=impl)[1].arrays()
+    copy = StagedCopy("cuda")
+    got = copy(with_pair_cap(raw))
+    got.wait(torch.cuda.current_stream())
+    want = batch_to_device(raw, "cuda")
+    assert copy.batches == 1 and list(got) == list(want)
+    for k, w in want.items():
+        assert got[k].device == w.device and got[k].dtype == w.dtype, k
+        assert got[k].shape == w.shape and torch.equal(got[k], w), k
+    assert signature(got) == signature(want)
+
+
+@pytest.mark.cuda
+def test_cuda_held_back_staged_copies_give_the_synchronous_steps(card):
+    """Two Trainers from one state: one signature captured on the first
+    batch by each, then three replayed steps on three batches of that
+    signature, one Trainer's through batch_to_device, the other's staged
+    with its copy stream held ~100 ms by a sleep queued before each copy
+    and the copy's device buffer left holding zeros, a batch with no
+    tokens: the same metrics, bit for bit (deterministic algorithms), so
+    each replay read its batch only after the copy landed."""
+    from gtos_tpu_torch.ops.block_sparse_attention_bwd import with_pair_cap
+    from gtos_tpu_torch.train.feed import layout
+    from gtos_tpu_torch.utils.benchlib import deterministic_algorithms
+
+    cfg, dl = _c4_feed_setup()
+    batches = list(dl)
+    dl.close()
+    same = [batches[i] for i in (0, 1, 3, 0)]
+    assert len({signature(b.arrays()) for b in same}) == 1
+    with deterministic_algorithms():
+        sync, staged = (_c4_trainer(cfg, same[0].arrays()) for _ in "ab")
+        got, want = [], []
+        for tr in (sync, staged):
+            tr.train_step(tr._put(same[0].arrays()))
+        copy = staged.staged_copy
+        copy.stream = torch.cuda.Stream()
+        for b in same[1:]:
+            want.append(sync.train_step(sync._put(b.arrays())))
+            size = layout(with_pair_cap(b.arrays()))[1]
+            with torch.cuda.stream(copy.stream):
+                junk = torch.zeros(size, dtype=torch.uint8, device="cuda")
+            torch.cuda.synchronize()
+            del junk        # the block the staged copy's buffer reuses
+            with torch.cuda.stream(copy.stream):
+                torch.cuda._sleep(2 * SLEEP_50MS)
+            got.append(staged.train_step(staged._prep(b)[1]))
+        torch.cuda.synchronize()
+    assert copy.batches == 3 and staged._step.graphs.replays == 3
+    for g, w in zip(got, want):
+        assert float(w["n_tok"]) > 0
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_prep_does_not_wait_on_the_card(card):
+    """With ~50 ms of sleep queued on the default stream, Trainer._prep
+    (pack and staged copy) returns in under 20 ms, while the synchronous
+    copy (_put) waits for the sleep."""
+    import time
+
+    cfg, dl = _c4_feed_setup()
+    batch = next(iter(dl))
+    dl.close()
+    trainer = _c4_trainer(cfg, batch.arrays())
+    trainer._prep(batch)                # the stream and the pinned pool
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_50MS)
+    t0 = time.perf_counter()
+    trainer._prep(batch)
+    staged = time.perf_counter() - t0
+    trainer._put(batch.arrays())
+    sync = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert staged < 0.020 and sync >= 0.040, (staged, sync)
+
+
+@pytest.mark.cuda
+def test_cuda_fit_stages_every_step(card):
+    """Trainer.fit on the card over one epoch (4 batches, prefetch 2):
+    every step's batch went through the staged copy, and the loss is
+    finite."""
+    cfg, dl = _c4_feed_setup()
+    example = next(iter(dl)).arrays()
+    assert len(dl) == 4
+    trainer = _c4_trainer(cfg, example, total_steps=4)
+    try:
+        last = trainer.fit(dl, log_every=1)
+    finally:
+        dl.close()
+    assert trainer.step == 4 == trainer.staged_copy.batches
+    assert np.isfinite(last["loss"])
+
+
+@pytest.mark.cuda
+def test_cuda_fit_reads_a_step_without_waiting_for_later_ones(card):
+    """A Trainer step, then ~50 ms of sleep queued on the default stream
+    behind it: fit's read of that step's metrics (Trainer._reading with
+    its step_done) returns before the sleep ends, with the loss a read on
+    the default stream gives afterwards."""
+    import time
+
+    cfg, dl = _c4_feed_setup()
+    batch = next(iter(dl))
+    dl.close()
+    trainer = _c4_trainer(cfg, batch.arrays())
+    trainer.train_step(trainer._prep(batch)[1])        # the capture
+    torch.cuda.synchronize()
+    m = trainer.train_step(trainer._prep(batch)[1])     # a replay
+    done = trainer.step_done
+    torch.cuda._sleep(SLEEP_50MS)
+    t0 = time.perf_counter()
+    with trainer._reading(done):
+        loss = float(m["loss"])
+    read = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    waited = time.perf_counter() - t0
+    assert read < 0.020 and waited >= 0.040, (read, waited)
+    assert loss == float(m["loss"]) and np.isfinite(loss)

@@ -53,6 +53,12 @@ class BatchCapacityError(ValueError):
     node count); the DataLoader bisects the batch and retries."""
 
 
+class BankOverflowError(BatchCapacityError):
+    """The batch's relation paths overflow the last rung of `bank` or
+    `local_bank`; a lone graph over it takes a rung of its own
+    (BucketSpec.with_lone_rungs, the DataLoader)."""
+
+
 @dataclasses.dataclass
 class Instance:
     """One preprocessed example: graph side + target side, still as strings.
@@ -72,7 +78,9 @@ class Instance:
 @dataclasses.dataclass(frozen=True)
 class BucketSpec:
     """Size ladders; each dim is padded up to the smallest bucket >= actual.
-    The last entry is the hard cap. Same ladders as the JAX package."""
+    The last entry is the hard cap, except that the DataLoader batches a
+    lone graph over `bank` or `local_bank` at a rung above it
+    (with_lone_rungs). Same ladders as the JAX package."""
 
     nodes: Tuple[int, ...] = (16, 32, 64, 128)        # incl. global node
     target: Tuple[int, ...] = (16, 32, 64, 128)       # incl. STR/END
@@ -89,6 +97,22 @@ class BucketSpec:
 
     def for_model_max_oov(self, model_max_oov: int) -> "BucketSpec":
         return dataclasses.replace(self, max_oov=model_max_oov)
+
+    def with_lone_rungs(self) -> "BucketSpec":
+        """This spec with `bank` and `local_bank` each continued by
+        doublings of its last rung up to nodes[-1]**2, which no graph of
+        the largest node bucket exceeds (its real pairs, the pad and the
+        global path): the ladders of a lone graph over the cap."""
+        cap = self.nodes[-1] ** 2
+
+        def up(ladder):
+            out = list(ladder)
+            while out[-1] < cap:
+                out.append(2 * out[-1])
+            return tuple(out)
+
+        return dataclasses.replace(self, bank=up(self.bank),
+                                   local_bank=up(self.local_bank))
 
     @staticmethod
     def fit(ladder: Tuple[int, ...], size: int) -> int:
@@ -349,7 +373,7 @@ def batchify(
     n_rows = len(bank_gids)
     P = BucketSpec.fit(spec.bank, n_rows)
     if n_rows > P:
-        raise BatchCapacityError(
+        raise BankOverflowError(
             f"relation bank overflow: {n_rows} unique paths > cap {P}; use "
             "smaller batches or a larger bank bucket")
     bank_len = interner.lengths()[bank_gids]
@@ -453,7 +477,7 @@ def _build_local_banks(rel_index, spec: BucketSpec):
         widths.append(len(rows))
     P_loc = BucketSpec.fit(spec.local_bank, max(widths))
     if max(widths) > P_loc:
-        raise BatchCapacityError(
+        raise BankOverflowError(
             f"local bank overflow: {max(widths)} distinct paths in one "
             f"graph > cap {P_loc}; raise spec.local_bank")
     bank_map = np.zeros((B, P_loc), dtype=np.int32)

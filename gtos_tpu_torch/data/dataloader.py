@@ -9,9 +9,18 @@ of worker processes or threads, yielded in plan order with the same
 arrays. Under data parallelism (host_count > 1) every rank plans the same
 batches and fills only its own rows (batchify's host_shard).
 
+One instance whose relation paths overflow the last rung of the bank
+ladders, where bisection cannot help, is batched alone at a rung of its
+own (BucketSpec.with_lone_rungs: doublings of the last rung), with the
+arrays a BucketSpec ending at that rung gives; the JAX package raises
+there. Every batch that fits the ladders is built as before.
+
 Spans (utils/profiling.py): "gtos/loader/emit", each batchify call in
-this process (on a thread pool's threads too); "gtos/loader/pool_wait",
-the iterating thread's wait for the pool's next group.
+this process (on a thread pool's threads too); "gtos/loader/lone_rung",
+the batchify of a lone graph at its rung, inside it; "gtos/loader/pool_wait",
+the iterating thread's wait for the pool's next group. Counters, running
+totals over the batches yielded: `lone_rung_batches`, the batches at a
+lone rung, and `lone_rung_largest`, the largest such rung (0 before one).
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 from gtos_tpu_torch import native
 from gtos_tpu_torch.data.batching import (
-    BatchCapacityError, BucketSpec, GraphBatch, Instance, batchify,
+    BankOverflowError, BatchCapacityError, BucketSpec, GraphBatch, Instance,
+    batchify,
 )
 from gtos_tpu_torch.data.vocab import LexicalMap, Vocab
 from gtos_tpu_torch.graph.ir import Graph
@@ -185,6 +195,8 @@ class DataLoader:
         self.host_count = host_count
         self.workers = workers
         self.worker_mode = worker_mode
+        self.lone_rung_batches = 0
+        self.lone_rung_largest = 0
 
     def _cost(self, inst: Instance) -> int:
         return max(len(inst.target) + 1, len(inst.concepts) + 1)
@@ -224,35 +236,60 @@ class DataLoader:
 
     def _emit(self, group) -> Iterator:
         """Batchify a group as (GraphBatch, instances); if its relation bank
-        overflows the bucket cap, bisect until it fits."""
+        overflows the bucket cap, bisect until it fits, and batch a lone
+        instance over the bank ladders at a rung of its own."""
+        try:
+            with annotate("gtos/loader/emit"):
+                batch = self._batchify(group, self.spec)
+        except BatchCapacityError as err:
+            if len(group) == 1:
+                if not isinstance(err, BankOverflowError):
+                    raise  # one instance over the cap is a data problem
+                with annotate("gtos/loader/emit"), \
+                        annotate("gtos/loader/lone_rung"):
+                    batch = self._batchify(group,
+                                           self.spec.with_lone_rungs())
+                yield batch, group
+                return
+            mid = len(group) // 2
+            yield from self._emit(group[:mid])
+            yield from self._emit(group[mid:])
+        else:
+            yield batch, group
+
+    def _batchify(self, group, spec: BucketSpec) -> GraphBatch:
         # Pad the batch dim to a power of two, then to batch_multiple.
         bsz = 1
         while bsz < len(group):
             bsz *= 2
         m = self.batch_multiple
         bsz = -(-bsz // m) * m
-        try:
-            with annotate("gtos/loader/emit"):
-                batch = batchify(
-                    group,
-                    self.vocabs["token"], self.vocabs["concept"],
-                    self.vocabs["relation"], self.vocabs["char"],
-                    self.lexical_map, spec=self.spec,
-                    batch_size_bucket=bsz, for_train=self.for_train,
-                    build_edges=self.build_edges, cp_shards=self.cp_shards,
-                    sparse_khop=self.sparse_khop,
-                    build_block_tiles=self.build_block_tiles,
-                    build_local_banks=self.build_local_banks,
-                    host_shard=((self.host_rank, self.host_count)
-                                if self.host_count > 1 else None))
-        except BatchCapacityError:
-            if len(group) == 1:
-                raise  # one instance over the cap is a data/config problem
-            mid = len(group) // 2
-            yield from self._emit(group[:mid])
-            yield from self._emit(group[mid:])
-        else:
-            yield batch, group
+        return batchify(
+            group,
+            self.vocabs["token"], self.vocabs["concept"],
+            self.vocabs["relation"], self.vocabs["char"],
+            self.lexical_map, spec=spec,
+            batch_size_bucket=bsz, for_train=self.for_train,
+            build_edges=self.build_edges, cp_shards=self.cp_shards,
+            sparse_khop=self.sparse_khop,
+            build_block_tiles=self.build_block_tiles,
+            build_local_banks=self.build_local_banks,
+            host_shard=((self.host_rank, self.host_count)
+                        if self.host_count > 1 else None))
+
+    def _count(self, batch: GraphBatch) -> GraphBatch:
+        """Count the batch in the lone-rung counters if its bank lies above
+        the spec's ladders (a lone graph's rung)."""
+        rung = 0
+        if batch.rel_bank.shape[0] > self.spec.bank[-1]:
+            rung = batch.rel_bank.shape[0]
+        if batch.bank_map is not None and \
+                batch.bank_map.shape[1] > self.spec.local_bank[-1]:
+            rung = max(rung, batch.bank_map.shape[1])
+        if rung:
+            self.lone_rung_batches += 1
+            self.lone_rung_largest = max(self.lone_rung_largest, rung)
+        return batch
 
     def _emit_sizes(self, group) -> List[tuple]:
         """_emit's batches, each with the count of the group's instances
@@ -294,7 +331,8 @@ class DataLoader:
         groups = self._plan_batches()
         if self.workers <= 1 or len(groups) < 2:
             for group in groups:
-                yield from self._emit(group)
+                for batch, part in self._emit(group):
+                    yield self._count(batch), part
             return
         pool = self._get_pool()
         if self.worker_mode == "thread":
@@ -327,7 +365,7 @@ class DataLoader:
                         f"{POOL_TIMEOUT_S} s")
                 start = 0
                 for batch, n in done:
-                    yield batch, group[start:start + n]
+                    yield self._count(batch), group[start:start + n]
                     start += n
                 submit()
         finally:

@@ -200,6 +200,8 @@ def test_cuda_b1p_and_b2_match_plain_versions(card, B, H, N, Dh, P, P_loc,
 LOCAL_EDGE_CASES = {"N1": (2, 8, 1, 64, 16, "random"),
                     "N17_H12": (2, 12, 17, 64, 300, "random"),
                     "N128_P4096": (2, 8, 128, 64, 4096, "random"),
+                    # a lone graph's rung above the bank ladders
+                    "N128_P16384": (1, 8, 128, 64, 16384, "random"),
                     "Dh32": (2, 8, 32, 32, 512, "random"),
                     "Dh128": (2, 8, 32, 128, 512, "random"),
                     "Dh20": (2, 4, 24, 20, 256, "random"),
